@@ -1,0 +1,149 @@
+"""Gather-aware einsum: the CUDA kernel's wrapper, its plain PyTorch
+version, and ``parse_spec`` (port of ``repro.kernels.gather_einsum``).
+
+``gather_einsum(spec, x, table, user_index)`` computes
+``einsum(spec, x, table[clamp(user_index)])`` for specs of the form
+``"b...,u...->b..."``. A CPU tensor goes to ``gather_einsum_plain`` (any
+spec ``parse_spec`` accepts). A CUDA tensor launches
+``csrc/gather_einsum.cu`` for the three ``KERNEL_SPECS`` — the gathered
+``(B, ...)`` operand never materializes — and raises
+``NotImplementedError`` for any other spec. ``LAUNCHES`` counts kernel
+launches per spec.
+
+Index contract (shared with ``mari_matmul``'s gather init): ``user_index``
+is ``(B,)`` integer, row ``b`` reads ``table[user_index[b]]``, and
+out-of-range values clamp to ``[0, U-1]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.common import take_clip
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+
+# the decomposed-attention contractions, in csrc Spec enum order
+KERNEL_SPECS = ("bd,uldh->blh", "bl,uld->bd", "blh,uh->bl")
+
+# kernel launches per spec (one per launch, counted nowhere else)
+LAUNCHES = dict.fromkeys(KERNEL_SPECS, 0)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def parse_spec(spec: str) -> tuple[str, str, str, str]:
+    """Validate a gather-einsum spec; returns (x_sub, t_sub, out_sub,
+    row_spec) where ``row_spec`` is the per-row einsum after the gather
+    (``u`` replaced by ``b``)."""
+    try:
+        lhs, out = spec.split("->")
+        x_sub, t_sub = lhs.split(",")
+    except ValueError:
+        raise ValueError(f"gather_einsum spec must be 'b...,u...->b...', "
+                         f"got {spec!r}") from None
+    if not (x_sub.startswith("b") and t_sub.startswith("u")
+            and out.startswith("b")):
+        raise ValueError(
+            f"gather_einsum spec {spec!r}: first operand must lead with the "
+            f"row dim 'b', the table with the user dim 'u', the output with "
+            f"'b'")
+    if "u" in x_sub or "u" in out or "b" in t_sub:
+        raise ValueError(f"gather_einsum spec {spec!r}: 'u' lives only on "
+                         f"the table operand, 'b' never does")
+    for sub in (x_sub, t_sub, out):
+        if len(set(sub)) != len(sub):
+            raise ValueError(f"gather_einsum spec {spec!r}: repeated dim "
+                             f"in {sub!r}")
+    if not set(out[1:]) <= set(x_sub[1:]) | set(t_sub[1:]):
+        raise ValueError(f"gather_einsum spec {spec!r}: output dim not "
+                         f"present in any operand")
+    return x_sub, t_sub, out, f"{x_sub},b{t_sub[1:]}->{out}"
+
+
+def out_shape(spec: str, x: Tensor, table: Tensor,
+              user_index: Tensor) -> tuple[int, ...]:
+    """Validate operand ranks and shared dims; the output shape."""
+    x_sub, t_sub, out_sub, _ = parse_spec(spec)
+    if x.ndim != len(x_sub) or table.ndim != len(t_sub):
+        raise ValueError(f"gather_einsum {spec!r}: operand ranks "
+                         f"{tuple(x.shape)}/{tuple(table.shape)} do not match "
+                         f"the spec")
+    B = x.shape[0]
+    if tuple(user_index.shape) != (B,):
+        raise ValueError(f"user_index must be ({B},), got "
+                         f"{tuple(user_index.shape)}")
+    sizes = dict(zip(x_sub, x.shape))
+    for c, s in zip(t_sub, table.shape):
+        if sizes.setdefault(c, s) != s:
+            raise ValueError(f"gather_einsum {spec!r}: dim {c!r} is "
+                             f"{sizes[c]} on x but {s} on the table")
+    return tuple(sizes[c] for c in out_sub)
+
+
+def gather_einsum_plain(spec: str, x: Tensor, table: Tensor,
+                        user_index: Tensor) -> Tensor:
+    """Plain PyTorch version: an explicit clamped gather, then einsum."""
+    _, _, _, row_spec = parse_spec(spec)
+    return torch.einsum(row_spec, x, take_clip(table, user_index))
+
+
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("gather_einsum")
+    if lib.gather_einsum_f32.argtypes is None:
+        lib.gather_einsum_f32.argtypes = _ARGTYPES
+        lib.gather_einsum_f32.restype = ctypes.c_int
+    return lib
+
+
+def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
+            shape: tuple[int, ...]) -> Tensor:
+    if spec not in KERNEL_SPECS:
+        raise NotImplementedError(
+            f"gather_einsum: the CUDA kernel covers {KERNEL_SPECS}, not "
+            f"{spec!r}")
+    for name, t in (("table", table), ("user_index", user_index)):
+        if t.device != x.device:
+            raise ValueError(f"gather_einsum: {name} on {t.device}, x on "
+                             f"{x.device}")
+    if x.dtype != torch.float32 or table.dtype != torch.float32:
+        raise TypeError(f"gather_einsum CUDA kernel takes float32 only, got "
+                        f"{x.dtype} / {table.dtype}")
+    x, table = x.contiguous(), table.contiguous()
+    idx = user_index.to(torch.int32).contiguous()
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out                        # nothing to launch
+    dims = list(table.shape[1:]) + [0] * (4 - table.ndim)
+    if spec == "blh,uh->bl":
+        dims[1] = x.shape[1]            # the kernel also needs L
+    lib = _lib()
+    with torch.cuda.device(x.device):    # launch in the tensors' context
+        rc = lib.gather_einsum_f32(
+            KERNEL_SPECS.index(spec), x.data_ptr(), table.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), x.shape[0], table.shape[0],
+            *dims, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, f"gather_einsum {spec!r}")
+    LAUNCHES[spec] += 1
+    return out
+
+
+def gather_einsum(spec: str, x: Tensor, table: Tensor,
+                  user_index: Tensor) -> Tensor:
+    """``einsum(spec, x, table[clamp(user_index)])``, gather fused into the
+    kernel on CUDA."""
+    shape = out_shape(spec, x, table, user_index)
+    if x.device.type == "cpu":
+        return gather_einsum_plain(spec, x, table, user_index)
+    if x.device.type != "cuda":
+        raise ValueError(f"gather_einsum: unsupported device {x.device}")
+    return _launch(spec, x, table, user_index, shape)

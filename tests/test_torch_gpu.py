@@ -1,0 +1,172 @@
+"""Card-only checks of the port's CUDA kernels and engine (jax-free).
+
+Every test here is marked ``gpu`` and skips without a CUDA device; on the
+card run ``python -m pytest -m gpu tests/test_torch_gpu.py``. Kernels are
+held against their plain PyTorch versions on the same device at fp32
+rtol = atol = 2e-4 (tests/test_kernels.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.graph.executor import init_graph_params
+from repro_torch.kernels import gather_einsum as ge
+from repro_torch.kernels import mari_matmul as mm
+from repro_torch.models.ranking import (PaperRankingConfig,
+                                        build_paper_ranking_model)
+from repro_torch.models.recsys import build_din
+from repro_torch.serve import ServePlan, ServeRequest, ServingEngine
+
+pytestmark = pytest.mark.gpu
+TOL = dict(rtol=2e-4, atol=2e-4)
+ACTS = ("identity", "relu", "gelu", "silu", "sigmoid", "tanh")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(gen, *shape):
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def _gen(dev, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+@pytest.mark.parametrize("B,K,N", [(37, 50, 40), (1000, 1064, 512),
+                                   (1, 7, 1), (130, 16, 64)])
+def test_mari_matmul_kernel_matches_plain(cuda, mode, activation, B, K, N):
+    g = _gen(cuda, B + K)
+    x, w = _randn(g, B, K), _randn(g, K, N)
+    U = 5
+    u = _randn(g, {"broadcast": 1, "rowwise": B, "gather": U}[mode], N)
+    idx = (torch.randint(-2, U + 3, (B,), generator=g, device=cuda,
+                         dtype=torch.int32) if mode == "gather" else None)
+    launched = mm.ops.init_mode(B, u, idx)     # B == 1: a (1, N) u broadcasts
+    before = mm.LAUNCHES[launched]
+    got = mm.mari_matmul(x, w, u, idx, activation)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES[launched] == before + 1
+    torch.testing.assert_close(got, mm.mari_matmul_plain(x, w, u, idx,
+                                                         activation), **TOL)
+
+
+def test_mari_matmul_row_independent_of_batch(cuda):
+    """No split-K: a row's result does not depend on B or its position."""
+    g = _gen(cuda, 1)
+    x, w, u = _randn(g, 300, 700), _randn(g, 700, 96), _randn(g, 300, 96)
+    full = mm.mari_matmul(x, w, u, None, "relu")
+    part = mm.mari_matmul(x[123:200].contiguous(), w,
+                          u[123:200].contiguous(), None, "relu")
+    assert torch.equal(full[123:200], part)
+
+
+def test_mari_matmul_kernel_refuses_bf16(cuda):
+    x = torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 only"):
+        mm.mari_matmul(x, x.T.contiguous(), torch.zeros(1, 4, device=cuda,
+                                                       dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("U", [1, 5])
+@pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
+def test_gather_einsum_kernel_matches_plain(cuda, spec, U):
+    g = _gen(cuda, U)
+    B, L, D, H = 301, 100, 18, 80
+    x_shape, t_shape = {
+        "bd,uldh->blh": ((B, D), (U, L, D, H)),
+        "bl,uld->bd": ((B, L), (U, L, D)),
+        "blh,uh->bl": ((B, L, H), (U, H)),
+    }[spec]
+    x, table = _randn(g, *x_shape), _randn(g, *t_shape)
+    idx = torch.randint(-3, U + 4, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = ge.LAUNCHES[spec]
+    got = ge.gather_einsum(spec, x, table, idx)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES[spec] == before + 1
+    torch.testing.assert_close(got, ge.gather_einsum_plain(spec, x, table,
+                                                           idx), **TOL)
+
+
+def test_gather_einsum_other_spec_raises_on_cuda(cuda):
+    x = torch.zeros(3, 4, device=cuda)
+    table = torch.zeros(2, 4, 5, device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="CUDA kernel covers"):
+        ge.gather_einsum("bi,uij->bj", x, table, idx)
+
+
+def _requests(graph, pools, seed):
+    rng = np.random.default_rng(seed)
+    vocab = {n.inputs[0]: n.attrs["vocab"] for n in graph.nodes.values()
+             if n.op == "embedding"}
+    out = []
+    for uid, n in enumerate(pools):
+        user, cand = {}, {}
+        for node in graph.input_nodes():
+            is_user = node.attrs["domain"] == "user"
+            shape = (1 if is_user else n,) + tuple(node.attrs["shape"])
+            if node.attrs.get("dtype", "float32").startswith("int"):
+                a = rng.integers(0, vocab[node.name], shape, dtype=np.int32)
+            else:
+                a = rng.standard_normal(shape, dtype=np.float32)
+            (user if is_user else cand)[node.name] = a
+        out.append(ServeRequest(uid, user, cand))
+    return out
+
+
+@pytest.mark.parametrize("model", ["paper", "din"])
+def test_engine_on_card_matches_cpu(cuda, model):
+    if model == "paper":
+        graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.1))
+    else:
+        graph, _ = build_din(embed_dim=8, seq_len=12, attn_mlp=(16, 8),
+                             mlp=(24, 12), item_vocab=128)
+    params = init_graph_params(graph, seed=0, device="cpu")
+    plan = ServePlan.preset("tpu").evolve(batch__max_batch=64,
+                                          batch__min_bucket=8)
+    reqs = _requests(graph, (11, 70, 5), seed=1)
+    want = [r.scores for r in
+            ServingEngine(graph, params, plan, device="cpu")
+            .score_coalesced(reqs)]
+    mm.reset_launches()
+    ge.reset_launches()
+    eng = ServingEngine(graph, params, plan, device=cuda)
+    per = [eng.score(r).scores for r in reqs]
+    co = [r.scores for r in eng.score_coalesced(reqs)]
+    for w, p, c in zip(want, per, co):
+        np.testing.assert_allclose(p, w, **TOL)
+        np.testing.assert_allclose(c, p, **TOL)
+    assert mm.LAUNCHES["gather"] > 0
+    if model == "din":
+        assert ge.LAUNCHES["bd,uldh->blh"] > 0
+        assert ge.LAUNCHES["bl,uld->bd"] > 0
+
+
+def test_overlapped_groups_keep_private_buffers(cuda):
+    """Several same-bucket groups launched before any is collected: each
+    pack's pinned buffers stay its own while its non-blocking copy is
+    pending, so no group reads another group's candidate rows."""
+    graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.1))
+    params = init_graph_params(graph, seed=0, device=cuda)
+    eng = ServingEngine(graph, params, ServePlan.preset("tpu").evolve(
+        batch__max_batch=256, batch__min_bucket=256), device=cuda)
+    groups = [_requests(graph, (200, 50), seed=s) for s in range(6)]
+    for g, s in zip(groups, range(6)):
+        for uid, r in enumerate(g):
+            r.user_id = 10 * s + uid
+    want = [[eng.score(r).scores for r in g] for g in groups]
+    handles = [eng.begin_coalesced(g) for g in groups]
+    for h, w in zip(handles, want):
+        for r, expect in zip(eng.collect(h), w):
+            np.testing.assert_allclose(r.scores, expect, **TOL)

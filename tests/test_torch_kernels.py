@@ -1,0 +1,171 @@
+"""The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
+against the reference's Pallas ops run in interpret mode.
+
+Inputs are made from a seed with numpy and handed to both packages.
+Tolerance: fp32 rtol = atol = 2e-4, as tests/test_kernels.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import gather_einsum as jax_gather_einsum
+from repro.kernels import mari_matmul_fused_groups as jax_fused_groups
+from repro.kernels.gather_einsum.kernel import parse_spec as jax_parse_spec
+from repro_torch.kernels import gather_einsum as ge
+from repro_torch.kernels import mari_matmul as mm
+from repro_torch.kernels.gather_einsum import (gather_einsum,
+                                               gather_einsum_plain, parse_spec)
+from repro_torch.kernels.mari_matmul import (mari_matmul,
+                                             mari_matmul_fused_groups,
+                                             mari_matmul_plain)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+ACTS = ("identity", "relu", "gelu", "silu", "sigmoid", "tanh")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _groups_case(mode, seed, B=37, Du=24, D1=30, D2=20, d=40, U=5):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    parts = [(f(1, Du), f(Du, d)), (f(B, D1), f(D1, d)), (f(B, D2), f(D2, d))]
+    bias = f(d)
+    acc0 = uidx = None
+    if mode == "rowwise":
+        acc0 = f(B, d)
+    elif mode == "gather":
+        acc0 = f(U, d)
+        # out-of-range both ways: the contract clamps to [0, U-1]
+        uidx = rng.integers(-2, U + 3, (B,)).astype(np.int32)
+    return parts, bias, acc0, uidx
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+def test_mari_matmul_groups_match_reference(mode, activation):
+    parts, bias, acc0, uidx = _groups_case(mode, seed=len(activation))
+    want = jax_fused_groups(parts, bias, acc0=acc0, user_index=uidx,
+                            activation=activation, interpret=True)
+    before = dict(mm.LAUNCHES)
+    got = mari_matmul_fused_groups(
+        [(_t(x), _t(w)) for x, w in parts], _t(bias),
+        acc0=None if acc0 is None else _t(acc0),
+        user_index=None if uidx is None else _t(uidx),
+        activation=activation)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert mm.LAUNCHES == before        # CPU tensors never launch a kernel
+
+
+def test_mari_matmul_groups_no_batched_stream():
+    """Every part batch-1 with a gathered table: the init row is the
+    output, gathered per row (clamped)."""
+    rng = np.random.default_rng(3)
+    parts = [(rng.standard_normal((1, 9)).astype(np.float32),
+              rng.standard_normal((9, 6)).astype(np.float32))]
+    acc0 = rng.standard_normal((3, 6)).astype(np.float32)
+    uidx = np.array([0, 2, 5, -1], np.int32)
+    want = jax_fused_groups(parts, None, acc0=acc0, user_index=uidx,
+                            activation="relu", interpret=True)
+    got = mari_matmul_fused_groups([(_t(x), _t(w)) for x, w in parts],
+                                   acc0=_t(acc0), user_index=_t(uidx),
+                                   activation="relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+def test_mari_matmul_wrapper_is_plain_on_cpu(mode):
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((19, 13)).astype(np.float32))
+    w = _t(rng.standard_normal((13, 7)).astype(np.float32))
+    rows = {"broadcast": 1, "rowwise": 19, "gather": 4}[mode]
+    u = _t(rng.standard_normal((rows, 7)).astype(np.float32))
+    idx = _t(np.arange(19, dtype=np.int32) % 6) if mode == "gather" else None
+    assert mm.ops.init_mode(19, u, idx) == mode
+    torch.testing.assert_close(mari_matmul(x, w, u, idx, "silu"),
+                               mari_matmul_plain(x, w, u, idx, "silu"),
+                               rtol=0, atol=0)
+
+
+def test_mari_matmul_wrapper_rejects():
+    x, w = torch.zeros(4, 3), torch.zeros(3, 2)
+    with pytest.raises(ValueError, match="rows must be 1 or B"):
+        mari_matmul(x, w, torch.zeros(3, 2))
+    with pytest.raises(ValueError, match="unsupported epilogue"):
+        mari_matmul(x, w, torch.zeros(1, 2), activation="softplus")
+    with pytest.raises(ValueError, match="user_index must be"):
+        mari_matmul(x, w, torch.zeros(2, 2), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        mari_matmul(x.to("meta"), w.to("meta"), torch.zeros(1, 2,
+                                                            device="meta"))
+
+
+def _ge_case(spec, U, seed, B=23, L=7, D=6, H=5):
+    rng = np.random.default_rng(seed)
+    x_shape, t_shape = {
+        "bd,uldh->blh": ((B, D), (U, L, D, H)),
+        "bl,uld->bd": ((B, L), (U, L, D)),
+        "blh,uh->bl": ((B, L, H), (U, H)),
+    }[spec]
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    table = rng.standard_normal(t_shape).astype(np.float32)
+    uidx = rng.integers(-3, U + 4, (B,)).astype(np.int32)   # out of range too
+    return x, table, uidx
+
+
+@pytest.mark.parametrize("U", [1, 3, 5])
+@pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
+def test_gather_einsum_matches_reference(spec, U):
+    x, table, uidx = _ge_case(spec, U, seed=U)
+    want = jax_gather_einsum(spec, x, table, uidx, interpret=True)
+    before = dict(ge.LAUNCHES)
+    got = gather_einsum(spec, _t(x), _t(table), _t(uidx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert ge.LAUNCHES == before
+    torch.testing.assert_close(
+        got, gather_einsum_plain(spec, _t(x), _t(table), _t(uidx)),
+        rtol=0, atol=0)
+
+
+def test_gather_einsum_other_spec_runs_plain_on_cpu():
+    """A spec parse_spec accepts but the kernel does not cover still runs
+    through the plain version on CPU tensors."""
+    spec = "bi,uij->bj"
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((6, 4)).astype(np.float32)
+    table = rng.standard_normal((3, 4, 5)).astype(np.float32)
+    uidx = np.array([0, 1, 2, 9, -1, 1], np.int32)
+    want = jax_gather_einsum(spec, x, table, uidx, interpret=True)
+    got = gather_einsum(spec, _t(x), _t(table), _t(uidx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+BAD_SPECS = ["bd,uldh", "bd->blh", "xd,uldh->blh", "bd,xldh->blh",
+             "bd,uldh->xlh", "bud,uldh->blh", "bd,uldh->bu", "bd,ubld->bl",
+             "bdd,uldh->blh", "bd,uldh->blz"]
+
+
+@pytest.mark.parametrize("spec", BAD_SPECS)
+def test_parse_spec_rejects_like_reference(spec):
+    with pytest.raises(ValueError) as ref:
+        jax_parse_spec(spec)
+    with pytest.raises(ValueError) as port:
+        parse_spec(spec)
+    assert str(port.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
+def test_parse_spec_accepts_like_reference(spec):
+    assert parse_spec(spec) == jax_parse_spec(spec)
+
+
+def test_gather_einsum_shape_checks():
+    x, table, uidx = (torch.zeros(4, 6), torch.zeros(2, 7, 6, 5),
+                      torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="operand ranks"):
+        gather_einsum("bd,uldh->blh", x[:, :, None], table, uidx)
+    with pytest.raises(ValueError, match="dim 'd' is 6 on x but 5"):
+        gather_einsum("bd,uldh->blh", x, torch.zeros(2, 7, 5, 5), uidx)
+    with pytest.raises(ValueError, match="user_index must be"):
+        gather_einsum("bd,uldh->blh", x, table, uidx[:3])
