@@ -7,7 +7,7 @@
    parallel) and holds every kernel against its plain PyTorch version at the
    serving path's full-width shapes plus a ragged shape, timing kernel,
    plain version and a library yardstick (cuBLAS ``addmm`` / a pre-gathered
-   ``einsum``, used nowhere in the port).
+   ``einsum`` / ``bmm`` plus a triangle gather, used nowhere in the port).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -15,15 +15,25 @@
    MaRI executor (Eq. 7, one user) against the vanilla executor.
 3. DIN at ``configs/din.py`` width (10M-row item vocabulary, on the card)
    under ``tpu``, with the same checks.
+4. A ``RankingService`` on the ``tpu`` preset hosting DLRM-MLPerf at full
+   width with ``scale_tables=0.1`` (18.8M table rows, 9.6 GB on the card),
+   and DeepFM and FM at the registry's full ``BUILD``: an interleaved stream
+   at pools 1000 / 3000 / 5000 through ``score_many`` (the continuous
+   batcher loop), each score against a ``use_pallas=False`` engine on the
+   same params and against the engine's per-request ``score``. Then the
+   launcher ``python -m repro_torch.launch.serve`` runs once (smoke builds,
+   ``tpu`` preset).
 
-Kernel launch counts are zeroed just before phase 2 and read after phase 3:
-every kernel variant of the path must have launched. Prints the kernels
-JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Exits non-zero on any failure, when no
-CUDA device is present, or when run without the repository beside it.
+Kernel launch counts are zeroed just before each path (phases 2-3, and
+phase 4) and read just after it: every kernel variant on the main path
+must have launched on its path. Prints the kernels JSON line, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
+non-zero on any failure, when no CUDA device is present, or when run
+without the repository beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,6 +47,8 @@ TOL = dict(rtol=2e-4, atol=2e-4)      # fp32 parity, as tests/test_kernels.py
 PEAK_FP32_FLOPS = 67e12               # H100 SXM, fp32 outside tensor cores
 PEAK_BYTES_S = 3.35e12                # H100 SXM HBM3
 POOLS = (1000, 3000, 5000)            # straddle max_batch = 4096
+SERVED = ("dlrm-mlperf", "deepfm", "fm")
+DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
 
 
 def log(tag: str, **kv) -> None:
@@ -58,13 +70,16 @@ def main() -> int:
 
     from repro_torch.core.mari import convert_params, mari_rewrite
     from repro_torch.graph.executor import Executor, init_graph_params
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import dot_interaction as di
     from repro_torch.kernels import gather_einsum as ge
     from repro_torch.kernels import mari_matmul as mm
     from repro_torch.models.ranking import (PaperRankingConfig,
                                             build_paper_ranking_model)
-    from repro_torch.models.recsys import build_din
-    from repro_torch.serve import ServePlan, ServeRequest, ServingEngine
+    from repro_torch.models.recsys import build_din, build_dlrm
+    from repro_torch.serve import (RankingService, ServePlan, ServeRequest,
+                                   ServingEngine)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -194,11 +209,42 @@ def main() -> int:
             shape=dict(x=list(xs), table=list(ts)),
             library="torch.einsum on pre-gathered rows")
     del x, w, u_of, rows
+
+    # DLRM interaction at a full bucket: B=4096, F=27, D=128 -> P=351
+    F, D = 27, 128
+    for keep_self in (False, True):
+        P = di.n_pairs(F, keep_self)
+        xd = randn(B, F, D)
+        errs = [max_err(di.dot_interaction(xd, keep_self),
+                        di.dot_interaction_plain(xd, keep_self))]
+        for Br, Fr, Dr in ((1000, 5, 128), (1, 27, 16), (130, 7, 33),
+                           (33, 40, 64)):
+            xr = randn(Br, Fr, Dr)
+            errs.append(max_err(di.dot_interaction(xr, keep_self),
+                                di.dot_interaction_plain(xr, keep_self)))
+        iu, ju = torch.triu_indices(F, F, offset=0 if keep_self else 1,
+                                    device=dev)
+        b_ms, b_by = bound(4 * (B * F * D + B * P), 2 * B * P * D)
+        entries[f"dot_interaction/{di.VARIANTS[keep_self]}"] = dict(
+            route="cuda", source="src/repro_torch/csrc/dot_interaction.cu",
+            replaces="src/repro/kernels/dot_interaction/kernel.py:41",
+            max_abs_err=max(errs),
+            ms=time_ms(lambda: di.dot_interaction(xd, keep_self)),
+            plain_ms=time_ms(lambda: di.dot_interaction_plain(xd,
+                                                              keep_self)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(
+                lambda: torch.bmm(xd, xd.transpose(1, 2))[:, iu, ju]),
+            shape=dict(B=B, F=F, D=D, P=P, keep_self=keep_self),
+            library="torch.bmm (cuBLAS) then a triangle index gather: two "
+                    "PyTorch calls")
+    del xd
     # "blh,uh->bl" is a spec the kernel supports but the executor's
-    # decomposed attention never reaches: checked and timed above, reported
-    # on its own line rather than among the main path's kernels
-    off_path = {"gather_einsum/blh,uh->bl":
-                entries.pop("gather_einsum/blh,uh->bl")}
+    # decomposed attention never reaches, and no served model keeps the
+    # gram's diagonal: checked and timed above, reported on their own line
+    # rather than among the main path's kernels
+    off_path = {k: entries.pop(k) for k in ("gather_einsum/blh,uh->bl",
+                                            "dot_interaction/triu_keep_self")}
     log("kernels_vs_plain", tol=TOL,
         max_abs_err={k: v["max_abs_err"] for k, v in entries.items()},
         off_path=off_path)
@@ -250,10 +296,10 @@ def main() -> int:
                                   e.count] for e in top])
 
     def serve_checks(tag, graph, params, plans, oracle_plan, reqs, n_out):
-        oracle = ServingEngine(graph, params, oracle_plan)
+        oracle = ServingEngine(graph, params, oracle_plan, device=dev)
         ref = [oracle.score(r).scores for r in reqs]
         for name, plan in plans.items():
-            eng = ServingEngine(graph, params, plan)
+            eng = ServingEngine(graph, params, plan, device=dev)
             per = [eng.score(r) for r in reqs]           # cold: stage 1 runs
             t = time.perf_counter()
             co = eng.score_coalesced(reqs)               # users now cached
@@ -291,10 +337,148 @@ def main() -> int:
             del eng
         del oracle
 
+    def reset_launches():
+        for mod in (mm, ge, di):
+            mod.reset_launches()
+
+    def read_launches():
+        out = {f"mari_matmul/{m}": n for m, n in mm.LAUNCHES.items()}
+        out.update({f"gather_einsum/{s}": n for s, n in ge.LAUNCHES.items()})
+        out.update({f"dot_interaction/{v}": n
+                    for v, n in di.LAUNCHES.items()})
+        return out
+
+    def serve_phase() -> dict:
+        """Phase 4; returns the kernel launch counts of the service path."""
+        graph, _ = build_dlrm(scale_tables=DLRM_SCALE_TABLES)
+        params = init_graph_params(graph, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log("dlrm_params", scale_tables=DLRM_SCALE_TABLES, gbytes=sum(
+            p["table"].numel() * 4 for p in params.values() if "table" in p)
+            / 1e9, note="embedding tables, drawn on the card")
+        svc = RankingService(tpu, smoke=False, seed=0, device=dev)
+        svc.register("dlrm-mlperf", graph=graph, params=params)
+        svc.register("deepfm")
+        svc.register("fm")
+        # the oracles: use_pallas=False engines on the same params (the
+        # registry draws deepfm / fm from seed 0 on the card, as here)
+        oracle = {"dlrm-mlperf": ServingEngine(graph, params, plain,
+                                               device=dev)}
+        for sc in ("deepfm", "fm"):
+            g = get_config(sc).BUILD()[0]
+            oracle[sc] = ServingEngine(g, init_graph_params(g, seed=0,
+                                                            device=dev),
+                                       plain, device=dev)
+        items = []
+        for seed, sc in enumerate(SERVED):
+            for req in requests(svc.source_graph(sc), POOLS, seed=10 + seed):
+                items.append((sc, req))
+        items = [items[i] for k in range(len(POOLS))
+                 for i in range(k, len(items), len(POOLS))]   # interleave
+        # three passes of the stream: the first in fresh batcher threads
+        # (per-thread CUDA library set-up lands in it), then new user ids
+        # (stage 1 runs again), then the same ids (users cached)
+        again = [(sc, dataclasses.replace(req, user_id=req.user_id + 100))
+                 for sc, req in items]
+        passes = (("first", items), ("cold_users", again),
+                  ("warm_users", again))
+        reset_launches()
+        out = {}
+        for name, stream in passes:
+            t = time.perf_counter()
+            out[name] = svc.score_many(stream)
+            stream_ms = (time.perf_counter() - t) * 1e3
+            log("service_pass", name=name, stream_ms=stream_ms,
+                requests=len(stream), latency_ms={
+                    sc: [r.latency_ms for (s, _), r in zip(stream,
+                                                           out[name])
+                         if s == sc] for sc in SERVED},
+                profile={sc: {k: v for k, v in svc.engine(sc).profiler
+                              .snapshot(reset=True).items() if v["calls"]}
+                         for sc in SERVED})
+        results = out["first"]
+        for name in ("cold_users", "warm_users"):
+            for (sc, _), r, r0 in zip(items, out[name], results):
+                if not close(r.scores, r0.scores):
+                    raise AssertionError(f"service/{sc}: pass {name} "
+                                         f"differs from the first pass")
+        # per-request scores on the same engines (users now cached), one
+        # request at a time from this thread: no batcher thread competes
+        per = [svc.engine(sc).score(req) for sc, req in items]
+        torch.cuda.synchronize()
+        counts = read_launches()
+        log("service_per_request", latency_ms={
+            sc: [r.latency_ms for (s, _), r in zip(items, per) if s == sc]
+            for sc in SERVED},
+            profile={sc: {k: v for k, v in svc.engine(sc).profiler
+                          .snapshot(reset=True).items() if v["calls"]}
+                     for sc in SERVED})
+
+        d_ref, d_per = {}, {}
+        for (sc, req), res, p in zip(items, results, per):
+            n = next(iter(req.candidate_feeds.values())).shape[0]
+            want = oracle[sc].score(req).scores
+            for s in (res.scores, p.scores):
+                if s.shape != (n, 1) or not np.isfinite(s).all():
+                    raise AssertionError(
+                        f"service/{sc}: bad scores {s.shape}")
+            if not (close(res.scores, want) and close(p.scores, res.scores)):
+                raise AssertionError(
+                    f"service/{sc}: scores outside {TOL}: kernel-vs-plain "
+                    f"{np.abs(res.scores - want).max():.3e}, per-request-vs-"
+                    f"batcher {np.abs(p.scores - res.scores).max():.3e}")
+            d_ref[sc] = max(d_ref.get(sc, 0.0),
+                            float(np.abs(res.scores - want).max()))
+            d_per[sc] = max(d_per.get(sc, 0.0),
+                            float(np.abs(p.scores - res.scores).max()))
+        stats = svc.stats()
+        try:
+            dlrm_reqs = [r for sc, r in items if sc == "dlrm-mlperf"]
+            window = device_window(svc.engine("dlrm-mlperf"), dlrm_reqs)
+        except Exception as e:          # a profiler failure is no smoke fail
+            window = f"not measured: {type(e).__name__}: {e}"
+        for sc in SERVED:
+            s = stats["scenarios"][sc]
+            log("service", scenario=sc, pools=list(POOLS),
+                max_abs_kernel_vs_plain=d_ref[sc],
+                max_abs_per_request_vs_batcher=d_per[sc],
+                requests=s["requests"],
+                batches=s["batches"],
+                coalesced_requests=s["coalesced_requests"],
+                stage1_calls=s["stage1_calls"],
+                stage2_calls=s["stage2_calls"],
+                coalesced_calls=s["coalesced_calls"],
+                request_ms=s["latency"]["request_ms"],
+                queue_wait_ms=s["latency"]["queue_wait_ms"],
+                rewrites=[r.dense for r in
+                          svc.engine(sc).conversion.rewrites])
+        cache = stats["shared_cache"]
+        log("service_cache", shared_cache={k: v for k, v in cache.items()
+                          if k != "boundary_bytes"},
+            dlrm_device_window=window)
+        svc.close()
+        del svc, oracle, params
+        torch.cuda.empty_cache()
+
+        # the launcher, as a user runs it (smoke builds, on the card)
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               "--scenario", ",".join(SERVED), "--preset", "tpu",
+               "--requests", "6", "--candidates", "1024"]
+        env = dict(os.environ, PYTHONPATH=SRC)
+        t = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        log("launcher", cmd=" ".join(cmd[1:]), rc=out.returncode,
+            seconds=time.perf_counter() - t,
+            stdout=out.stdout.strip().splitlines()[-6:],
+            stderr=out.stderr.strip().splitlines()[-6:])
+        if out.returncode != 0:
+            raise AssertionError(f"launcher exited {out.returncode}")
+        return counts
+
     tpu = ServePlan.preset("tpu")
     plain = tpu.evolve(kernel__use_pallas=False, kernel__kernel_gather=False)
-    mm.reset_launches()
-    ge.reset_launches()
+    reset_launches()
 
     cfg = PaperRankingConfig()
     graph, _ = build_paper_ranking_model(cfg)
@@ -328,14 +512,26 @@ def main() -> int:
                  requests(graph, POOLS, seed=3), n_out=1)
     del params
     torch.cuda.synchronize()
+    by_path = {"paper+din": read_launches()}
 
-    launches = {f"mari_matmul/{m}": n for m, n in mm.LAUNCHES.items()}
-    launches.update({f"gather_einsum/{s}": n for s, n in ge.LAUNCHES.items()})
-    missing = [k for k in entries if launches[k] == 0]
+    # ---- phase 4: RankingService + continuous batcher, DLRM/DeepFM/FM -----
+    by_path["service"] = serve_phase()
+    log("launches_by_path", **by_path)
+    # each path is held to its own counts: paper + DIN to every kernel of
+    # PR 11's path, the service to the DLRM interaction and the gathered
+    # MaRI init; the sum is only printed
+    own = {"paper+din": [k for k in entries
+                         if not k.startswith("dot_interaction/")],
+           "service": ["dot_interaction/triu", "mari_matmul/gather"]}
+    missing = [f"{p}:{k}" for p, ks in own.items() for k in ks
+               if by_path[p][k] == 0]
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in by_path["service"]}
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    kernels = [{"name": name, "launches": launches[name], **e}
-               for name, e in entries.items()]
+    kernels = [{"name": name, "launches": launches[name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                **e} for name, e in entries.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
 
     smi = subprocess.run(

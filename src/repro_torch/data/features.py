@@ -1,0 +1,70 @@
+"""Synthetic feature pipeline for the recsys graphs (port of
+``repro.data.features``: ``feed_specs`` and ``make_recsys_feeds``).
+
+Generates feeds matching a graph's input nodes: user-side inputs at batch
+1, item/cross-side at batch B — the serving contract of Fig. 1. Vocab
+sizes are discovered from the consuming embedding nodes so generated ids
+are in range. Feeds are numpy arrays drawn from a
+``numpy.random.Generator``: the reference draws from ``jax.random``, so
+the values differ while shapes, dtypes and id ranges are the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.graph.ir import Graph
+
+
+@dataclasses.dataclass(frozen=True)
+class FeedSpec:
+    """Shape and dtype of one feed (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple[int, ...]
+    dtype: np.dtype
+
+
+def _vocab_for_input(graph: Graph, input_name: str) -> int | None:
+    for n in graph.consumers(input_name):
+        if n.op == "embedding":
+            return n.attrs["vocab"]
+    return None
+
+
+def feed_specs(graph: Graph, batch: int, train: bool = False
+               ) -> dict[str, FeedSpec]:
+    """Feed shapes and dtypes, allocating nothing.
+
+    Serving: user inputs at batch 1 (one request, B candidates). Training:
+    every example carries its own user -> all inputs at B."""
+    specs = {}
+    for n in graph.input_nodes():
+        dom = n.attrs.get("domain")
+        lead = batch if (train or dom != "user") else 1
+        shape = (lead,) + tuple(n.attrs["shape"])
+        specs[n.name] = FeedSpec(shape,
+                                 np.dtype(n.attrs.get("dtype", "float32")))
+    return specs
+
+
+def make_recsys_feeds(graph: Graph, batch: int, rng: np.random.Generator,
+                      tile_user: bool = False) -> dict[str, np.ndarray]:
+    """Random feeds. ``tile_user=True`` pre-tiles user feeds to B (VanI-style
+    data batching — used to benchmark the vanilla path faithfully)."""
+    feeds = {}
+    for n in graph.input_nodes():
+        dom = n.attrs.get("domain")
+        lead = batch if (dom != "user" or tile_user) else 1
+        shape = (lead,) + tuple(n.attrs["shape"])
+        dt = np.dtype(n.attrs.get("dtype", "float32"))
+        if dt.kind == "i":
+            vocab = _vocab_for_input(graph, n.name) or 1000
+            a = rng.integers(0, vocab, shape, dtype=dt)
+        else:
+            a = rng.standard_normal(shape, dtype=np.float32).astype(dt)
+        if dom == "user" and tile_user and lead == batch:
+            # identical rows, as replication would produce
+            a = np.broadcast_to(a[:1], shape).copy()
+        feeds[n.name] = a
+    return feeds

@@ -17,9 +17,10 @@ Batch semantics — the key to VanI / UOI / MaRI:
   Every op dispatches on the leading dim.
 
 With ``use_pallas`` (the plan field keeps the reference's name) the
-``mari_dense`` products and the gather-aware attention contractions go
-through the hand-written CUDA kernels (``repro_torch.kernels``); their
-wrappers take the plain PyTorch versions for CPU tensors.
+``mari_dense`` products, the gather-aware attention contractions and the
+``dot_interaction`` op go through the hand-written CUDA kernels
+(``repro_torch.kernels``); their wrappers take the plain PyTorch versions
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ import torch
 from repro_torch.common import (glorot, make_generator, normal_init,
                                 resolve_device, take_clip)
 from repro_torch.graph.ir import Graph, Node, infer_shapes
+from repro_torch.kernels.dot_interaction import (dot_interaction,
+                                                 dot_interaction_plain)
 from repro_torch.kernels.gather_einsum import gather_einsum, gather_einsum_plain
 from repro_torch.kernels.mari_matmul import mari_matmul_fused_groups
 from repro_torch.nn.attention import NEG_INF, cross_attention, target_attention
@@ -389,13 +392,10 @@ class Executor:
             sq = (x * x).sum(dim=-2)
             return (0.5 * (s * s - sq).sum(dim=-1))[..., None]
         if op == "dot_interaction":
-            x = ins[0]
-            f = x.shape[-2]
-            z = torch.einsum("...fd,...gd->...fg", x, x)
-            iu, ju = torch.triu_indices(
-                f, f, offset=0 if n.attrs.get("keep_self") else 1,
-                device=x.device)
-            return z[..., iu, ju]
+            keep_self = bool(n.attrs.get("keep_self"))
+            if self.use_pallas:
+                return dot_interaction(ins[0], keep_self)
+            return dot_interaction_plain(ins[0], keep_self)
         if op == "gather_last":
             idx = torch.as_tensor(n.attrs["indices"], dtype=torch.int64,
                                   device=ins[0].device)

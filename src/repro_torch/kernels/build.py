@@ -22,11 +22,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mari_matmul", "gather_einsum")
+SOURCES = ("mari_matmul", "gather_einsum", "dot_interaction")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -89,6 +90,13 @@ def load(name: str) -> ctypes.CDLL:
             lib.repro_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
+
+
+def count_launch(launches: dict[str, int], key: str) -> None:
+    """Add one to ``launches[key]``: the serving batchers launch kernels
+    from one worker thread per scenario, so the increment takes a lock."""
+    with _count_lock:
+        launches[key] += 1
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

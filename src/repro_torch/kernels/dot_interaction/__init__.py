@@ -1,0 +1,8 @@
+from repro_torch.kernels.dot_interaction.ops import (  # noqa: F401
+    LAUNCHES,
+    VARIANTS,
+    dot_interaction,
+    dot_interaction_plain,
+    n_pairs,
+    reset_launches,
+)

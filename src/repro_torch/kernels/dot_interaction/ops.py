@@ -1,0 +1,96 @@
+"""DLRM dot interaction: the CUDA kernel's wrapper and its plain PyTorch
+version (port of ``repro.kernels.dot_interaction``).
+
+``dot_interaction(x, keep_self=False)`` maps x (B, F, D) to the (B, P)
+upper triangle of each row's F x F gram, in ``torch.triu_indices`` order
+(offset 1, or 0 with ``keep_self``). A CPU tensor goes to
+``dot_interaction_plain``; a CUDA tensor launches
+``csrc/dot_interaction.cu`` or raises. The reference's batch padding to a
+multiple of its tile is gone: the kernel runs one warp per row.
+``LAUNCHES`` counts kernel launches per triangle variant.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+
+VARIANTS = ("triu", "triu_keep_self")
+# kernel launches per variant (one per launch, counted nowhere else)
+LAUNCHES = dict.fromkeys(VARIANTS, 0)
+
+MAX_SMEM_BYTES = 232448          # a Hopper block's dynamic shared memory
+ROWS_PER_BLOCK = 4               # candidate rows (one warp each) per block
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def n_pairs(f: int, keep_self: bool = False) -> int:
+    return f * (f + 1) // 2 if keep_self else f * (f - 1) // 2
+
+
+def dot_interaction_plain(x: Tensor, keep_self: bool = False) -> Tensor:
+    """Plain PyTorch version: x (..., F, D) -> (..., P) triangle dots."""
+    f = x.shape[-2]
+    z = torch.einsum("...fd,...gd->...fg", x, x)
+    iu, ju = torch.triu_indices(f, f, offset=0 if keep_self else 1,
+                                device=x.device)
+    return z[..., iu, ju]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("dot_interaction")
+    if lib.dot_interaction_f32.argtypes is None:
+        lib.dot_interaction_f32.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.dot_interaction_f32.restype = ctypes.c_int
+    return lib
+
+
+def _launch(x: Tensor, keep_self: bool) -> Tensor:
+    if x.dtype != torch.float32:
+        raise TypeError(f"dot_interaction CUDA kernel takes float32 only, "
+                        f"x is {x.dtype} (bf16 is not ported yet)")
+    B, F, D = x.shape
+    # the kernel stages each row as (D, F padded to a multiple of 4) floats
+    row_bytes = D * -(-F // 4) * 16
+    if row_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"dot_interaction: one row of x (F={F}, D={D}) "
+                         f"needs {row_bytes} bytes of shared memory, more "
+                         f"than a block's {MAX_SMEM_BYTES}")
+    rows = min(ROWS_PER_BLOCK, MAX_SMEM_BYTES // row_bytes)
+    P = n_pairs(F, keep_self)
+    out = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out                        # nothing to launch
+    if D == 0:
+        return out.zero_()
+    # stack_features' output may be a view over expanded inputs
+    x = x.contiguous()
+    lib = _lib()
+    with torch.cuda.device(x.device):    # launch in the tensor's context
+        rc = lib.dot_interaction_f32(
+            x.data_ptr(), out.data_ptr(), B, F, D, int(keep_self), rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, "dot_interaction")
+    build.count_launch(LAUNCHES, VARIANTS[int(keep_self)])
+    return out
+
+
+def dot_interaction(x: Tensor, keep_self: bool = False) -> Tensor:
+    """x (B, F, D) -> (B, P) upper-triangle pairwise dots (DLRM)."""
+    if x.ndim != 3:
+        raise ValueError(f"dot_interaction takes (B, F, D), got "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return dot_interaction_plain(x, keep_self)
+    if x.device.type != "cuda":
+        raise ValueError(f"dot_interaction: unsupported device {x.device}")
+    return _launch(x, keep_self)

@@ -133,7 +133,7 @@ def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
             idx.data_ptr(), out.data_ptr(), x.shape[0], table.shape[0],
             *dims, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, f"gather_einsum {spec!r}")
-    LAUNCHES[spec] += 1
+    build.count_launch(LAUNCHES, spec)
     return out
 
 

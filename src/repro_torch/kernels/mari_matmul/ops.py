@@ -107,7 +107,7 @@ def _launch(x: Tensor, w: Tensor, u: Tensor, user_index: Tensor | None,
             EPILOGUES.index(activation),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "mari_matmul")
-    LAUNCHES[mode] += 1
+    build.count_launch(LAUNCHES, mode)
     return out
 
 

@@ -1,3 +1,12 @@
+"""Serving runtime of the port (``repro.serve``'s counterpart): ``engine``
+(``ServingEngine``), ``batcher`` (``CoalescingBatcher``), ``cache``
+(``UserRepCache``), ``plan`` (``ServePlan``), ``profile``
+(``StageProfiler``), ``service`` (``RankingService``) and ``errors``."""
+from repro_torch.serve.batcher import (  # noqa: F401
+    SLO_BEST_EFFORT,
+    SLO_DEADLINE,
+    CoalescingBatcher,
+)
 from repro_torch.serve.cache import UserRepCache  # noqa: F401
 from repro_torch.serve.engine import (  # noqa: F401
     ServeRequest,
@@ -5,9 +14,17 @@ from repro_torch.serve.engine import (  # noqa: F401
     ServingEngine,
     bucket_for,
 )
+from repro_torch.serve.errors import (  # noqa: F401
+    AdmissionError,
+    BatcherClosedError,
+    RetryExhausted,
+    ServeError,
+    WorkerCrashedError,
+)
 from repro_torch.serve.plan import (  # noqa: F401
     PlanError,
     PlanResolutionWarning,
     ServePlan,
 )
 from repro_torch.serve.profile import StageProfiler  # noqa: F401
+from repro_torch.serve.service import RankingService  # noqa: F401

@@ -88,6 +88,10 @@ class UserRepCache:
                 "boundary_bytes": boundary,
             }
 
+    def keys(self) -> list[Key]:
+        with self._lock:
+            return [(uid, ver) for uid, (ver, _) in self._entries.items()]
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)

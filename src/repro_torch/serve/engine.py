@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Mapping, Sequence
+from typing import Hashable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -80,6 +80,7 @@ class ServeResult:
     user_cache_hit: bool
     stage1_ms: float = 0.0       # 0 when cached / single-stage
     coalesced: bool = False      # scored inside a cross-user batch
+    degraded: bool = False       # candidate pool truncated under overload
 
 
 def _precat_mari_weights(graph: Graph, params: dict) -> dict:
@@ -137,11 +138,16 @@ class _InFlight:
 class ServingEngine:
     def __init__(self, graph: Graph, params: dict,
                  plan: ServePlan | str | None = None, *,
+                 cache: UserRepCache | None = None,
+                 cache_scope: Hashable | None = None,
                  device: str | torch.device = "cuda"):
         """Build ``graph`` for two-stage serving per ``plan`` (a
         ``ServePlan``, a preset name, or None for the ``paper`` preset) on
         ``device``. ``params`` is a nested dict of tensors (or numpy
-        arrays); it is moved to ``device``."""
+        arrays); it is moved to ``device``. ``cache`` / ``cache_scope`` let
+        a host (``RankingService``) inject a SHARED ``UserRepCache``: keys
+        are namespaced by ``cache_scope`` so several scenario engines split
+        one LRU budget without key collisions."""
         if isinstance(plan, str):
             plan = ServePlan.preset(plan)
         self.plan = plan = plan if plan is not None else ServePlan()
@@ -219,7 +225,12 @@ class ServingEngine:
         # single-stage serving has no stage-1 outputs to reuse, so caching
         # there would be pure bookkeeping
         self.cache_user_reps = plan.cache.cache_user_reps and self.two_stage
-        self.cache = UserRepCache(max_users=plan.cache.max_cached_users)
+        # an injected cache is SHARED (RankingService budget); cache_scope
+        # namespaces this engine's keys inside it so same-valued user ids
+        # from different scenarios cannot collide on wrong-shaped reps
+        self.cache = cache if cache is not None else UserRepCache(
+            max_users=plan.cache.max_cached_users)
+        self._cache_scope = cache_scope
 
         self._stage2_ex = Executor(batched_graph, exec_mode,
                                    use_pallas=self.use_pallas,
@@ -301,9 +312,19 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
+    def _scoped_uid(self, user_id: Hashable) -> Hashable:
+        """Namespace a user id for the (possibly shared) rep cache."""
+        return (user_id if self._cache_scope is None
+                else (self._cache_scope, user_id))
+
+    def invalidate_user(self, user_id: Hashable) -> None:
+        """Drop this engine's cached reps of ``user_id`` (scoped, so a
+        shared cache keeps the other scenarios' entries)."""
+        self.cache.invalidate_user(self._scoped_uid(user_id))
+
     def _user_reps(self, req: ServeRequest
                    ) -> tuple[Mapping[str, Tensor], bool, float]:
-        key = (req.user_id, req.feature_version)
+        key = (self._scoped_uid(req.user_id), req.feature_version)
         if self.cache_user_reps:
             reps = self.cache.get(key)
             if reps is not None:

@@ -8,12 +8,16 @@ packages:
   ``fragment``, ``group_by_domain``, ``two_stage``;
 * ``KernelPlan`` — ``use_pallas`` (here: the hand-written CUDA kernels),
   ``kernel_gather``, ``gather_attention``, ``precat_weights``;
-* ``BatchPlan``  — ``max_batch``, ``min_bucket``, ``max_users_per_batch``;
+* ``BatchPlan``  — ``max_batch``, ``min_bucket``, ``max_users_per_batch``,
+  and the batcher's ``linger_ms``, ``max_coalesce``,
+  ``deadline_linger_frac``, ``continuous``, ``max_inflight``,
+  ``admission``, ``shed_queue_depth``, ``degrade_queue_depth``,
+  ``degrade_frac``, ``deadline_headroom_ms``;
 * ``CachePlan``  — ``cache_user_reps``, ``max_cached_users``.
 
 The reference's other sections and fields (shard, obs, mem, ft, the device
-tier, hedging, admission, the batcher's linger/continuous knobs) are not
-ported yet: naming one is a ``PlanError``, never a silent no-op.
+tier, hedging) are not ported yet: naming one is a ``PlanError``, never a
+silent no-op.
 
 Resolution table (the rows that touch these fields):
 
@@ -24,7 +28,16 @@ unknown section or field, wrong-typed value           reject (``PlanError``)
 ``mode`` outside vani/uoi/mari                        reject
 ``two_stage=True`` with ``mode="vani"``               reject
 non-positive ``max_batch`` / ``min_bucket`` /         reject
-``max_users_per_batch`` / ``max_cached_users``
+``max_users_per_batch`` / ``max_cached_users`` /
+``max_coalesce`` / ``max_inflight`` /
+``shed_queue_depth`` / ``degrade_queue_depth``;
+negative ``linger_ms`` / ``deadline_headroom_ms``;
+``deadline_linger_frac`` outside [0, 1];
+``degrade_frac`` outside (0, 1]
+``degrade_queue_depth > shed_queue_depth``            reject
+admission thresholds (``shed_queue_depth`` /          drop them + warn
+``degrade_queue_depth`` / positive
+``deadline_headroom_ms``) without ``admission=True``
 ``kernel_gather`` without ``use_pallas``              drop ``kernel_gather``
                                                       + warn
 ``gather_attention`` without decomposed attention     drop
@@ -76,10 +89,21 @@ class KernelPlan:
 
 @dataclasses.dataclass(frozen=True)
 class BatchPlan:
-    """Bucketing and cross-user coalescing."""
+    """Bucketing, cross-user coalescing, SLO linger, the continuous
+    dispatch loop, and SLO-tiered admission control."""
     max_batch: int = 4096              # stage-2 row budget per dispatch
     min_bucket: int = 128              # smallest pow2 candidate bucket
     max_users_per_batch: int = 8       # rep-table slot budget per pack
+    linger_ms: float = 2.0             # batcher window for co-arrivals
+    max_coalesce: int = 64             # request budget per batcher group
+    deadline_linger_frac: float = 0.25  # linger shrink for deadline SLO
+    continuous: bool = True            # pack group k+1 while k executes
+    max_inflight: int = 2              # launched-but-uncollected groups
+    admission: bool = False            # SLO-tiered admission controller
+    shed_queue_depth: int | None = None    # best_effort shed threshold
+    degrade_queue_depth: int | None = None  # best_effort degrade threshold
+    degrade_frac: float = 0.5          # candidate fraction kept on degrade
+    deadline_headroom_ms: float = 0.0  # shed infeasible deadline budgets
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +125,12 @@ _FIELD_TYPES: dict[str, dict[str, str]] = {
     "kernel": {"use_pallas": "bool", "kernel_gather": "bool",
                "gather_attention": "bool", "precat_weights": "bool"},
     "batch": {"max_batch": "int", "min_bucket": "int",
-              "max_users_per_batch": "int"},
+              "max_users_per_batch": "int",
+              "linger_ms": "num", "max_coalesce": "int",
+              "deadline_linger_frac": "num", "continuous": "bool",
+              "max_inflight": "int", "admission": "bool",
+              "shed_queue_depth": "int?", "degrade_queue_depth": "int?",
+              "degrade_frac": "num", "deadline_headroom_ms": "num"},
     "cache": {"cache_user_reps": "bool", "max_cached_users": "int?"},
 }
 
@@ -120,6 +149,8 @@ def _type_ok(kind: str, v: Any) -> bool:
         return isinstance(v, str)
     if kind == "bool":
         return isinstance(v, bool)
+    if kind == "num":
+        return isinstance(v, (int, float)) and not isinstance(v, bool)
     return isinstance(v, int) and not isinstance(v, bool)    # "int"
 
 
@@ -168,9 +199,33 @@ class ServePlan:
                  "two_stage=True with mode='vani': vani tiles user feeds "
                  "into the candidate batch — there is no user-only stage to "
                  "precompute; drop two_stage or pick uoi/mari")
-        for field in ("max_batch", "min_bucket", "max_users_per_batch"):
+        for field in ("max_batch", "min_bucket", "max_users_per_batch",
+                      "max_coalesce", "max_inflight"):
             v = getattr(b, field)
             _require(v >= 1, f"{field} must be >= 1, got {v}")
+        _require(b.linger_ms >= 0, f"linger_ms must be >= 0, got "
+                 f"{b.linger_ms}")
+        _require(0.0 <= b.deadline_linger_frac <= 1.0,
+                 f"deadline_linger_frac must be in [0, 1], got "
+                 f"{b.deadline_linger_frac}")
+        _require(b.shed_queue_depth is None or b.shed_queue_depth >= 1,
+                 f"shed_queue_depth must be >= 1 (or None for no shedding), "
+                 f"got {b.shed_queue_depth}")
+        _require(b.degrade_queue_depth is None or b.degrade_queue_depth >= 1,
+                 f"degrade_queue_depth must be >= 1 (or None for no "
+                 f"degrading), got {b.degrade_queue_depth}")
+        _require(0.0 < b.degrade_frac <= 1.0,
+                 f"degrade_frac must be in (0, 1], got {b.degrade_frac}")
+        _require(b.deadline_headroom_ms >= 0,
+                 f"deadline_headroom_ms must be >= 0, got "
+                 f"{b.deadline_headroom_ms}")
+        _require(not (b.shed_queue_depth is not None
+                      and b.degrade_queue_depth is not None
+                      and b.degrade_queue_depth > b.shed_queue_depth),
+                 f"degrade_queue_depth ({b.degrade_queue_depth}) > "
+                 f"shed_queue_depth ({b.shed_queue_depth}): requests would "
+                 f"be shed outright before the cheaper degrade tier ever "
+                 f"engaged — order the thresholds degrade <= shed")
         _require(c.max_cached_users is None or c.max_cached_users >= 1,
                  f"max_cached_users must be >= 1 (or None for unbounded), "
                  f"got {c.max_cached_users}")
@@ -207,6 +262,23 @@ class ServePlan:
                 self, "graph",
                 dataclasses.replace(self.graph,
                                     **{n: False for n in rewrite_knobs}))
+        adm_knobs = [n for n, v in
+                     (("shed_queue_depth", b.shed_queue_depth),
+                      ("degrade_queue_depth", b.degrade_queue_depth),
+                      ("deadline_headroom_ms",
+                       b.deadline_headroom_ms or None))
+                     if v is not None]
+        if adm_knobs and not b.admission:
+            notes.append(
+                f"{'/'.join(adm_knobs)} without admission=True: the "
+                f"admission controller only runs when admission is enabled "
+                f"— resolved to defaults (set admission=True to keep them)")
+            object.__setattr__(
+                self, "batch",
+                dataclasses.replace(self.batch, shed_queue_depth=None,
+                                    degrade_queue_depth=None,
+                                    deadline_headroom_ms=0.0))
+            b = self.batch
         # silent normalization: the smallest bucket never exceeds the budget
         if b.min_bucket > b.max_batch:
             object.__setattr__(self, "batch",

@@ -7,7 +7,12 @@
 * ``dispatch`` — enqueueing stage 2 on the device stream (host time only:
   eager PyTorch returns before the device finishes);
 * ``device``   — waiting on stage-2 results (the pack's CUDA event);
-* ``unpack``   — copying scores to the host and slicing per-request views.
+* ``unpack``   — copying scores to the host and slicing per-request views;
+* ``queue_idle`` — continuous batcher loop time with nothing in flight
+  and the request queue empty (the device starved for work);
+* ``overlap``  — host time spent forming-and-launching group k+1 while
+  group k was still in flight (work the continuous loop hides under
+  device compute).
 
 Phases are cumulative wall-clock totals plus call counts. Totals are
 mutated under a lock: concurrent callers may profile against one engine.
@@ -19,7 +24,8 @@ import time
 from contextlib import contextmanager
 from typing import Iterator
 
-PHASES = ("stage1", "pack", "dispatch", "device", "unpack")
+PHASES = ("stage1", "pack", "dispatch", "device", "unpack",
+          "queue_idle", "overlap")
 
 
 class StageProfiler:

@@ -249,7 +249,13 @@ def test_no_jax_or_reference_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.graph.executor, repro_torch.kernels.build, "
-            "repro_torch.models.recsys, repro_torch.models.ranking; "
+            "repro_torch.models.recsys, repro_torch.models.ranking, "
+            "repro_torch.configs, repro_torch.data.features, "
+            "repro_torch.launch.serve, repro_torch.obs.metrics, "
+            "repro_torch.ft.recovery, repro_torch.serve.service, "
+            "repro_torch.kernels.dot_interaction; "
+            "[repro_torch.configs.get_config(a) for a in "
+            "('din', 'deepfm', 'fm', 'dlrm-mlperf', 'paper-ranking')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.graph.executor import init_graph_params
+from repro_torch.kernels import dot_interaction as di
 from repro_torch.kernels import gather_einsum as ge
 from repro_torch.kernels import mari_matmul as mm
 from repro_torch.models.ranking import (PaperRankingConfig,
@@ -106,6 +108,51 @@ def test_gather_einsum_other_spec_raises_on_cuda(cuda):
         ge.gather_einsum("bi,uij->bj", x, table, idx)
 
 
+@pytest.mark.parametrize("keep_self", [False, True])
+@pytest.mark.parametrize("B,F,D", [(4096, 27, 128), (1000, 5, 16),
+                                   (1, 27, 16), (130, 7, 33),
+                                   (33, 40, 64)])
+def test_dot_interaction_kernel_matches_plain(cuda, B, F, D, keep_self):
+    x = _randn(_gen(cuda, B + F), B, F, D)
+    before = di.LAUNCHES["triu_keep_self" if keep_self else "triu"]
+    got = di.dot_interaction(x, keep_self)
+    torch.cuda.synchronize()
+    assert di.LAUNCHES["triu_keep_self" if keep_self else "triu"] == \
+        before + 1
+    assert got.shape == (B, di.n_pairs(F, keep_self))
+    torch.testing.assert_close(got, di.dot_interaction_plain(x, keep_self),
+                               **TOL)
+
+
+def test_dot_interaction_kernel_triangle_order_and_rows(cuda):
+    """One-hot rows name each output's (i, j); a row's result does not
+    depend on B; a strided (expanded) input is made contiguous."""
+    F = 5
+    x = torch.zeros((1, F, F), device=cuda)
+    for i in range(F):
+        x[0, i, i] = 1.0
+        x[0, i, (i + 1) % F] = 10.0 ** i
+    for keep_self in (False, True):
+        iu, ju = np.triu_indices(F, k=0 if keep_self else 1)
+        full = (x[0] @ x[0].T).cpu().numpy()
+        got = di.dot_interaction(x, keep_self)[0].cpu().numpy()
+        np.testing.assert_allclose(got, full[iu, ju], **TOL)
+    y = _randn(_gen(cuda, 2), 300, 27, 128)
+    full = di.dot_interaction(y)
+    assert torch.equal(full[100:140], di.dot_interaction(y[100:140]))
+    e = y[:1].expand(64, 27, 128)
+    torch.testing.assert_close(di.dot_interaction(e),
+                               di.dot_interaction_plain(e), **TOL)
+
+
+def test_dot_interaction_kernel_refuses_what_it_cannot_take(cuda):
+    with pytest.raises(TypeError, match="float32 only"):
+        di.dot_interaction(torch.zeros(4, 3, 8, device=cuda,
+                                       dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="shared memory"):
+        di.dot_interaction(torch.zeros(2, 64, 1024, device=cuda))
+
+
 def _requests(graph, pools, seed):
     rng = np.random.default_rng(seed)
     vocab = {n.inputs[0]: n.attrs["vocab"] for n in graph.nodes.values()
@@ -151,6 +198,29 @@ def test_engine_on_card_matches_cpu(cuda, model):
     if model == "din":
         assert ge.LAUNCHES["bd,uldh->blh"] > 0
         assert ge.LAUNCHES["bl,uld->bd"] > 0
+
+
+def test_dlrm_tpu_engine_matches_plain_twin(cuda):
+    """DLRM under ``tpu``: stage 2 runs the gathered mari_matmul and the
+    dot_interaction kernel; a use_pallas=False engine on the same params
+    runs their plain versions."""
+    graph = get_config("dlrm-mlperf").smoke_build()()[0]
+    params = init_graph_params(graph, seed=0, device=cuda)
+    plan = ServePlan.preset("tpu").evolve(batch__max_batch=256,
+                                          batch__min_bucket=16)
+    twin = ServingEngine(graph, params, plan.evolve(
+        kernel__use_pallas=False, kernel__kernel_gather=False), device=cuda)
+    reqs = _requests(graph, (11, 300, 5), seed=2)
+    want = [r.scores for r in twin.score_coalesced(reqs)]
+    mm.reset_launches()
+    di.reset_launches()
+    eng = ServingEngine(graph, params, plan, device=cuda)
+    per = [eng.score(r).scores for r in reqs]
+    co = [r.scores for r in eng.score_coalesced(reqs)]
+    for w, p, c in zip(want, per, co):
+        np.testing.assert_allclose(p, w, **TOL)
+        np.testing.assert_allclose(c, w, **TOL)
+    assert mm.LAUNCHES["gather"] > 0 and di.LAUNCHES["triu"] > 0
 
 
 def test_overlapped_groups_keep_private_buffers(cuda):

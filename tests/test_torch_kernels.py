@@ -169,3 +169,32 @@ def test_gather_einsum_shape_checks():
         gather_einsum("bd,uldh->blh", x, torch.zeros(2, 7, 5, 5), uidx)
     with pytest.raises(ValueError, match="user_index must be"):
         gather_einsum("bd,uldh->blh", x, table, uidx[:3])
+
+
+def test_launch_counts_survive_concurrent_threads():
+    """The serving batchers launch kernels from one thread per scenario:
+    concurrent increments of one launch counter must not be lost."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    counts = {"k": 0}
+    n_threads, n_each = 16, 2000
+
+    def work():
+        for _ in range(n_each):
+            build.count_launch(counts, "k")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert counts["k"] == n_threads * n_each
