@@ -7,7 +7,8 @@
    parallel) and holds every kernel against its plain PyTorch version at the
    serving path's full-width shapes plus a ragged shape, timing kernel,
    plain version and a library yardstick (cuBLAS ``addmm`` / a pre-gathered
-   ``einsum`` / ``bmm`` plus a triangle gather, used nowhere in the port).
+   ``einsum`` / ``bmm`` plus a triangle gather, used nowhere in the port;
+   ``din_attention`` has no single-call counterpart in PyTorch).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -23,10 +24,20 @@
    same params and against the engine's per-request ``score``. Then the
    launcher ``python -m repro_torch.launch.serve`` runs once (smoke builds,
    ``tpu`` preset).
+5. Train + convert, DIN at ``configs/din.py`` width: trains on the card
+   (VanI executor, autograd, Adam, batch 64, labels from a frozen
+   teacher), checkpoints through ``CheckpointManager``, crashes once on
+   purpose and resumes to the last step, converts with GCA + MaRI, and
+   scores 2048 candidates single-call in VanI, UOI and MaRI (UOI and MaRI
+   through the kernels: the whole DIN attention unit is ``din_attention``)
+   against ``use_pallas=False`` executors, with per-task AUC; then times
+   each paradigm and one training step. Last, the paper model at full
+   width single-call in VanI / UOI / MaRI at B = 2048 (the reference's
+   ``bench_table1``), timed and printed.
 
-Kernel launch counts are zeroed just before each path (phases 2-3, and
-phase 4) and read just after it: every kernel variant on the main path
-must have launched on its path. Prints the kernels JSON line, the card's
+Kernel launch counts are zeroed just before each path (phases 2-3, phase
+4, phase 5 and the paper's single call) and read just after it: every
+kernel variant on a path must have launched on it. Prints the kernels JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, when no CUDA device is present, or when run
 without the repository beside it.
@@ -36,8 +47,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +62,9 @@ PEAK_BYTES_S = 3.35e12                # H100 SXM HBM3
 POOLS = (1000, 3000, 5000)            # straddle max_batch = 4096
 SERVED = ("dlrm-mlperf", "deepfm", "fm")
 DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
+TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
+SINGLE_CALL_B = 2048                  # candidates of one single-call request
+AUC_TOL = 1e-3
 
 
 def log(tag: str, **kv) -> None:
@@ -71,8 +87,18 @@ def main() -> int:
     from repro_torch.core.mari import convert_params, mari_rewrite
     from repro_torch.graph.executor import Executor, init_graph_params
     from repro_torch.configs import get_config
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.common import timeit
+    from repro_torch.core.mari import apply_mari
+    from repro_torch.data.features import make_recsys_feeds
+    from repro_torch.examples.train_then_convert import teacher_batches
     from repro_torch.kernels import build
+    from repro_torch.kernels import din_attention as da
     from repro_torch.kernels import dot_interaction as di
+    from repro_torch.launch.train import recsys_step
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.losses import auc
+    from repro_torch.train.optim import adam
     from repro_torch.kernels import gather_einsum as ge
     from repro_torch.kernels import mari_matmul as mm
     from repro_torch.models.ranking import (PaperRankingConfig,
@@ -239,6 +265,60 @@ def main() -> int:
             library="torch.bmm (cuBLAS) then a triangle index gather: two "
                     "PyTorch calls")
     del xd
+
+    # DIN attention unit over one shared key block at DIN width: the
+    # single-call path's B = 2048 candidates and a full bucket of 4096,
+    # L=100, D=18, MLP 72-80-40-1; plus the reference's test shapes
+    # (tests/test_kernels.py::TestDinAttention), masks with zeros
+    def din_args(Bq, Lq, Dq, h1, h2):
+        mask = torch.rand(Lq, generator=gen, device=dev) < 0.8
+        mask[0] = True
+        return (randn(Bq, Dq), randn(Lq, Dq), mask,
+                randn(4 * Dq, h1) * 0.2, randn(h1) * 0.1,
+                randn(h1, h2) * 0.2, randn(h2) * 0.1,
+                randn(h2, 1) * 0.2, randn(1) * 0.1)
+
+    def din_bound(Bq, Lq, Dq, h1, h2):
+        """The least work of the unit: [k, q, k-q, k*q] W1 = k (W1a + W1c)
+        + q (W1b - W1c) + (k*q) W1d, so only (k*q) W1d is per (b, l) pair;
+        the key part is per l, the query part (with b1) per b."""
+        pair = (Dq + 2 * Dq * h1 + 2 * h1        # k*q, (k*q) W1d, + parts
+                + 2 * h1 * h2 + h2 + 2 * h2 + 1  # layer 2 + b2, layer 3 + b3
+                + 3 + 2 * Dq)                    # softmax, pooled sum
+        flops = (Bq * Lq * pair + 2 * Dq * h1         # fold W1's blocks
+                 + 2 * Lq * Dq * h1 + Bq * (2 * Dq * h1 + h1))
+        nbytes = 4 * (2 * Bq * Dq + Lq * Dq + 4 * Dq * h1 + h1 + h1 * h2
+                      + 2 * h2 + 1) + Lq          # the mask is bool
+        return bound(nbytes, flops), flops
+
+    Lq, Dq, H1, H2 = 100, 18, 80, 40
+    timed = {}
+    errs = []
+    for Bq in (SINGLE_CALL_B, B):
+        dargs = din_args(Bq, Lq, Dq, H1, H2)
+        errs.append(max_err(da.din_attention(*dargs),
+                            da.din_attention_plain(*dargs)))
+        (b_ms, b_by), flops = din_bound(Bq, Lq, Dq, H1, H2)
+        timed[Bq] = dict(
+            ms=time_ms(lambda: da.din_attention(*dargs)),
+            plain_ms=time_ms(lambda: da.din_attention_plain(*dargs)),
+            bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+        del dargs
+    for shp in ((4, 5, 8), (33, 20, 18), (128, 100, 18)):
+        a = din_args(*shp, 16, 8)
+        errs.append(max_err(da.din_attention(*a), da.din_attention_plain(*a)))
+    entries["din_attention/shared_keys"] = dict(
+        route="cuda", source="src/repro_torch/csrc/din_attention.cu",
+        replaces="src/repro/kernels/din_attention/kernel.py:47",
+        max_abs_err=max(errs),
+        **{k: v for k, v in timed[SINGLE_CALL_B].items() if k != "gflop"},
+        library_ms=None,
+        shape=dict(B=SINGLE_CALL_B, L=Lq, D=Dq, h1=H1, h2=H2,
+                   gflop=timed[SINGLE_CALL_B]["gflop"],
+                   also=[[B, Lq, Dq], [4, 5, 8], [33, 20, 18],
+                         [128, 100, 18]]),
+        at_full_bucket=dict(B=B, **timed[B]),
+        library="none: no single PyTorch call computes the unit")
     # "blh,uh->bl" is a spec the kernel supports but the executor's
     # decomposed attention never reaches, and no served model keeps the
     # gram's diagonal: checked and timed above, reported on their own line
@@ -247,6 +327,9 @@ def main() -> int:
                                             "dot_interaction/triu_keep_self")}
     log("kernels_vs_plain", tol=TOL,
         max_abs_err={k: v["max_abs_err"] for k, v in entries.items()},
+        ms={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                  "library_ms")}
+            for k, v in entries.items()},
         off_path=off_path)
 
     # ---- phases 2 and 3: the serving path ----------------------------------
@@ -338,7 +421,7 @@ def main() -> int:
         del oracle
 
     def reset_launches():
-        for mod in (mm, ge, di):
+        for mod in (mm, ge, di, da):
             mod.reset_launches()
 
     def read_launches():
@@ -346,6 +429,7 @@ def main() -> int:
         out.update({f"gather_einsum/{s}": n for s, n in ge.LAUNCHES.items()})
         out.update({f"dot_interaction/{v}": n
                     for v, n in di.LAUNCHES.items()})
+        out.update({f"din_attention/{v}": n for v, n in da.LAUNCHES.items()})
         return out
 
     def serve_phase() -> dict:
@@ -476,6 +560,165 @@ def main() -> int:
             raise AssertionError(f"launcher exited {out.returncode}")
         return counts
 
+    def single_call(graph, runs, feeds):
+        """Score one request single-call through each (name, graph,
+        params, mode, use_pallas) run; returns name -> (B, tasks) scores."""
+        out = {}
+        with torch.inference_mode():
+            for name, g, p, mode, pallas in runs:
+                o = Executor(g, mode, use_pallas=pallas, device=dev).run(
+                    p, feeds)
+                out[name] = torch.cat([o[k] for k in graph.outputs], -1)
+        torch.cuda.synchronize()
+        return out
+
+    def time_calls(runs, feeds):
+        """timeit (3 warm-up, 20 timed calls, synchronised) per run."""
+        t = {}
+        with torch.inference_mode():
+            for name, g, p, mode, pallas in runs:
+                ex = Executor(g, mode, use_pallas=pallas, device=dev)
+                r = timeit(lambda: ex.run(p, feeds), warmup=3, iters=20)
+                t[name] = dict(p50_ms=r["p50_us"] / 1e3,
+                               mean_ms=r["mean_us"] / 1e3,
+                               p99_ms=r["p99_us"] / 1e3)
+        return t
+
+    def train_convert_phase() -> dict:
+        """Phase 5; returns the kernel launch counts of its path."""
+        graph, _ = get_config("din").BUILD()
+        outputs = list(graph.outputs)
+        params = init_graph_params(graph, seed=0, device=dev)
+        teacher = init_graph_params(graph, seed=99, device=dev)
+        ex = Executor(graph, "vani", device=dev)
+        opt = adam(2e-3)
+        step = recsys_step(ex, outputs, opt)
+        state0 = {"params": params, "opt": opt.init(params)}
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                    dir=os.path.join(ROOT, "build"))
+        try:
+            mgr = CheckpointManager(ckpt_dir, max_to_keep=1)
+            cfg = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=CKPT_EVERY,
+                             log_every=1)
+            lines = []
+            t = time.perf_counter()
+            try:
+                train_loop(step, state0,
+                           teacher_batches(graph, teacher, ex, dev, seed=1),
+                           mgr, cfg, fail_at=FAIL_AT, log=lines.append)
+                raise AssertionError("the injected failure did not fire")
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            # the step-10 save was in flight when the crash hit; the writer
+            # thread finishes it, as it would in a process that outlived
+            # the failed step
+            mgr.wait()
+            crashed_at_latest = mgr.latest_step()
+            if crashed_at_latest != CKPT_EVERY:
+                raise AssertionError(f"after the crash the newest checkpoint "
+                                     f"is {crashed_at_latest}")
+            first_losses = [float(ln.split("loss=")[1]) for ln in lines
+                            if "loss=" in ln]
+            lines = []
+            state, hist = train_loop(
+                step, state0, teacher_batches(graph, teacher, ex, dev,
+                                              seed=2),
+                mgr, cfg, log=lines.append)
+            train_s = time.perf_counter() - t
+            losses = first_losses + [h["loss"] for h in hist]
+            resumed_to = mgr.latest_step()
+            if resumed_to != TRAIN_STEPS - 1 or not lines[0].startswith(
+                    f"[loop] resumed from step {CKPT_EVERY}"):
+                raise AssertionError(f"resume did not reach the last step: "
+                                     f"{resumed_to}, {lines[:1]}")
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"non-finite loss: {losses}")
+            ckpt_gb = sum(os.path.getsize(os.path.join(dp, f))
+                          for dp, _, fs in os.walk(ckpt_dir)
+                          for f in fs) / 1e9
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        del state0
+        params = state["params"]
+        batch = next(teacher_batches(graph, teacher, ex, dev, seed=3))
+        t_step = timeit(lambda: step(state, batch), warmup=2, iters=10)
+        del state
+        log("train", arch="din", steps=TRAIN_STEPS, batch=64,
+            crash_at=FAIL_AT, latest_after_crash=crashed_at_latest,
+            resumed=lines[0], latest_after_resume=resumed_to,
+            loss_first=losses[0], loss_last=losses[-1], losses=losses,
+            wall_s=train_s, checkpoint_gbytes=ckpt_gb,
+            train_step_ms=dict(p50=t_step["p50_us"] / 1e3,
+                               mean=t_step["mean_us"] / 1e3))
+
+        # convert, then score one user's 2048 candidates single-call
+        mg, mp, conv = apply_mari(graph, params)
+        feeds = make_recsys_feeds(graph, SINGLE_CALL_B,
+                                  np.random.default_rng(4))
+        feeds = {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
+        runs = [("vani", graph, params, "vani", False),
+                ("uoi_plain", graph, params, "uoi", False),
+                ("uoi", graph, params, "uoi", True),
+                ("mari_plain", mg, mp, "uoi", False),
+                ("mari", mg, mp, "uoi", True)]
+        scores = single_call(graph, runs, feeds)
+        with torch.inference_mode():
+            tl = Executor(graph, "uoi", device=dev).run(teacher, feeds)
+            tl = torch.cat([tl[o] for o in outputs], -1)
+            labels = (tl > tl.median(dim=0).values).float().cpu().numpy()
+        d = {f"{k}_vs_{k}_plain": float((scores[k] - scores[f"{k}_plain"])
+                                        .abs().max()) for k in ("uoi", "mari")}
+        d["mari_vs_vani"] = float((scores["mari"] - scores["vani"])
+                                  .abs().max())
+        for name, ref in (("uoi", "uoi_plain"), ("mari", "mari_plain"),
+                          ("mari", "vani")):
+            a, b = scores[name].cpu().numpy(), scores[ref].cpu().numpy()
+            if a.shape != (SINGLE_CALL_B, len(outputs)) or not (
+                    np.isfinite(a).all() and close(a, b)):
+                raise AssertionError(f"single-call {name} vs {ref}: "
+                                     f"{np.abs(a - b).max():.3e}")
+        van, mar = scores["vani"].cpu().numpy(), scores["mari"].cpu().numpy()
+        aucs = [(auc(van[:, t], labels[:, t]), auc(mar[:, t], labels[:, t]))
+                for t in range(len(outputs))]
+        if not all(abs(a - b) <= AUC_TOL for a, b in aucs):
+            raise AssertionError(f"AUC moved with the conversion: {aucs}")
+        times = time_calls(runs, feeds)
+        log("single_call", model="din", candidates=SINGLE_CALL_B,
+            rewrites=[r.dense for r in conv.rewrites],
+            attn_rewrites=len(conv.attn_rewrites), max_abs=d,
+            auc_vani_mari=aucs, auc_delta=[abs(a - b) for a, b in aucs],
+            times=times)
+        torch.cuda.synchronize()
+        return read_launches()
+
+    def table1_phase() -> dict:
+        """The paper model at full width single-call in VanI / UOI / MaRI
+        (the reference's bench_table1), timed and printed, not gated."""
+        graph, _ = build_paper_ranking_model(PaperRankingConfig())
+        params = init_graph_params(graph, seed=0, device=dev)
+        mg, mp, conv = apply_mari(graph, params)
+        feeds = make_recsys_feeds(graph, SINGLE_CALL_B,
+                                  np.random.default_rng(5))
+        feeds = {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
+        runs = [("vani", graph, params, "vani", False),
+                ("uoi", graph, params, "uoi", True),
+                ("mari_plain", mg, mp, "uoi", False),
+                ("mari", mg, mp, "uoi", True)]
+        scores = single_call(graph, runs, feeds)
+        times = time_calls(runs, feeds)
+        log("table1", model="paper", candidates=SINGLE_CALL_B,
+            rewrites=[r.dense for r in conv.rewrites],
+            max_abs_vs_vani={k: float((v - scores["vani"]).abs().max())
+                             for k, v in scores.items() if k != "vani"},
+            times=times, speedup_mari_vs_uoi=dict(
+                p50=times["uoi"]["p50_ms"] / times["mari"]["p50_ms"],
+                mean=times["uoi"]["mean_ms"] / times["mari"]["mean_ms"]),
+            note="printed, not gated")
+        torch.cuda.synchronize()
+        return read_launches()
+
     tpu = ServePlan.preset("tpu")
     plain = tpu.evolve(kernel__use_pallas=False, kernel__kernel_gather=False)
     reset_launches()
@@ -516,13 +759,22 @@ def main() -> int:
 
     # ---- phase 4: RankingService + continuous batcher, DLRM/DeepFM/FM -----
     by_path["service"] = serve_phase()
+
+    # ---- phase 5: train, convert, score single-call ------------------------
+    reset_launches()
+    by_path["train+convert"] = train_convert_phase()
+    reset_launches()
+    by_path["table1"] = table1_phase()
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every kernel of
     # PR 11's path, the service to the DLRM interaction and the gathered
-    # MaRI init; the sum is only printed
+    # MaRI init, train+convert to the shared-key DIN unit and the broadcast
+    # MaRI init of DIN's mlp_0; the table-1 timing is only printed
     own = {"paper+din": [k for k in entries
-                         if not k.startswith("dot_interaction/")],
-           "service": ["dot_interaction/triu", "mari_matmul/gather"]}
+                         if k.startswith(("mari_matmul/", "gather_einsum/"))],
+           "service": ["dot_interaction/triu", "mari_matmul/gather"],
+           "train+convert": ["din_attention/shared_keys",
+                             "mari_matmul/broadcast"]}
     missing = [f"{p}:{k}" for p, ks in own.items() for k in ks
                if by_path[p][k] == 0]
     launches = {k: sum(p[k] for p in by_path.values())

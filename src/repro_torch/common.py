@@ -1,9 +1,11 @@
 """Small shared utilities: device resolution, init on a torch.Generator,
-shape math, and the numpy bridge that moves the reference's params and
+shape math, trees of tensors (map, leaves, sizes, ``value_and_grad``),
+``timeit``, and the numpy bridge that moves the reference's params and
 feeds into tensors."""
 from __future__ import annotations
 
-from typing import Any, Mapping
+import time
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -64,11 +66,90 @@ def prev_pow2(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-def tree_map(fn, tree: PyTree) -> PyTree:
-    """Map ``fn`` over the leaves of a nested dict."""
+def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """Map ``fn`` over the leaves of nested dicts, lists and tuples; with
+    ``rest``, over the matching leaves of trees of the same structure."""
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of nested dicts, lists and tuples, in ``tree_map``'s
+    order."""
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template: PyTree, leaves) -> PyTree:
+    """A tree shaped like ``template`` holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def tree_size(tree: PyTree) -> int:
+    """Total number of scalar elements in a tree of tensors or arrays."""
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    """Total bytes of a tree of tensors or arrays."""
+    return sum(int(np.prod(x.shape)) * (x.element_size()
+                                        if isinstance(x, torch.Tensor)
+                                        else x.dtype.itemsize)
+               for x in tree_leaves(tree))
+
+
+def value_and_grad(fn: Callable[[PyTree], torch.Tensor], params: PyTree
+                   ) -> tuple[torch.Tensor, PyTree]:
+    """``jax.value_and_grad`` for a scalar ``fn`` of a tree of tensors:
+    the value (detached) and the gradient tree, through autograd on
+    detached copies, so ``params`` themselves never require grad."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        value = fn(leaves)
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(value, flat, allow_unused=True)
+    return value.detach(), tree_unflatten(
+        leaves, [g if g is not None else torch.zeros_like(t)
+                 for g, t in zip(grads, flat)])
+
+
+def _synchronize() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def timeit(fn: Callable[[], Any], *, warmup: int = 2, iters: int = 10
+           ) -> dict:
+    """Wall-clock a thunk; waits for the card after every call.
+
+    Returns mean/std/p50 (the median)/p99 in microseconds over ``iters``
+    runs, as the reference's ``timeit``."""
+    for _ in range(warmup):
+        fn()
+        _synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        _synchronize()
+        times.append((time.perf_counter() - t0) * 1e6)
+    ts = np.asarray(times)
+    return {
+        "mean_us": float(ts.mean()),
+        "std_us": float(ts.std()),
+        "p50_us": float(np.percentile(ts, 50)),
+        "p99_us": float(np.percentile(ts, 99)),
+        "iters": iters,
+    }
 
 
 def params_from_numpy(tree: PyTree, device: str | torch.device = "cuda"

@@ -1,5 +1,6 @@
 """Synthetic feature pipeline for the recsys graphs (port of
-``repro.data.features``: ``feed_specs`` and ``make_recsys_feeds``).
+``repro.data.features``: ``feed_specs``, ``make_recsys_feeds`` and
+``make_labels``).
 
 Generates feeds matching a graph's input nodes: user-side inputs at batch
 1, item/cross-side at batch B — the serving contract of Fig. 1. Vocab
@@ -68,3 +69,9 @@ def make_recsys_feeds(graph: Graph, batch: int, rng: np.random.Generator,
             a = np.broadcast_to(a[:1], shape).copy()
         feeds[n.name] = a
     return feeds
+
+
+def make_labels(batch: int, rng: np.random.Generator, n_tasks: int = 1
+                ) -> np.ndarray:
+    """(batch, n_tasks) float32 labels, each 1 with probability 0.2."""
+    return (rng.random((batch, n_tasks)) < 0.2).astype(np.float32)

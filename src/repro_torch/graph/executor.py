@@ -17,8 +17,9 @@ Batch semantics — the key to VanI / UOI / MaRI:
   Every op dispatches on the leading dim.
 
 With ``use_pallas`` (the plan field keeps the reference's name) the
-``mari_dense`` products, the gather-aware attention contractions and the
-``dot_interaction`` op go through the hand-written CUDA kernels
+``mari_dense`` products, the gather-aware attention contractions, a whole
+DIN ``target_attention`` over batch-1 keys and the ``dot_interaction`` op
+go through the hand-written CUDA kernels
 (``repro_torch.kernels``); their wrappers take the plain PyTorch versions
 for CPU tensors.
 """
@@ -31,6 +32,7 @@ import torch
 from repro_torch.common import (glorot, make_generator, normal_init,
                                 resolve_device, take_clip)
 from repro_torch.graph.ir import Graph, Node, infer_shapes
+from repro_torch.kernels import din_attention as din_kernel
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_plain)
 from repro_torch.kernels.gather_einsum import gather_einsum, gather_einsum_plain
@@ -258,7 +260,6 @@ class Executor:
         return all(i in allowed
                    for i, s in enumerate(c.inputs) if s == name)
 
-    @torch.no_grad()
     def run(self, params: dict, feeds: Mapping[str, Tensor]
             ) -> dict[str, Tensor]:
         feeds = {k: torch.as_tensor(v, device=self.device)
@@ -415,6 +416,18 @@ class Executor:
                               device=keys.device)
 
         if not (n.attrs.get("decomposed") and "w_kd" in p["layer_0"]):
+            # one (L, D) key block for the whole batch (the single-call UOI
+            # / MaRI executor; VanI tiles it and serving gathers it per
+            # row) through a three-layer unit: the fused kernel, if it fits
+            if (self.use_pallas and keys.shape[0] == 1 and mask.shape[0] == 1
+                    and nlayers == 3
+                    and all("b" in p[f"layer_{li}"] for li in range(3))):
+                args = (q, keys[0], mask[0],
+                        *(p[f"layer_{li}"][k] for li in range(3)
+                          for k in ("w", "b")))
+                if din_kernel.fits(*args):
+                    return din_kernel.din_attention(*args)
+
             def mlp_apply(x):
                 for li in range(nlayers):
                     x = dense_apply(p[f"layer_{li}"], x)

@@ -20,9 +20,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mari_matmul", "gather_einsum", "dot_interaction")
+SOURCES = ("mari_matmul", "gather_einsum", "dot_interaction",
+           "din_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -97,6 +100,19 @@ def count_launch(launches: dict[str, int], key: str) -> None:
     from one worker thread per scenario, so the increment takes a lock."""
     with _count_lock:
         launches[key] += 1
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: no kernel
+    here has a backward, and a kernel's output would leave the gradient
+    out without a word. Training runs the plain versions
+    (``use_pallas=False``), as the reference's does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input "
+            f"requires grad; run under torch.no_grad() / "
+            f"torch.inference_mode(), or with use_pallas=False to train")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

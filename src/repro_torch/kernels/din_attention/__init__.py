@@ -1,0 +1,7 @@
+from repro_torch.kernels.din_attention.ops import (  # noqa: F401
+    LAUNCHES,
+    din_attention,
+    din_attention_plain,
+    fits,
+    reset_launches,
+)

@@ -55,6 +55,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(x: Tensor, keep_self: bool) -> Tensor:
+    build.refuse_autograd("dot_interaction", x)
     if x.dtype != torch.float32:
         raise TypeError(f"dot_interaction CUDA kernel takes float32 only, "
                         f"x is {x.dtype} (bf16 is not ported yet)")

@@ -107,6 +107,7 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
             shape: tuple[int, ...]) -> Tensor:
+    build.refuse_autograd(f"gather_einsum {spec!r}", x, table)
     if spec not in KERNEL_SPECS:
         raise NotImplementedError(
             f"gather_einsum: the CUDA kernel covers {KERNEL_SPECS}, not "

@@ -77,6 +77,7 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(x: Tensor, w: Tensor, u: Tensor, user_index: Tensor | None,
             mode: str, activation: str) -> Tensor:
+    build.refuse_autograd("mari_matmul", x, w, u)
     for name, t in (("x", x), ("w", w), ("u", u)):
         if t.device != x.device:
             raise ValueError(f"mari_matmul: {name} on {t.device}, x on "

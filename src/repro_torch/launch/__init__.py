@@ -1,1 +1,2 @@
-"""Entry points (port of ``repro.launch``: the serving launcher)."""
+"""Entry points (port of ``repro.launch``: the serving and training
+launchers)."""

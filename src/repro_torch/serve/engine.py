@@ -264,7 +264,8 @@ class ServingEngine:
         feeds.update(cand)
         if lazy:
             feeds[USER_INDEX_FEED] = user_index
-        return self._stage2_ex.run(params, feeds)
+        with torch.inference_mode():
+            return self._stage2_ex.run(params, feeds)
 
     # -- candidate mini-batching -----------------------------------------
     def _bucket(self, n: int) -> int:
@@ -333,7 +334,8 @@ class ServingEngine:
             t0 = time.perf_counter()
             feeds = {k: v for k, v in req.user_feeds.items()
                      if k in self._stage1_inputs}
-            reps = self._stage1.run(self.params, feeds)
+            with torch.inference_mode():
+                reps = self._stage1.run(self.params, feeds)
             self._sync()
             self.stage1_calls += 1
             s = time.perf_counter() - t0

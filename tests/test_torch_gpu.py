@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.graph.executor import init_graph_params
+from repro_torch.core.mari import apply_mari
+from repro_torch.data.features import make_recsys_feeds
+from repro_torch.graph.executor import Executor, init_graph_params
+from repro_torch.kernels import din_attention as da
 from repro_torch.kernels import dot_interaction as di
 from repro_torch.kernels import gather_einsum as ge
 from repro_torch.kernels import mari_matmul as mm
@@ -240,3 +243,114 @@ def test_overlapped_groups_keep_private_buffers(cuda):
     for h, w in zip(handles, want):
         for r, expect in zip(eng.collect(h), w):
             np.testing.assert_allclose(r.scores, expect, **TOL)
+
+
+def _din_case(dev, B, L, D, h1, h2, seed=0):
+    g = _gen(dev, seed)
+    q, keys = _randn(g, B, D), _randn(g, L, D)
+    mask = torch.rand(L, generator=g, device=dev) < 0.8
+    mask[0] = True
+    weights = (_randn(g, 4 * D, h1) * 0.2, _randn(g, h1) * 0.1,
+               _randn(g, h1, h2) * 0.2, _randn(g, h2) * 0.1,
+               _randn(g, h2, 1) * 0.2, _randn(g, 1) * 0.1)
+    return (q, keys, mask) + weights
+
+
+@pytest.mark.parametrize("B,L,D,h1,h2", [(4096, 100, 18, 80, 40),
+                                         (4, 5, 8, 16, 8),
+                                         (33, 20, 18, 16, 8),
+                                         (128, 100, 18, 16, 8),
+                                         (1, 7, 6, 12, 5),
+                                         (300, 37, 33, 128, 64)])
+def test_din_attention_kernel_matches_plain(cuda, B, L, D, h1, h2):
+    args = _din_case(cuda, B, L, D, h1, h2, seed=B + L)
+    before = da.LAUNCHES["shared_keys"]
+    got = da.din_attention(*args)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["shared_keys"] == before + 1
+    assert got.shape == (B, D)
+    torch.testing.assert_close(got, da.din_attention_plain(*args), **TOL)
+
+
+def test_din_attention_kernel_rows_and_masks(cuda):
+    """A row's result does not depend on B; an all-masked history pools
+    the keys uniformly, as the reference's softmax over -1e30 does."""
+    args = _din_case(cuda, 300, 100, 18, 80, 40, seed=3)
+    full = da.din_attention(*args)
+    part = da.din_attention(args[0][117:203].contiguous(), *args[1:])
+    assert torch.equal(full[117:203], part)
+    masked = (args[0], args[1], torch.zeros_like(args[2])) + args[3:]
+    got = da.din_attention(*masked)
+    torch.testing.assert_close(got, da.din_attention_plain(*masked), **TOL)
+    torch.testing.assert_close(got, args[1].mean(0).expand_as(got), **TOL)
+
+
+def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
+    args = _din_case(cuda, 8, 10, 6, 16, 8)
+    with pytest.raises(TypeError, match="float32 only"):
+        da.din_attention(args[0].bfloat16(), *args[1:])
+    wide = _din_case(cuda, 8, 10, 6, 200, 8)
+    with pytest.raises(ValueError, match="register tiles"):
+        da.din_attention(*wide)
+    long = _din_case(cuda, 8, 4000, 18, 16, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        da.din_attention(*long)
+    # the executor's routing asks the same predicate
+    assert da.fits(*args) and da.fits(*_din_case(cuda, 8, 100, 18, 80, 40))
+    assert not da.fits(*wide) and not da.fits(*long)
+    assert not da.fits(*_din_case(cuda, 8, 10, 6, 16, 65))
+    # DIN at configs/din.py width stages 91552 bytes: room to spare
+    assert da.ops._lib().din_attention_smem_bytes(100, 18, 80, 40) == 91552
+    with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
+        da.din_attention(args[0], args[1], args[2], args[3][:-1], *args[4:])
+
+
+def _autograd_cases(dev):
+    g = _gen(dev, 9)
+    x, w, u = _randn(g, 16, 8), _randn(g, 8, 4), _randn(g, 1, 4)
+    idx = torch.zeros(16, dtype=torch.int32, device=dev)
+    return {
+        "mari_matmul": (lambda a: mm.mari_matmul(a, w, u, None, "relu"), x),
+        "gather_einsum": (lambda a: ge.gather_einsum(
+            "bl,uld->bd", a, _randn(g, 2, 16, 8), idx), _randn(g, 16, 16)),
+        "dot_interaction": (di.dot_interaction, _randn(g, 16, 5, 8)),
+        "din_attention": (lambda a: da.din_attention(
+            a, *_din_case(dev, 16, 10, 8, 16, 8)[1:]), _randn(g, 16, 8)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["mari_matmul", "gather_einsum",
+                                    "dot_interaction", "din_attention"])
+def test_kernel_wrappers_refuse_autograd(cuda, kernel):
+    """No kernel has a backward: a CUDA input that requires grad under grad
+    mode raises instead of leaving its gradient out; without grad mode the
+    same call launches."""
+    fn, x = _autograd_cases(cuda)[kernel]
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(x)
+    with torch.no_grad():
+        assert fn(x).requires_grad is False
+    with torch.inference_mode():
+        fn(x.detach())
+
+
+def test_executor_routes_shared_key_din_to_kernel(cuda):
+    """Single-call UOI and MaRI over batch-1 DIN keys go through the
+    din_attention kernel and agree with the plain executors; VanI tiles
+    the keys and never launches it."""
+    graph = get_config("din").smoke_build()()[0]
+    params = init_graph_params(graph, seed=0, device=cuda)
+    feeds = make_recsys_feeds(graph, 300, np.random.default_rng(4))
+    mg, mp, _ = apply_mari(graph, params)
+    for g, p in ((graph, params), (mg, mp)):
+        want = Executor(g, "uoi", device=cuda).run(p, feeds)
+        da.reset_launches()
+        got = Executor(g, "uoi", use_pallas=True, device=cuda).run(p, feeds)
+        torch.cuda.synchronize()
+        assert da.LAUNCHES["shared_keys"] == 1
+        for o in g.outputs:
+            torch.testing.assert_close(got[o], want[o], **TOL)
+    da.reset_launches()
+    Executor(graph, "vani", use_pallas=True, device=cuda).run(params, feeds)
+    assert da.LAUNCHES["shared_keys"] == 0

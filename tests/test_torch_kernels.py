@@ -9,8 +9,11 @@ import pytest
 import torch
 
 from repro.kernels import gather_einsum as jax_gather_einsum
+from repro.kernels.din_attention import din_attention as jax_din_attention
+from repro.kernels.din_attention.ref import din_attention_ref
 from repro.kernels import mari_matmul_fused_groups as jax_fused_groups
 from repro.kernels.gather_einsum.kernel import parse_spec as jax_parse_spec
+from repro_torch.kernels import din_attention as da
 from repro_torch.kernels import gather_einsum as ge
 from repro_torch.kernels import mari_matmul as mm
 from repro_torch.kernels.gather_einsum import (gather_einsum,
@@ -198,3 +201,71 @@ def test_launch_counts_survive_concurrent_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert counts["k"] == n_threads * n_each
+
+
+def _din_case(B, L, D, h1=16, h2=8, seed=0):
+    """tests/test_kernels.py::TestDinAttention's inputs, from numpy: a
+    mask with zeros (position 0 kept) and nonzero biases."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    mask = rng.random(L) < 0.8
+    mask[0] = True
+    return (f(B, D), f(L, D), mask, f(4 * D, h1) * 0.2, f(h1) * 0.1,
+            f(h1, h2) * 0.2, f(h2) * 0.1, f(h2, 1) * 0.2, f(1) * 0.1)
+
+
+@pytest.mark.parametrize("B,L,D", [(4, 5, 8), (33, 20, 18), (128, 100, 18)])
+def test_din_attention_matches_reference(B, L, D):
+    """The wrapper on CPU tensors (its plain version) against the
+    reference's oracle and its Pallas kernel in interpret mode."""
+    args = _din_case(B, L, D, seed=B + L)
+    before = dict(da.LAUNCHES)
+    got = da.din_attention(*(_t(a) for a in args)).numpy()
+    assert da.LAUNCHES == before        # CPU tensors never launch a kernel
+    np.testing.assert_allclose(got, np.asarray(din_attention_ref(*args)),
+                               **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_din_attention(*args, interpret=True)), **TOL)
+
+
+def test_din_attention_matches_nn_target_attention():
+    """As TestDinAttention::test_matches_nn_target_attention: the fused unit
+    equals the port's whole target_attention over batch-1 keys."""
+    from repro_torch.nn.attention import target_attention
+    args = [_t(a) for a in _din_case(9, 7, 6, h1=12, h2=5, seed=3)]
+    q, keys, mask, w1, b1, w2, b2, w3, b3 = args
+
+    def mlp(x):
+        x = torch.relu(x @ w1 + b1)
+        x = torch.relu(x @ w2 + b2)
+        return x @ w3 + b3
+
+    want = target_attention(q, keys[None], mask[None], mlp)
+    np.testing.assert_allclose(da.din_attention(*args).numpy(),
+                               want.numpy(), **TOL)
+
+
+def test_din_attention_shape_checks_and_limits():
+    args = [_t(a) for a in _din_case(4, 5, 8)]
+    with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
+        da.din_attention(args[0], args[1][:, :7], *args[2:])
+    with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
+        da.din_attention(*args[:7], args[7][:, :1].repeat(1, 2), args[8])
+    with pytest.raises(ValueError, match="unsupported device"):
+        da.din_attention(*(a.to("meta") for a in args))
+    assert da.fits(*args)
+    assert not da.fits(args[0], args[1][:, :7], *args[2:])
+    assert not da.fits(args[0][0], *args[1:])
+
+    def unit(B, L, D, h1, h2):
+        return [torch.empty(s, device="meta") for s in (
+            (B, D), (L, D), (L,), (4 * D, h1), (h1,), (h1, h2), (h2,),
+            (h2, 1), (1,))]
+
+    # off CUDA the plain version takes any unit; the kernel's own limits
+    # (register tiles, shared memory) are held on the card
+    # (tests/test_torch_gpu.py)
+    assert da.fits(*unit(4096, 100, 18, 80, 40))
+    assert da.fits(*unit(8, 100, 18, 200, 40))
+    assert not da.fits(*unit(8, 100, 18, 80, 40)[:3], *unit(8, 100, 17, 80,
+                                                             40)[3:])

@@ -230,3 +230,48 @@ def test_functional_eq7_forms_match_reference():
     }
     for name, g in got.items():
         np.testing.assert_allclose(g.numpy(), want, err_msg=name, **TOL)
+
+
+DIN_WIDE = dict(embed_dim=18, seq_len=100, attn_mlp=(80, 40), mlp=(200, 80),
+                item_vocab=512)        # configs/din.py widths, small vocab
+
+
+@pytest.mark.parametrize("mode", ["uoi", "mari"])
+@pytest.mark.parametrize("widths", ["smoke", "full"])
+def test_din_single_call_kernel_path_matches_reference(widths, mode,
+                                                       monkeypatch):
+    """Single-call UOI and MaRI of DIN with use_pallas (the din_attention
+    wrapper; its plain version on the CPU) against the reference's
+    executor. The whole attention unit goes to the wrapper once, with the
+    batch-1 keys as one (L, D) block."""
+    import repro_torch.graph.executor as texec
+    kw = DIN_SMOKE if widths == "smoke" else DIN_WIDE
+    jg, tg = j_din(**kw)[0], t_din(**kw)[0]
+    jp = init_graph_params(jg, jax.random.PRNGKey(11))
+    tp = params_from_numpy(_np_tree(jp), "cpu")
+    user, cand = _feeds(jg, 37, np.random.default_rng(12))
+    feeds = {**user, **cand}
+    if mode == "mari":
+        jg, jp, _ = jmari.apply_mari(jg, jp)
+        tg, tp, conv = tmari.apply_mari(tg, tp)
+        assert [r.dense for r in conv.rewrites] == ["mlp_0"]
+        assert not conv.attn_rewrites   # the unit stays whole
+    calls = []
+    real = texec.din_kernel.din_attention
+
+    def spy(q, keys, mask, *w):
+        calls.append((tuple(q.shape), tuple(keys.shape), tuple(mask.shape)))
+        return real(q, keys, mask, *w)
+
+    monkeypatch.setattr(texec.din_kernel, "din_attention", spy)
+    want = JExecutor(jg, "uoi").run(jp, {k: jnp.asarray(v)
+                                         for k, v in feeds.items()})
+    got = TExecutor(tg, "uoi", use_pallas=True, device="cpu").run(tp, feeds)
+    L, D = kw["seq_len"], kw["embed_dim"]
+    assert calls == [((37, D), (L, D), (L,))]
+    for o in jg.outputs:
+        np.testing.assert_allclose(got[o].numpy(), np.asarray(want[o]), **TOL)
+    # VanI tiles the keys to B: the unit stays on the plain code
+    calls.clear()
+    TExecutor(tg, "vani", use_pallas=True, device="cpu").run(tp, feeds)
+    assert calls == []
