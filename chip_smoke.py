@@ -7,7 +7,8 @@
    parallel) and holds every kernel against its plain PyTorch version at the
    serving path's full-width shapes plus a ragged shape, timing kernel,
    plain version and a library yardstick (cuBLAS ``addmm`` / a pre-gathered
-   ``einsum`` / ``bmm`` plus a triangle gather, used nowhere in the port;
+   ``einsum`` / ``bmm`` plus a triangle gather /
+   ``torch.nn.functional.embedding_bag``, used nowhere in the port;
    ``din_attention`` has no single-call counterpart in PyTorch).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
@@ -34,16 +35,37 @@
    each paradigm and one training step. Last, the paper model at full
    width single-call in VanI / UOI / MaRI at B = 2048 (the reference's
    ``bench_table1``), timed and printed.
+6. Multi-hot DLRM (``build_dlrm``'s topology at its published widths, the
+   26 tables at ``scale_tables=0.1``, sparse fields multi-hot with MLPerf
+   DLRM-DCNv2's hotness, pooled with ``pool="sum"``: 8 bags per
+   candidate, 7 per user) through a ``RankingService`` on ``tpu`` with the
+   device-resident rep tier (8 slots, retries, the circuit breaker): (a)
+   four passes of an interleaved 9-request stream — new users, the same
+   users, a bumped feature version, twelve new users (steals and overflow)
+   — each score against a plain re-stacking engine and its own
+   per-request score, the store's counters and the ``pack`` / ``dispatch``
+   means beside the same stream without the tier; (b) injected faults (a
+   failed slot write, a corrupted collect) recovered by quarantine and
+   retries; (c) hedging on the ``paper`` preset with kernels; (d, inside
+   phases 2 and 3) device-resident twins of the paper and DIN engines.
 
-Kernel launch counts are zeroed just before each path (phases 2-3, phase
-4, phase 5 and the paper's single call) and read just after it: every
-kernel variant on a path must have launched on it. Prints the kernels JSON line, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
+Kernel launch counts are zeroed just before each run of a path and read
+just after it, the readings summed per path: the paper and DIN ``tpu``
+engines, their device-resident twins, the phase-4 service, that service
+under the preset's default hedging, train + convert, the paper's single
+call, and in phase 6 the device-tier service, its re-stacking twin, the
+fault run and the hedged engine, each its own path. Every kernel variant
+held to a path must have launched on it; runs made only to compare (the
+plain engines, phase 1's checks, per-request oracles) count nowhere.
+Phase 4 also times the ``tpu`` preset as shipped (hedging on) beside
+``hedging=False`` on its DLRM stream. Prints the kernels JSON line, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, when no CUDA device is present, or when run
 without the repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -65,6 +87,10 @@ DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
 TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
 AUC_TOL = 1e-3
+# MLPerf DLRM-DCNv2's Criteo multi-hot sizes (MLCommons training,
+# recommendation_v2/torchrec_dlrm, --multi_hot_sizes), one per sparse field
+MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1,
+             6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
 
 
 def log(tag: str, **kv) -> None:
@@ -95,6 +121,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import din_attention as da
     from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
     from repro_torch.launch.train import recsys_step
     from repro_torch.train.loop import LoopConfig, train_loop
     from repro_torch.train.losses import auc
@@ -103,9 +130,12 @@ def main() -> int:
     from repro_torch.kernels import mari_matmul as mm
     from repro_torch.models.ranking import (PaperRankingConfig,
                                             build_paper_ranking_model)
-    from repro_torch.models.recsys import build_din, build_dlrm
+    from repro_torch.graph.ir import GraphBuilder
+    from repro_torch.models.recsys import (DLRM_TABLE_ROWS, build_din,
+                                           build_dlrm, pad_vocab)
     from repro_torch.serve import (RankingService, ServePlan, ServeRequest,
                                    ServingEngine)
+    from repro_torch.serve.hedging import HedgePolicy
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -319,18 +349,86 @@ def main() -> int:
                          [128, 100, 18]]),
         at_full_bucket=dict(B=B, **timed[B]),
         library="none: no single PyTorch call computes the unit")
+    # EmbeddingBag at the multi-hot DLRM path's largest bag: the sparse_20
+    # table at scale_tables=0.1 (2,564,352 x 128), B = 4096, H = 100, sum;
+    # the fixed-hotness entry (the executor's) and the CSR entry on the
+    # same ids; the bound counts each distinct row this run's ids read
+    import torch.nn.functional as F
+    Vb, Bb, Hb, Db = pad_vocab(int(DLRM_TABLE_ROWS[20] * 0.1)), B, 100, 128
+    tab = randn(Vb, Db)
+    bag_ids = torch.randint(0, Vb, (Bb, Hb), generator=gen, device=dev,
+                            dtype=torch.int32)
+    flat = bag_ids.reshape(-1)
+    segs = torch.arange(Bb, device=dev).repeat_interleave(Hb)
+    offs = torch.arange(0, Bb * Hb, Hb, device=dev)
+    rows_read = int(torch.unique(flat).numel())
+    b_ms, b_by = bound(Db * 4 * rows_read + 4 * Bb * Hb + 4 * Bb * Db,
+                       Bb * Hb * Db)
+    errs = {"fixed": [max_err(eb.embedding_bag_fixed(tab, bag_ids),
+                              eb.embedding_bag_fixed_plain(tab, bag_ids))],
+            "csr": [max_err(eb.embedding_bag(tab, flat, segs, Bb),
+                            eb.embedding_bag_plain(tab, flat, segs, Bb))]}
+    # ragged: unsorted segments with empty and out-of-range ones, mean,
+    # per-id weights, D = 18 / 1 / 130 (scalar path, partial tiles),
+    # out-of-range and int64 ids, fixed hotness 1 and 27
+    for Vr, Dr, Sr, nnz in ((1000, 18, 300, 2000), (500, 1, 64, 700),
+                            (3000, 130, 97, 1500), (10_000, 128, 4096, 8192)):
+        tr = randn(Vr, Dr)
+        ir = torch.randint(-3, Vr + 3, (nnz,), generator=gen, device=dev)
+        sr = torch.randint(-2, Sr + 2, (nnz,), generator=gen, device=dev)
+        wr = torch.rand(nnz, generator=gen, device=dev)
+        for comb in ("sum", "mean"):
+            for w_ in (None, wr):
+                errs["csr"].append(max_err(
+                    eb.embedding_bag(tr, ir, sr, Sr, comb, w_),
+                    eb.embedding_bag_plain(tr, ir, sr, Sr, comb, w_)))
+        for Hr in (1, 27):
+            ir2 = randidx(64 * Hr, Vr).reshape(64, Hr)
+            for comb in ("sum", "mean"):
+                errs["fixed"].append(max_err(
+                    eb.embedding_bag_fixed(tr, ir2, comb),
+                    eb.embedding_bag_fixed_plain(tr, ir2, comb)))
+    bag_shape = dict(V=Vb, B=Bb, H=Hb, D=Db, combiner="sum",
+                     distinct_rows_read=rows_read,
+                     mbytes_for_bound=(Db * 4 * rows_read + 4 * Bb * Hb
+                                       + 4 * Bb * Db) / 1e6)
+    entries["embedding_bag/fixed"] = dict(
+        route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:37",
+        max_abs_err=max(errs["fixed"]),
+        ms=time_ms(lambda: eb.embedding_bag_fixed(tab, bag_ids)),
+        plain_ms=time_ms(lambda: eb.embedding_bag_fixed_plain(tab, bag_ids)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.embedding_bag(flat, tab, offs,
+                                                   mode="sum")),
+        shape=bag_shape,
+        library="torch.nn.functional.embedding_bag (mode='sum', offsets)")
+    entries["embedding_bag/csr"] = dict(
+        route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:37",
+        max_abs_err=max(errs["csr"]),
+        ms=time_ms(lambda: eb.embedding_bag(tab, flat, segs, Bb)),
+        plain_ms=time_ms(lambda: eb.embedding_bag_plain(tab, flat, segs,
+                                                        Bb)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.embedding_bag(flat, tab, offs,
+                                                   mode="sum")),
+        shape=dict(bag_shape, note="ms includes the wrapper's stable sort "
+                   "and CSR offsets"),
+        library="torch.nn.functional.embedding_bag (mode='sum', offsets)")
+    del tab, bag_ids, flat, segs, offs
     # "blh,uh->bl" is a spec the kernel supports but the executor's
-    # decomposed attention never reaches, and no served model keeps the
-    # gram's diagonal: checked and timed above, reported on their own line
-    # rather than among the main path's kernels
-    off_path = {k: entries.pop(k) for k in ("gather_einsum/blh,uh->bl",
-                                            "dot_interaction/triu_keep_self")}
+    # decomposed attention never reaches, no served model keeps the gram's
+    # diagonal, and no path calls the CSR entry of embedding_bag (the
+    # executor's bags have a fixed hotness): checked and timed above, they
+    # are listed in the kernels line with on_path false
+    OFF_PATH = ("gather_einsum/blh,uh->bl", "dot_interaction/triu_keep_self",
+                "embedding_bag/csr")
     log("kernels_vs_plain", tol=TOL,
         max_abs_err={k: v["max_abs_err"] for k, v in entries.items()},
         ms={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                   "library_ms")}
-            for k, v in entries.items()},
-        off_path=off_path)
+            for k, v in entries.items()}, off_path=OFF_PATH)
 
     # ---- phases 2 and 3: the serving path ----------------------------------
     def requests(graph, pools, seed):
@@ -383,11 +481,12 @@ def main() -> int:
         ref = [oracle.score(r).scores for r in reqs]
         for name, plan in plans.items():
             eng = ServingEngine(graph, params, plan, device=dev)
-            per = [eng.score(r) for r in reqs]           # cold: stage 1 runs
-            t = time.perf_counter()
-            co = eng.score_coalesced(reqs)               # users now cached
-            co_ms = (time.perf_counter() - t) * 1e3
-            warm = [eng.score(r) for r in reqs]
+            with counting("paper+din"):
+                per = [eng.score(r) for r in reqs]       # cold: stage 1 runs
+                t = time.perf_counter()
+                co = eng.score_coalesced(reqs)           # users now cached
+                co_ms = (time.perf_counter() - t) * 1e3
+                warm = [eng.score(r) for r in reqs]
             d_ref = d_co = 0.0
             for r, p, c, o in zip(reqs, per, co, ref):
                 n = next(iter(r.candidate_feeds.values())).shape[0]
@@ -404,7 +503,8 @@ def main() -> int:
                 d_co = max(d_co, float(np.abs(c.scores - p.scores).max()))
             prof = eng.profiler.snapshot(reset=True)
             try:
-                window = device_window(eng, reqs)
+                with counting("paper+din"):
+                    window = device_window(eng, reqs)
             except Exception as e:       # a profiler failure is no smoke fail
                 window = f"not measured: {type(e).__name__}: {e}"
             log(tag, plan=name, pools=[r.scores.shape[0] for r in per],
@@ -417,11 +517,38 @@ def main() -> int:
                 coalesced_calls=eng.coalesced_calls,
                 profile={k: v for k, v in prof.items() if v["calls"]},
                 device_window=window)
+            if name == "tpu":
+                device_twin(tag, graph, params, plan, reqs, per)
             del eng
         del oracle
 
+    def device_twin(tag, graph, params, plan, reqs, want):
+        """Phase 6d: a device-resident twin of a ``tpu`` engine scores the
+        same users (per request, then coalesced over the slot tables); each
+        score within TOL of the ``tpu`` engine's. Its launches are path
+        ``device_twin``'s."""
+        twin = ServingEngine(graph, params, plan.evolve(
+            cache__device_resident=True, cache__device_slots=8), device=dev)
+        with counting("device_twin"):
+            per = [twin.score(r) for r in reqs]
+            co = twin.score_coalesced(reqs)
+        d = 0.0
+        for p_, c, w in zip(per, co, want):
+            for got in (p_.scores, c.scores):
+                if not (np.isfinite(got).all() and close(got, w.scores)):
+                    raise AssertionError(
+                        f"{tag}/device twin: {np.abs(got - w.scores).max()}")
+                d = max(d, float(np.abs(got - w.scores).max()))
+        log(f"{tag}_device_twin", max_abs_vs_tpu=d,
+            store=twin.device_store.stats(),
+            warm_latency_ms=[r.latency_ms for r in per],
+            coalesced_latency_ms=co[0].latency_ms,
+            profile={k: v for k, v in twin.profiler.snapshot().items()
+                     if v["calls"]})
+        twin.close()
+
     def reset_launches():
-        for mod in (mm, ge, di, da):
+        for mod in (mm, ge, di, da, eb):
             mod.reset_launches()
 
     def read_launches():
@@ -430,10 +557,28 @@ def main() -> int:
         out.update({f"dot_interaction/{v}": n
                     for v, n in di.LAUNCHES.items()})
         out.update({f"din_attention/{v}": n for v, n in da.LAUNCHES.items()})
+        out.update({f"embedding_bag/{v}": n for v, n in eb.LAUNCHES.items()})
         return out
 
-    def serve_phase() -> dict:
-        """Phase 4; returns the kernel launch counts of the service path."""
+    by_path: dict[str, dict[str, int]] = {}
+
+    @contextlib.contextmanager
+    def counting(path):
+        """Zero every launch count just before the block and add what the
+        block launched to ``by_path[path]`` just after (device synchronised
+        at both ends), so each path is read over its own runs only."""
+        torch.cuda.synchronize()
+        reset_launches()
+        yield
+        torch.cuda.synchronize()
+        tot = by_path.setdefault(path, {})
+        for k, n in read_launches().items():
+            tot[k] = tot.get(k, 0) + n
+
+    def serve_phase() -> None:
+        """Phase 4: the service's passes count as path ``service``; then the
+        preset's default hedging beside ``hedging=False`` (path
+        ``service_default_hedging``) and the launcher."""
         graph, _ = build_dlrm(scale_tables=DLRM_SCALE_TABLES)
         params = init_graph_params(graph, seed=0, device=dev)
         torch.cuda.synchronize()
@@ -466,12 +611,12 @@ def main() -> int:
                  for sc, req in items]
         passes = (("first", items), ("cold_users", again),
                   ("warm_users", again))
-        reset_launches()
         out = {}
         for name, stream in passes:
-            t = time.perf_counter()
-            out[name] = svc.score_many(stream)
-            stream_ms = (time.perf_counter() - t) * 1e3
+            with counting("service"):
+                t = time.perf_counter()
+                out[name] = svc.score_many(stream)
+                stream_ms = (time.perf_counter() - t) * 1e3
             log("service_pass", name=name, stream_ms=stream_ms,
                 requests=len(stream), latency_ms={
                     sc: [r.latency_ms for (s, _), r in zip(stream,
@@ -488,9 +633,8 @@ def main() -> int:
                                          f"differs from the first pass")
         # per-request scores on the same engines (users now cached), one
         # request at a time from this thread: no batcher thread competes
-        per = [svc.engine(sc).score(req) for sc, req in items]
-        torch.cuda.synchronize()
-        counts = read_launches()
+        with counting("service"):
+            per = [svc.engine(sc).score(req) for sc, req in items]
         log("service_per_request", latency_ms={
             sc: [r.latency_ms for (s, _), r in zip(items, per) if s == sc]
             for sc in SERVED},
@@ -540,6 +684,9 @@ def main() -> int:
         log("service_cache", shared_cache={k: v for k, v in cache.items()
                           if k != "boundary_bytes"},
             dlrm_device_window=window)
+        default_hedging(svc, graph, params, [
+            (sc, r, res.scores) for (sc, r), res in zip(items, results)
+            if sc == "dlrm-mlperf"])
         svc.close()
         del svc, oracle, params
         torch.cuda.empty_cache()
@@ -558,7 +705,57 @@ def main() -> int:
             stderr=out.stderr.strip().splitlines()[-6:])
         if out.returncode != 0:
             raise AssertionError(f"launcher exited {out.returncode}")
-        return counts
+
+    def default_hedging(svc, graph, params, dlrm):
+        """The ``tpu`` preset as shipped (``batch.hedging`` on: a dispatch
+        at a shape already seen runs blocking on a hedge worker) beside
+        phase 4's ``hedging=False`` service, on the DLRM stream: each
+        service warmed, then three rounds of a cold-user and a warm-user
+        pass in turns, the order flipped every round. Scores within TOL of
+        phase 4's first pass."""
+        hsvc = RankingService(ServePlan.preset("tpu"), smoke=False, seed=0,
+                              device=dev)
+        hsvc.register("dlrm-mlperf", graph=graph, params=params)
+        labels = {"hedging_off": (svc, "service"),
+                  "hedging_default": (hsvc, "service_default_hedging")}
+        with counting("service_default_hedging"):
+            hsvc.score_many([(sc, r) for sc, r, _ in dlrm])   # first use
+        for s_, _ in labels.values():
+            s_.engine("dlrm-mlperf").profiler.snapshot(reset=True)
+        h0 = hsvc.engine("dlrm-mlperf").ft_stats()["hedges_launched"]
+        rec = {lab: {"cold_users_ms": [], "warm_users_ms": []}
+               for lab in labels}
+        d = 0.0
+        for k in range(3):
+            stream = [(sc, dataclasses.replace(r, user_id=r.user_id
+                                               + 1000 * (k + 1)))
+                      for sc, r, _ in dlrm]
+            order = list(labels) if k % 2 == 0 else list(labels)[::-1]
+            for pass_ in ("cold_users_ms", "warm_users_ms"):
+                for lab in order:
+                    s_, path = labels[lab]
+                    with counting(path):
+                        t = time.perf_counter()
+                        got = s_.score_many(stream)
+                        rec[lab][pass_].append(
+                            (time.perf_counter() - t) * 1e3)
+                    for g, (_, _, want) in zip(got, dlrm):
+                        if not close(g.scores, want):
+                            raise AssertionError(
+                                f"service/{lab}: outside {TOL}")
+                        d = max(d, float(np.abs(g.scores - want).max()))
+        for lab, (s_, _) in labels.items():
+            eng = s_.engine("dlrm-mlperf")
+            snap = eng.profiler.snapshot(reset=True)
+            rec[lab].update(
+                hedging=eng.hedging,
+                profile={p: v for p, v in snap.items() if v["calls"]})
+        rec["hedging_default"]["hedges_launched"] = (
+            hsvc.engine("dlrm-mlperf").ft_stats()["hedges_launched"] - h0)
+        with counting("service_default_hedging"):
+            hsvc.close()                 # joins any abandoned hedge loser
+        log("service_default_hedging", scenario="dlrm-mlperf",
+            pools=list(POOLS), max_abs_vs_first_pass=d, **rec)
 
     def single_call(graph, runs, feeds):
         """Score one request single-call through each (name, graph,
@@ -584,8 +781,8 @@ def main() -> int:
                                p99_ms=r["p99_us"] / 1e3)
         return t
 
-    def train_convert_phase() -> dict:
-        """Phase 5; returns the kernel launch counts of its path."""
+    def train_convert_phase() -> None:
+        """Phase 5 (path ``train+convert``)."""
         graph, _ = get_config("din").BUILD()
         outputs = list(graph.outputs)
         params = init_graph_params(graph, seed=0, device=dev)
@@ -690,10 +887,8 @@ def main() -> int:
             attn_rewrites=len(conv.attn_rewrites), max_abs=d,
             auc_vani_mari=aucs, auc_delta=[abs(a - b) for a, b in aucs],
             times=times)
-        torch.cuda.synchronize()
-        return read_launches()
 
-    def table1_phase() -> dict:
+    def table1_phase() -> None:
         """The paper model at full width single-call in VanI / UOI / MaRI
         (the reference's bench_table1), timed and printed, not gated."""
         graph, _ = build_paper_ranking_model(PaperRankingConfig())
@@ -716,12 +911,219 @@ def main() -> int:
                 p50=times["uoi"]["p50_ms"] / times["mari"]["p50_ms"],
                 mean=times["uoi"]["mean_ms"] / times["mari"]["mean_ms"]),
             note="printed, not gated")
-        torch.cuda.synchronize()
-        return read_launches()
 
-    tpu = ServePlan.preset("tpu")
+
+    def multihot_dlrm():
+        """build_dlrm's graph at its published widths and scale_tables =
+        0.1, with sparse field i taking (h_i,) ids pooled by sum where
+        h_i > 1 (MULTI_HOT)."""
+        rows = [pad_vocab(max(4, int(r * DLRM_SCALE_TABLES)))
+                for r in DLRM_TABLE_ROWS]
+        b = GraphBuilder()
+        h = b.input("user_dense", (13,), "user")
+        for li, width in enumerate((512, 256, 128)):
+            h = b.dense(f"bot_mlp_{li}", h, width, activation="relu")
+        bot_out, embs = h, []
+        for fi, hot in enumerate(MULTI_HOT):
+            ids = b.input(f"sparse_{fi}_ids", (hot,) if hot > 1 else (),
+                          "user" if fi < 13 else "item", dtype="int32")
+            embs.append(b.embedding(f"sparse_{fi}_emb", ids, vocab=rows[fi],
+                                    dim=128, pool="sum" if hot > 1 else None))
+        inter = b.dot_interaction("dot_inter", b.stack_features(
+            "feat_stack", [bot_out] + embs))
+        h = b.concat("top_in", [bot_out, inter])
+        for li, width in enumerate((1024, 1024, 512, 256, 1)):
+            h = b.dense(f"top_mlp_{li}", h, width,
+                        activation="identity" if width == 1 else "relu")
+        b.output(h)
+        return b.graph
+
+    def multihot_phase() -> None:
+        """Phase 6 (a-c). Every ``score_many`` of the device-tier service
+        counts as path ``multihot``; the re-stacking twin, the fault run and
+        the hedging engine each count as a path of their own."""
+        graph = multihot_dlrm()
+        params = init_graph_params(graph, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log("multihot_params", gbytes=sum(
+            p["table"].numel() * 4 for p in params.values() if "table" in p)
+            / 1e9, bags_per_candidate=sum(h > 1 for h in MULTI_HOT[13:]),
+            ids_per_candidate=sum(MULTI_HOT[13:]))
+        # a 20 ms linger lets the batcher put the twelve new users of the
+        # last pass into one call (one group stops growing at max_batch
+        # rows), so they need more slots than the tier has
+        tier = tpu.evolve(cache__device_resident=True, cache__device_slots=8,
+                          ft__retries=2, ft__breaker_failures=3,
+                          batch__linger_ms=20.0)
+        no_tier = tpu.evolve(ft__retries=2, batch__linger_ms=20.0)
+        oracle = ServingEngine(graph, params, plain, device=dev)
+
+        def stream(base_uid, users, seed, version=0):
+            """9 requests, pools 1000 / 3000 / 5000 interleaved over
+            ``users`` user ids from ``base_uid``."""
+            reqs = requests(graph, POOLS * 3, seed=seed)
+            for i, r in enumerate(reqs):
+                r.user_id = base_uid + i % users
+                r.feature_version = version
+            return reqs
+
+        first = stream(0, 3, seed=61)
+        passes = [("new_users", first), ("same_users", first),
+                  ("bumped_version", [dataclasses.replace(
+                      r, feature_version=1) if r.user_id == 0 else r
+                      for r in first]),
+                  ("twelve_new_users", requests(graph, (300,) * 12,
+                                                seed=62))]
+        for i, r in enumerate(passes[-1][1]):
+            r.user_id = 100 + i
+        # both services are built and warmed (first use of each bucket
+        # size: pinned host blocks, per-thread library set-up) on users of
+        # their own, then take the four passes in turns, the order flipped
+        # every pass, so neither pays first-use costs the other skips
+        svcs = {}
+        path_of = {"device_tier": "multihot",
+                   "restacking": "multihot_restacking"}
+        for label, plan_ in (("device_tier", tier), ("restacking", no_tier)):
+            svc = RankingService(plan_, device=dev)
+            svc.register("dlrm-multihot", graph=graph, params=params)
+            warm = stream(900, 3, seed=60) + requests(graph, (300,) * 12,
+                                                      seed=59)
+            for i, r in enumerate(warm[9:]):
+                r.user_id = 910 + i
+            with counting(path_of[label]):
+                svc.score_many([("dlrm-multihot", r) for r in warm])
+            svc.engine("dlrm-multihot").profiler.snapshot(reset=True)
+            svcs[label] = svc
+        store = svcs["device_tier"].engine("dlrm-multihot").device_store
+        before = store.stats()
+        prof = {label: {} for label in svcs}
+        res = {label: [] for label in svcs}
+        for k, (name, reqs) in enumerate(passes):
+            order = list(svcs) if k % 2 == 0 else list(svcs)[::-1]
+            for label in order:
+                svc = svcs[label]
+                eng = svc.engine("dlrm-multihot")
+                calls0 = eng.stage2_calls
+                with counting(path_of[label]):
+                    t = time.perf_counter()
+                    got = svc.score_many([("dlrm-multihot", r)
+                                          for r in reqs])
+                    stream_ms = (time.perf_counter() - t) * 1e3
+                snap = eng.profiler.snapshot(reset=True)
+                packs = eng.stage2_calls - calls0
+                # ``pack`` is one entry per pack; the tier's slot
+                # resolution (row writes) is its own phase, once per call
+                prof[label][name] = dict(
+                    stream_ms=stream_ms, packs=packs,
+                    pack_ms_per_pack=snap["pack"]["total_ms"] / packs,
+                    slots_ms=snap["slots"]["total_ms"],
+                    slots_calls=snap["slots"]["calls"],
+                    dispatch_mean_us=snap["dispatch"]["mean_us"],
+                    stage1_calls=snap["stage1"]["calls"])
+                res[label].append(got)
+        torch.cuda.synchronize()
+        for label, svc in svcs.items():
+            eng = svc.engine("dlrm-multihot")
+            d_ref = d_per = 0.0
+            for (name, reqs), got in zip(passes, res[label]):
+                for r, g in zip(reqs, got):
+                    n = next(iter(r.candidate_feeds.values())).shape[0]
+                    want = oracle.score(r).scores
+                    own = eng.score(r).scores
+                    if g.scores.shape != (n, 1) or not (
+                            np.isfinite(g.scores).all()
+                            and close(g.scores, want)
+                            and close(own, g.scores)):
+                        raise AssertionError(
+                            f"multihot/{label}/{name}: outside {TOL}: "
+                            f"{np.abs(g.scores - want).max():.3e} vs plain, "
+                            f"{np.abs(own - g.scores).max():.3e} vs own")
+                    d_ref = max(d_ref, float(np.abs(g.scores - want).max()))
+                    d_per = max(d_per, float(np.abs(own - g.scores).max()))
+            st = svc.stats()["scenarios"]["dlrm-multihot"]
+            log("multihot_service", plan=label, passes=prof[label],
+                max_abs_vs_plain=d_ref, max_abs_vs_own_score=d_per,
+                store=st["device_store"], pipeline_forks=st["pipeline_forks"],
+                hedging=st["hedging"])
+        # the passes themselves wrote, hit, stole and overflowed slots
+        after = store.stats()
+        moved = {k: after[k] - before[k] for k in ("writes", "hits",
+                                                   "recycles", "overflows")}
+        if not all(moved.values()):
+            raise AssertionError(f"device tier never exercised: {moved}")
+        log("multihot_store_in_passes", **moved)
+        # 6b: faults on the same service, one pass of new users
+        svc = svcs["device_tier"]
+        fplan = tier.evolve(ft__inject=True, ft__sites=(
+            "slot_write:error:count=1", "collect:corrupt:count=1"))
+        svc.register("dlrm-multihot-ft", graph=graph, params=params,
+                     plan=fplan)
+        freqs = stream(200, 3, seed=64)
+        with counting("multihot_faults"):
+            fres = svc.score_many([("dlrm-multihot-ft", r) for r in freqs])
+        fst = svc.stats()["scenarios"]["dlrm-multihot-ft"]
+        d_f = 0.0
+        for r, g in zip(freqs, fres):
+            want = oracle.score(r).scores
+            if not (np.isfinite(g.scores).all() and close(g.scores, want)):
+                raise AssertionError("multihot/faults: bad score")
+            d_f = max(d_f, float(np.abs(g.scores - want).max()))
+        log("multihot_faults", sites=list(fplan.ft.sites),
+            faults_fired=fst["faults_fired"], quarantines=fst["quarantines"],
+            corruptions_detected=fst["corruptions_detected"],
+            retries_attempted=fst["retries_attempted"],
+            breaker=fst["breaker"], max_abs_vs_plain=d_f)
+        if fst["faults_fired"] != 2 or fst["quarantines"] < 1:
+            raise AssertionError(f"faults: {fst['faults_fired']} fired, "
+                                 f"{fst['quarantines']} quarantines")
+        for svc in svcs.values():
+            svc.close()
+        del svcs, svc
+        # 6c: hedging on the paper preset with kernels; a 0 ms policy floor
+        # hedges every dispatch at a shape already seen
+        hplan = ServePlan.preset("paper").evolve(kernel__use_pallas=True)
+        heng = ServingEngine(graph, params, hplan, device=dev,
+                             hedge_policy=HedgePolicy(min_hedge_ms=0.0))
+        ref = ServingEngine(graph, params,
+                            hplan.evolve(batch__hedging=False), device=dev)
+        hreqs = requests(graph, POOLS, seed=65)
+        d_h, lat = 0.0, {"hedged": [], "unhedged": [], "hedged_ms": [],
+                         "unhedged_ms": []}
+        with counting("multihot_hedging"):
+            heng.score_coalesced(hreqs)              # first use per shape
+        ref.score_coalesced(hreqs)
+        for _ in range(3):                           # in turns
+            for label_, e in (("hedged", heng), ("unhedged", ref)):
+                with (counting("multihot_hedging") if e is heng
+                      else contextlib.nullcontext()):
+                    t = time.perf_counter()
+                    lat[label_].append(e.score_coalesced(hreqs))
+                    lat[label_ + "_ms"].append(
+                        (time.perf_counter() - t) * 1e3)
+        for got, want in zip(lat["hedged"], lat["unhedged"]):
+            for g, w in zip(got, want):
+                if not close(g.scores, w.scores):
+                    raise AssertionError("hedged scores differ")
+                d_h = max(d_h, float(np.abs(g.scores - w.scores).max()))
+        hst = heng.ft_stats()
+        log("multihot_hedging", hedges_launched=hst["hedges_launched"],
+            hedge_wins=hst["hedge_wins"],
+            hedged_per_request=[r.hedged for r in lat["hedged"][-1]],
+            max_abs_vs_unhedged=d_h,
+            coalesced_call_ms=dict(hedged=lat["hedged_ms"],
+                                   unhedged=lat["unhedged_ms"]))
+        if hst["hedges_launched"] == 0:
+            raise AssertionError("hedging launched no duplicate")
+        with counting("multihot_hedging"):
+            heng.close()                 # joins any abandoned hedge loser
+        del heng, ref, oracle, params
+        torch.cuda.empty_cache()
+
+    # hedging is the preset's default, as in the reference; phases 2-5
+    # keep it off so their dispatch stays non-blocking and their numbers
+    # stay comparable across runs, and phase 6c measures it
+    tpu = ServePlan.preset("tpu").evolve(batch__hedging=False)
     plain = tpu.evolve(kernel__use_pallas=False, kernel__kernel_gather=False)
-    reset_launches()
 
     cfg = PaperRankingConfig()
     graph, _ = build_paper_ranking_model(cfg)
@@ -735,8 +1137,9 @@ def main() -> int:
     conv = mari_rewrite(graph)
     one = requests(graph, (B,), seed=2)[0]
     feeds = {**one.user_feeds, **one.candidate_feeds}
-    got = Executor(conv.graph, "uoi", use_pallas=True, device=dev).run(
-        convert_params(conv, params), feeds)
+    with counting("paper+din"):
+        got = Executor(conv.graph, "uoi", use_pallas=True, device=dev).run(
+            convert_params(conv, params), feeds)
     want = Executor(graph, "vani", device=dev).run(params, feeds)
     d_eq7 = max(float((got[o] - want[o]).abs().max()) for o in graph.outputs)
     if not all(close(got[o].cpu().numpy(), want[o].cpu().numpy())
@@ -754,35 +1157,54 @@ def main() -> int:
     serve_checks("din", graph, params, {"tpu": tpu}, plain,
                  requests(graph, POOLS, seed=3), n_out=1)
     del params
-    torch.cuda.synchronize()
-    by_path = {"paper+din": read_launches()}
 
     # ---- phase 4: RankingService + continuous batcher, DLRM/DeepFM/FM -----
-    by_path["service"] = serve_phase()
+    serve_phase()
 
     # ---- phase 5: train, convert, score single-call ------------------------
-    reset_launches()
-    by_path["train+convert"] = train_convert_phase()
-    reset_launches()
-    by_path["table1"] = table1_phase()
+    with counting("train+convert"):
+        train_convert_phase()
+    with counting("table1"):
+        table1_phase()
+
+    # ---- phase 6: multi-hot DLRM, device tier, faults, hedging -------------
+    multihot_phase()
     log("launches_by_path", **by_path)
-    # each path is held to its own counts: paper + DIN to every kernel of
-    # PR 11's path, the service to the DLRM interaction and the gathered
-    # MaRI init, train+convert to the shared-key DIN unit and the broadcast
-    # MaRI init of DIN's mlp_0; the table-1 timing is only printed
-    own = {"paper+din": [k for k in entries
-                         if k.startswith(("mari_matmul/", "gather_einsum/"))],
-           "service": ["dot_interaction/triu", "mari_matmul/gather"],
-           "train+convert": ["din_attention/shared_keys",
-                             "mari_matmul/broadcast"]}
-    missing = [f"{p}:{k}" for p, ks in own.items() for k in ks
-               if by_path[p][k] == 0]
-    launches = {k: sum(p[k] for p in by_path.values())
-                for k in by_path["service"]}
+    # each path is held to its own counts: paper + DIN to every variant of
+    # mari_matmul and gather_einsum on its path, the device twins to the
+    # gathered MaRI init and DIN's gathered contractions over slot tables,
+    # the service (with or without the preset's default hedging) to the
+    # DLRM interaction and the gathered MaRI init, train+convert to the
+    # shared-key DIN unit and the broadcast MaRI init of DIN's mlp_0, the
+    # multi-hot device-tier service (and its re-stacking twin, and its
+    # fault run) to the pooled bags, the interaction and the gathered MaRI
+    # init, the hedged paper-preset engine (no kernel gather) to the bags,
+    # the interaction and the row-wise MaRI init; table1 is only printed
+    held = {"paper+din": [k for k in entries
+                          if k.startswith(("mari_matmul/", "gather_einsum/"))
+                          and k not in OFF_PATH]}
+    held["device_twin"] = ["mari_matmul/gather"] + [
+        k for k in held["paper+din"] if k.startswith("gather_einsum/")]
+    held["service"] = held["service_default_hedging"] = [
+        "dot_interaction/triu", "mari_matmul/gather"]
+    held["train+convert"] = ["din_attention/shared_keys",
+                             "mari_matmul/broadcast"]
+    held["multihot"] = held["multihot_restacking"] = \
+        held["multihot_faults"] = ["embedding_bag/fixed",
+                                   "mari_matmul/gather",
+                                   "dot_interaction/triu"]
+    held["multihot_hedging"] = ["embedding_bag/fixed", "mari_matmul/rowwise",
+                                "dot_interaction/triu"]
+    missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
+               if by_path.get(p, {}).get(k, 0) == 0]
+    launches = {k: sum(p.get(k, 0) for p in by_path.values())
+                for k in entries}
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     kernels = [{"name": name, "launches": launches[name],
-                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                "launches_by_path": {p: c.get(name, 0)
+                                     for p, c in by_path.items()},
+                "on_path": name not in OFF_PATH,
                 **e} for name, e in entries.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -18,8 +18,9 @@ Batch semantics — the key to VanI / UOI / MaRI:
 
 With ``use_pallas`` (the plan field keeps the reference's name) the
 ``mari_dense`` products, the gather-aware attention contractions, a whole
-DIN ``target_attention`` over batch-1 keys and the ``dot_interaction`` op
-go through the hand-written CUDA kernels
+DIN ``target_attention`` over batch-1 keys, the ``dot_interaction`` op and
+the pooled (``pool="sum"`` / ``"mean"``) multi-hot ``embedding`` op go
+through the hand-written CUDA kernels
 (``repro_torch.kernels``); their wrappers take the plain PyTorch versions
 for CPU tensors.
 """
@@ -35,6 +36,7 @@ from repro_torch.graph.ir import Graph, Node, infer_shapes
 from repro_torch.kernels import din_attention as din_kernel
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_plain)
+from repro_torch.kernels.embedding_bag import embedding_bag_fixed
 from repro_torch.kernels.gather_einsum import gather_einsum, gather_einsum_plain
 from repro_torch.kernels.mari_matmul import mari_matmul_fused_groups
 from repro_torch.nn.attention import NEG_INF, cross_attention, target_attention
@@ -340,9 +342,15 @@ class Executor:
         if op == "embedding":
             table = params[n.name]["table"]
             ids = ins[0]
+            pool = n.attrs.get("pool")
+            if self.use_pallas and pool in ("sum", "mean") and ids.ndim >= 2:
+                # a pooled multi-hot lookup: one fixed-hotness bag per row
+                # of the flattened (..., H) ids
+                out = embedding_bag_fixed(
+                    table, ids.reshape(-1, ids.shape[-1]), combiner=pool)
+                return out.reshape(tuple(ids.shape[:-1]) + (table.shape[1],))
             rows = torch.index_select(table, 0, ids.reshape(-1)).reshape(
                 tuple(ids.shape) + (table.shape[1],))
-            pool = n.attrs.get("pool")
             if pool == "sum":
                 rows = rows.sum(dim=-2)
             elif pool == "mean":

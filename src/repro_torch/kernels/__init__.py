@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels (sources in ``../csrc``): ``mari_matmul``,
-``gather_einsum``, ``dot_interaction`` and ``din_attention``.
+``gather_einsum``, ``dot_interaction``, ``din_attention`` and
+``embedding_bag``.
 
 Each kernel module holds the wrapper (CPU tensor -> plain PyTorch version;
 CUDA tensor -> the kernel, or an error), the plain version, and a

@@ -1,13 +1,15 @@
 """Serving runtime of the port (``repro.serve``'s counterpart): ``engine``
 (``ServingEngine``), ``batcher`` (``CoalescingBatcher``), ``cache``
-(``UserRepCache``), ``plan`` (``ServePlan``), ``profile``
-(``StageProfiler``), ``service`` (``RankingService``) and ``errors``."""
+(``UserRepCache`` and the device-resident tier ``DeviceRepStore``),
+``hedging`` (``HedgePolicy``, ``HedgedRunner``), ``plan`` (``ServePlan``),
+``profile`` (``StageProfiler``), ``service`` (``RankingService``) and
+``errors``."""
 from repro_torch.serve.batcher import (  # noqa: F401
     SLO_BEST_EFFORT,
     SLO_DEADLINE,
     CoalescingBatcher,
 )
-from repro_torch.serve.cache import UserRepCache  # noqa: F401
+from repro_torch.serve.cache import DeviceRepStore, UserRepCache  # noqa: F401
 from repro_torch.serve.engine import (  # noqa: F401
     ServeRequest,
     ServeResult,
@@ -17,11 +19,15 @@ from repro_torch.serve.engine import (  # noqa: F401
 from repro_torch.serve.errors import (  # noqa: F401
     AdmissionError,
     BatcherClosedError,
+    CircuitOpenError,
+    FaultInjected,
     RetryExhausted,
     ServeError,
     WorkerCrashedError,
 )
+from repro_torch.serve.hedging import HedgedRunner, HedgePolicy  # noqa: F401
 from repro_torch.serve.plan import (  # noqa: F401
+    FaultPlan,
     PlanError,
     PlanResolutionWarning,
     ServePlan,

@@ -1,6 +1,5 @@
 """Async request queue that coalesces candidate chunks across users
-(port of ``repro.serve.batcher``; request tracing and fault-injection
-sites are not ported yet).
+(port of ``repro.serve.batcher``; request tracing is not ported yet).
 
 At "millions of users" scale the compiled stage-2 buckets sit mostly idle
 if each request is served alone: every ragged pool pays its own padding and
@@ -88,7 +87,8 @@ deadline stops immediately and the future resolves with a typed
 refusals (``AdmissionError``, ``BatcherClosedError``) are never retried.
 
 **Worker supervision** — the dispatch loop runs under a supervisor on
-the worker thread: an escaped exception is a *worker crash*, not a hang.
+the worker thread: an escaped exception (e.g. an injected ``worker_loop``
+fault) is a *worker crash*, not a hang.
 The supervisor fails-or-retries every request the crashed loop was holding
 (the group being formed), collects every in-flight group, and restarts the
 dispatch loop on the same thread (``worker_crashes`` /
@@ -173,6 +173,10 @@ class CoalescingBatcher:
                                          backoff_ms=retry_backoff_ms,
                                          jitter=retry_jitter)
         self._retry_rng = random.Random(retry_seed)
+        # the engine's fault injector (None in production): the batcher
+        # owns exactly one site — worker_loop, poked at group formation —
+        # so chaos schedules can kill the dispatch loop deterministically
+        self._injector = getattr(engine, "fault_injector", None)
         self._q: queue.PriorityQueue = queue.PriorityQueue()
         self._seq = 0
         self._stop = threading.Event()
@@ -220,12 +224,18 @@ class CoalescingBatcher:
         return self.queue_wait.total
 
     @classmethod
-    def from_plan(cls, engine: ServingEngine, batch,
+    def from_plan(cls, engine: ServingEngine, batch, ft=None,
                   *, auto_start: bool = True) -> "CoalescingBatcher":
         """Build a batcher from a ``BatchPlan`` (the ``ServePlan`` spine's
-        batch section) — the one wiring every entry point shares. Retries
-        stay off: their knobs live in the reference's ``ft`` section, which
-        is not ported yet."""
+        batch section) — the one wiring every entry point shares. The
+        optional ``ft`` (the plan's ``FaultPlan`` section) carries the
+        retry knobs; omitted, retries are off."""
+        kw: dict = {}
+        if ft is not None:
+            kw = dict(retries=ft.retries,
+                      retry_backoff_ms=ft.retry_backoff_ms,
+                      retry_jitter=ft.retry_jitter,
+                      retry_seed=ft.seed)
         return cls(engine, linger_ms=batch.linger_ms,
                    max_coalesce=batch.max_coalesce,
                    deadline_linger_frac=batch.deadline_linger_frac,
@@ -236,7 +246,7 @@ class CoalescingBatcher:
                    degrade_queue_depth=batch.degrade_queue_depth,
                    degrade_frac=batch.degrade_frac,
                    deadline_headroom_ms=batch.deadline_headroom_ms,
-                   auto_start=auto_start)
+                   auto_start=auto_start, **kw)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -495,6 +505,8 @@ class CoalescingBatcher:
         # crash-visible formation state: if the loop dies past this line,
         # the supervisor owns every item in the list and resolves it
         group = self._forming = [item]
+        if self._injector is not None:
+            self._injector.poke("worker_loop", req=item.seq)
         rows = self._candidate_rows(item.req)
         # draining after close(): no linger — ship everything, fast
         deadline = (time.perf_counter() if self._stop.is_set()

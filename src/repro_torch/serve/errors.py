@@ -21,10 +21,8 @@ specific failure class they can handle:
   the supervisor resolves every affected future with this (or retries
   it) and respawns the loop.
 
-A copy of ``repro.serve.errors``. ``FaultInjected`` and
-``CircuitOpenError`` belong to the fault-injection and circuit-breaker
-paths, which are not ported yet; they are kept so a caller catches the
-same names in both packages. Stdlib-only.
+A copy of ``repro.serve.errors``, so a caller catches the same names in
+both packages. Stdlib-only.
 """
 from __future__ import annotations
 

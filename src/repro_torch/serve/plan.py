@@ -9,15 +9,21 @@ packages:
 * ``KernelPlan`` — ``use_pallas`` (here: the hand-written CUDA kernels),
   ``kernel_gather``, ``gather_attention``, ``precat_weights``;
 * ``BatchPlan``  — ``max_batch``, ``min_bucket``, ``max_users_per_batch``,
-  and the batcher's ``linger_ms``, ``max_coalesce``,
+  ``hedging``, and the batcher's ``linger_ms``, ``max_coalesce``,
   ``deadline_linger_frac``, ``continuous``, ``max_inflight``,
   ``admission``, ``shed_queue_depth``, ``degrade_queue_depth``,
   ``degrade_frac``, ``deadline_headroom_ms``;
-* ``CachePlan``  — ``cache_user_reps``, ``max_cached_users``.
+* ``CachePlan``  — ``cache_user_reps``, ``max_cached_users``,
+  ``device_resident`` (persistent slot-allocated CUDA rep tables),
+  ``device_slots``;
+* ``FaultPlan``  — section key ``ft``: ``inject`` + ``seed`` + ``sites``
+  (deterministic fault injection, ``repro_torch.ft.faults``), ``retries``
+  / ``retry_backoff_ms`` / ``retry_jitter`` (the batcher's retries),
+  ``breaker_failures`` / ``breaker_cooldown_ms`` / ``breaker_probes`` (the
+  circuit breaker on the device-resident stage-2 path).
 
-The reference's other sections and fields (shard, obs, mem, ft, the device
-tier, hedging) are not ported yet: naming one is a ``PlanError``, never a
-silent no-op.
+The reference's other sections (shard, obs, mem) are not ported yet:
+naming one is a ``PlanError``, never a silent no-op.
 
 Resolution table (the rows that touch these fields):
 
@@ -29,7 +35,7 @@ unknown section or field, wrong-typed value           reject (``PlanError``)
 ``two_stage=True`` with ``mode="vani"``               reject
 non-positive ``max_batch`` / ``min_bucket`` /         reject
 ``max_users_per_batch`` / ``max_cached_users`` /
-``max_coalesce`` / ``max_inflight`` /
+``device_slots`` / ``max_coalesce`` / ``max_inflight`` /
 ``shed_queue_depth`` / ``degrade_queue_depth``;
 negative ``linger_ms`` / ``deadline_headroom_ms``;
 ``deadline_linger_frac`` outside [0, 1];
@@ -38,6 +44,13 @@ negative ``linger_ms`` / ``deadline_headroom_ms``;
 admission thresholds (``shed_queue_depth`` /          drop them + warn
 ``degrade_queue_depth`` / positive
 ``deadline_headroom_ms``) without ``admission=True``
+``device_resident`` without ``cache_user_reps``       drop
+                                                      ``device_resident``
+                                                      + warn
+``device_resident`` with ``hedging``                  drop ``hedging`` +
+                                                      warn
+``device_slots`` without ``device_resident``          drop ``device_slots``
+                                                      + warn
 ``kernel_gather`` without ``use_pallas``              drop ``kernel_gather``
                                                       + warn
 ``gather_attention`` without decomposed attention     drop
@@ -46,6 +59,19 @@ admission thresholds (``shed_queue_depth`` /          drop them + warn
 ``reparam_attention``/``fragment``/                   drop them + warn
 ``group_by_domain`` with ``mode != "mari"``
 ``min_bucket > max_batch``                            clamp ``min_bucket``
+malformed ``ft.sites`` spec (unknown site / kind /    reject
+param, bad value)
+negative ``ft.retries`` / ``ft.retry_backoff_ms``     reject
+/ ``ft.breaker_failures`` /
+``ft.breaker_cooldown_ms``; ``ft.retry_jitter``
+outside [0, 1]; ``ft.breaker_probes < 1``
+``ft.sites`` / ``ft.seed`` without ``ft.inject``      drop them + warn
+``ft.retry_backoff_ms`` / ``ft.retry_jitter``         drop them + warn
+(non-default) without ``ft.retries > 0``
+``ft.breaker_failures > 0`` without                   drop breaker + warn
+``cache.device_resident``
+``ft.breaker_cooldown_ms`` / ``ft.breaker_probes``    drop them + warn
+(non-default) without ``ft.breaker_failures > 0``
 ====================================================  =======================
 
 Round-trip: ``ServePlan.from_json(plan.to_json()) == plan``.
@@ -56,6 +82,8 @@ import dataclasses
 import json
 import warnings
 from typing import Any, Mapping
+
+from repro_torch.ft.faults import parse_fault_spec
 
 MODES = ("vani", "uoi", "mari")
 
@@ -89,11 +117,12 @@ class KernelPlan:
 
 @dataclasses.dataclass(frozen=True)
 class BatchPlan:
-    """Bucketing, cross-user coalescing, SLO linger, the continuous
-    dispatch loop, and SLO-tiered admission control."""
+    """Bucketing, cross-user coalescing, SLO linger, hedging, the
+    continuous dispatch loop, and SLO-tiered admission control."""
     max_batch: int = 4096              # stage-2 row budget per dispatch
     min_bucket: int = 128              # smallest pow2 candidate bucket
     max_users_per_batch: int = 8       # rep-table slot budget per pack
+    hedging: bool = True               # duplicate straggling dispatches
     linger_ms: float = 2.0             # batcher window for co-arrivals
     max_coalesce: int = 64             # request budget per batcher group
     deadline_linger_frac: float = 0.25  # linger shrink for deadline SLO
@@ -108,13 +137,33 @@ class BatchPlan:
 
 @dataclasses.dataclass(frozen=True)
 class CachePlan:
-    """Bounded LRU user-representation store."""
+    """Bounded LRU user-representation store + optional device tier."""
     cache_user_reps: bool = True
     max_cached_users: int | None = None    # None = unbounded
+    device_resident: bool = False          # persistent CUDA rep tables
+    device_slots: int | None = None        # device-tier capacity; None =
+    #                                        max_cached_users (or 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """Fault tolerance: deterministic injection + self-healing recovery
+    (``repro_torch.ft``)."""
+    inject: bool = False               # arm the fault injector
+    seed: int = 0                      # per-site deterministic RNG seed
+    sites: tuple = ()                  # "site:kind[:k=v,...]" spec strings
+    retries: int = 0                   # per-request retry budget (0 = off)
+    retry_backoff_ms: float = 1.0      # attempt k sleeps backoff * 2**k
+    retry_jitter: float = 0.5          # multiplicative jitter in [0, 1]
+    breaker_failures: int = 0          # consecutive device-tier failures
+    #                                    that open the breaker (0 = off)
+    breaker_cooldown_ms: float = 100.0  # open -> half-open wait
+    breaker_probes: int = 1            # half-open successes to close
 
 
 _SECTIONS: dict[str, type] = {"graph": GraphPlan, "kernel": KernelPlan,
-                              "batch": BatchPlan, "cache": CachePlan}
+                              "batch": BatchPlan, "cache": CachePlan,
+                              "ft": FaultPlan}
 
 # per-field type contracts, checked before the range/combination rules. A
 # trailing "?" allows None; "int" excludes bool (True is not a row budget).
@@ -125,13 +174,18 @@ _FIELD_TYPES: dict[str, dict[str, str]] = {
     "kernel": {"use_pallas": "bool", "kernel_gather": "bool",
                "gather_attention": "bool", "precat_weights": "bool"},
     "batch": {"max_batch": "int", "min_bucket": "int",
-              "max_users_per_batch": "int",
+              "max_users_per_batch": "int", "hedging": "bool",
               "linger_ms": "num", "max_coalesce": "int",
               "deadline_linger_frac": "num", "continuous": "bool",
               "max_inflight": "int", "admission": "bool",
               "shed_queue_depth": "int?", "degrade_queue_depth": "int?",
               "degrade_frac": "num", "deadline_headroom_ms": "num"},
-    "cache": {"cache_user_reps": "bool", "max_cached_users": "int?"},
+    "cache": {"cache_user_reps": "bool", "max_cached_users": "int?",
+              "device_resident": "bool", "device_slots": "int?"},
+    "ft": {"inject": "bool", "seed": "int", "sites": "strs",
+           "retries": "int", "retry_backoff_ms": "num",
+           "retry_jitter": "num", "breaker_failures": "int",
+           "breaker_cooldown_ms": "num", "breaker_probes": "int"},
 }
 
 
@@ -151,6 +205,9 @@ def _type_ok(kind: str, v: Any) -> bool:
         return isinstance(v, bool)
     if kind == "num":
         return isinstance(v, (int, float)) and not isinstance(v, bool)
+    if kind == "strs":                     # tuple of str (lists were
+        return (isinstance(v, tuple)       # normalized before this check)
+                and all(isinstance(x, str) for x in v))
     return isinstance(v, int) and not isinstance(v, bool)    # "int"
 
 
@@ -167,6 +224,7 @@ class ServePlan:
     kernel: KernelPlan = KernelPlan()
     batch: BatchPlan = BatchPlan()
     cache: CachePlan = CachePlan()
+    ft: FaultPlan = FaultPlan()
 
     def __post_init__(self):
         for name, cls in _SECTIONS.items():
@@ -183,6 +241,12 @@ class ServePlan:
                 raise PlanError(
                     f"plan section {name!r} must be a {cls.__name__} or a "
                     f"dict, got {type(v).__name__}")
+        # JSON carries tuples as lists: normalize ft.sites before the type
+        # check so a round-tripped plan compares equal to the original
+        if isinstance(self.ft.sites, list):
+            object.__setattr__(
+                self, "ft",
+                dataclasses.replace(self.ft, sites=tuple(self.ft.sites)))
         for name, fields in _FIELD_TYPES.items():
             section = getattr(self, name)
             for field, kind in fields.items():
@@ -191,7 +255,8 @@ class ServePlan:
                          f"{name}.{field} must be {kind.rstrip('?')}"
                          f"{' or None' if kind.endswith('?') else ''}, "
                          f"got {type(v).__name__} ({v!r})")
-        g, k, b, c = self.graph, self.kernel, self.batch, self.cache
+        g, k, b, c, f = (self.graph, self.kernel, self.batch, self.cache,
+                         self.ft)
 
         _require(g.mode in MODES,
                  f"unknown mode {g.mode!r}; known: {list(MODES)}")
@@ -229,6 +294,28 @@ class ServePlan:
         _require(c.max_cached_users is None or c.max_cached_users >= 1,
                  f"max_cached_users must be >= 1 (or None for unbounded), "
                  f"got {c.max_cached_users}")
+        _require(c.device_slots is None or c.device_slots >= 1,
+                 f"device_slots must be >= 1 (or None to follow "
+                 f"max_cached_users), got {c.device_slots}")
+        _require(f.retries >= 0, f"retries must be >= 0, got {f.retries}")
+        _require(f.retry_backoff_ms >= 0,
+                 f"retry_backoff_ms must be >= 0, got {f.retry_backoff_ms}")
+        _require(0.0 <= f.retry_jitter <= 1.0,
+                 f"retry_jitter must be in [0, 1], got {f.retry_jitter}")
+        _require(f.breaker_failures >= 0,
+                 f"breaker_failures must be >= 0 (0 disables the breaker), "
+                 f"got {f.breaker_failures}")
+        _require(f.breaker_cooldown_ms >= 0,
+                 f"breaker_cooldown_ms must be >= 0, got "
+                 f"{f.breaker_cooldown_ms}")
+        _require(f.breaker_probes >= 1,
+                 f"breaker_probes must be >= 1, got {f.breaker_probes}")
+        for spec in f.sites:
+            try:
+                parse_fault_spec(spec)
+            except ValueError as e:
+                raise PlanError(f"invalid ft.sites spec {spec!r}: {e}") \
+                    from None
 
         notes = []
         if k.kernel_gather and not k.use_pallas:
@@ -279,6 +366,87 @@ class ServePlan:
                                     degrade_queue_depth=None,
                                     deadline_headroom_ms=0.0))
             b = self.batch
+        if c.device_resident and not c.cache_user_reps:
+            notes.append(
+                "device_resident without cache_user_reps: the device tier "
+                "mirrors cached stage-1 reps — with caching off there is "
+                "nothing to keep resident; resolved to device_resident="
+                "False")
+            object.__setattr__(self, "cache",
+                               dataclasses.replace(self.cache,
+                                                   device_resident=False))
+            c = self.cache
+        if c.device_resident and b.hedging:
+            notes.append(
+                "device_resident with hedging: a hedged duplicate would "
+                "replay a pack whose slot rows a later write may already "
+                "have replaced — resolved to hedging=False")
+            object.__setattr__(self, "batch",
+                               dataclasses.replace(self.batch,
+                                                   hedging=False))
+            b = self.batch
+        if c.device_slots is not None and not c.device_resident:
+            notes.append(
+                "device_slots without device_resident: it sizes the device "
+                "rep tier only — resolved to device_slots=None")
+            object.__setattr__(self, "cache",
+                               dataclasses.replace(self.cache,
+                                                   device_slots=None))
+            c = self.cache
+        inj_knobs = [n for n, v in (("sites", f.sites or None),
+                                    ("seed", f.seed or None))
+                     if v is not None]
+        if inj_knobs and not f.inject:
+            notes.append(
+                f"ft.{'/'.join(inj_knobs)} without ft.inject=True: the "
+                f"fault injector only arms when inject is on — resolved to "
+                f"defaults (set inject=True to keep them)")
+            object.__setattr__(self, "ft",
+                               dataclasses.replace(self.ft, sites=(),
+                                                   seed=0))
+            f = self.ft
+        retry_knobs = [n for n, v in
+                       (("retry_backoff_ms",
+                         None if f.retry_backoff_ms == 1.0 else
+                         f.retry_backoff_ms),
+                        ("retry_jitter",
+                         None if f.retry_jitter == 0.5 else f.retry_jitter))
+                       if v is not None]
+        if retry_knobs and not f.retries:
+            notes.append(
+                f"ft.{'/'.join(retry_knobs)} without ft.retries > 0: they "
+                f"shape the retry schedule only — resolved to defaults")
+            object.__setattr__(self, "ft",
+                               dataclasses.replace(self.ft,
+                                                   retry_backoff_ms=1.0,
+                                                   retry_jitter=0.5))
+            f = self.ft
+        if f.breaker_failures and not c.device_resident:
+            notes.append(
+                "ft.breaker_failures without cache.device_resident: the "
+                "circuit breaker guards the device-resident stage-2 fast "
+                "path — with no device tier every pack already takes the "
+                "re-stacking route; resolved to breaker_failures=0")
+            object.__setattr__(self, "ft",
+                               dataclasses.replace(self.ft,
+                                                   breaker_failures=0))
+            f = self.ft
+        brk_knobs = [n for n, v in
+                     (("breaker_cooldown_ms",
+                       None if f.breaker_cooldown_ms == 100.0 else
+                       f.breaker_cooldown_ms),
+                      ("breaker_probes",
+                       None if f.breaker_probes == 1 else f.breaker_probes))
+                     if v is not None]
+        if brk_knobs and not f.breaker_failures:
+            notes.append(
+                f"ft.{'/'.join(brk_knobs)} without ft.breaker_failures > 0: "
+                f"they parameterize the circuit breaker only — resolved to "
+                f"defaults")
+            object.__setattr__(self, "ft",
+                               dataclasses.replace(self.ft,
+                                                   breaker_cooldown_ms=100.0,
+                                                   breaker_probes=1))
         # silent normalization: the smallest bucket never exceeds the budget
         if b.min_bucket > b.max_batch:
             object.__setattr__(self, "batch",

@@ -3,7 +3,11 @@
 
 * ``stage1``   — user-tower compute on cache miss (waits for the device);
 * ``pack``     — host-side bucket assembly: pinned transfer-buffer fills,
-  rep-table stacking, the host->device copies being enqueued;
+  rep-table stacking, the host->device copies being enqueued (one entry
+  per pack);
+* ``slots``    — device-tier slot resolution, once per call on an engine
+  with the device-resident tier: the row writes of new users enqueued
+  before any launch (absent without the tier);
 * ``dispatch`` — enqueueing stage 2 on the device stream (host time only:
   eager PyTorch returns before the device finishes);
 * ``device``   — waiting on stage-2 results (the pack's CUDA event);
@@ -24,7 +28,7 @@ import time
 from contextlib import contextmanager
 from typing import Iterator
 
-PHASES = ("stage1", "pack", "dispatch", "device", "unpack",
+PHASES = ("stage1", "pack", "slots", "dispatch", "device", "unpack",
           "queue_idle", "overlap")
 
 

@@ -129,7 +129,9 @@ class RankingService:
         engine = ServingEngine(graph, params, plan=plan,
                                cache=self.shared_cache,
                                cache_scope=scenario, device=self.device)
-        batcher = CoalescingBatcher.from_plan(engine, plan.batch)
+        # the whole batch section rides the plan spine, and the ft
+        # section's retry knobs with it
+        batcher = CoalescingBatcher.from_plan(engine, plan.batch, plan.ft)
         self._scenarios[scenario] = _Scenario(
             name=scenario, plan=plan, source_graph=graph,
             user_inputs=user_inputs, engine=engine, batcher=batcher)
@@ -186,7 +188,8 @@ class RankingService:
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
         """Per-scenario serving counters (including the stage-boundary
-        profile) + the shared cache's state with byte accounting."""
+        profile, the device rep tier, hedging and the fault counters) +
+        the shared cache's state with byte accounting."""
         return {
             "scenarios": {
                 s.name: {
@@ -208,6 +211,9 @@ class RankingService:
                     "stage1_calls": s.engine.stage1_calls,
                     "stage2_calls": s.engine.stage2_calls,
                     "coalesced_calls": s.engine.coalesced_calls,
+                    # the device tier's store stats(), pipeline forks,
+                    # hedges, faults fired, quarantines, breaker state
+                    **s.engine.ft_stats(),
                     # log-bucketed distributions: the tail numbers an SLO
                     # is judged on, which the totals above cannot show
                     "latency": {
@@ -226,6 +232,7 @@ class RankingService:
         is still scored); the service accepts no further registration."""
         for s in self._scenarios.values():
             s.batcher.close()
+            s.engine.close()
         self._closed = True
 
     def __enter__(self) -> "RankingService":

@@ -156,8 +156,8 @@ def test_bridge_copies(paper):
 @pytest.mark.parametrize("bad,match", [
     ({"shard": {"shard_candidates": True}}, "unknown plan sections"),
     ({"obs": {}}, "unknown plan sections"),
-    ({"batch": {"hedging": False}}, "unknown batch-plan fields"),
-    ({"cache": {"device_resident": True}}, "unknown cache-plan fields"),
+    ({"mem": {"cold_tier": True}}, "unknown plan sections"),
+    ({"shard": {"compress_scores": True}}, "unknown plan sections"),
     ({"graph": {"mode": "tiled"}}, "unknown mode"),
     ({"graph": {"mode": "vani", "two_stage": True}}, "no user-only stage"),
     ({"batch": {"max_batch": 0}}, "max_batch must be >= 1"),
@@ -259,7 +259,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.din_attention, repro_torch.train, "
             "repro_torch.train.loop, repro_torch.ckpt, "
             "repro_torch.launch.train, repro_torch.examples.quickstart, "
-            "repro_torch.examples.train_then_convert; "
+            "repro_torch.examples.train_then_convert, "
+            "repro_torch.nn.embedding, repro_torch.kernels.embedding_bag, "
+            "repro_torch.ft, repro_torch.ft.faults, "
+            "repro_torch.serve.hedging, repro_torch.serve.cache; "
             "[repro_torch.configs.get_config(a) for a in "
             "('din', 'deepfm', 'fm', 'dlrm-mlperf', 'paper-ranking')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -15,12 +15,16 @@ from repro_torch.data.features import make_recsys_feeds
 from repro_torch.graph.executor import Executor, init_graph_params
 from repro_torch.kernels import din_attention as da
 from repro_torch.kernels import dot_interaction as di
+from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import gather_einsum as ge
 from repro_torch.kernels import mari_matmul as mm
 from repro_torch.models.ranking import (PaperRankingConfig,
                                         build_paper_ranking_model)
+from repro_torch.graph.ir import GraphBuilder
 from repro_torch.models.recsys import build_din
+from repro_torch.nn.embedding import EmbeddingBag, embedding_bag_lookup
 from repro_torch.serve import ServePlan, ServeRequest, ServingEngine
+from test_torch_multihot import smoke_multihot_dlrm
 
 pytestmark = pytest.mark.gpu
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -316,11 +320,15 @@ def _autograd_cases(dev):
         "dot_interaction": (di.dot_interaction, _randn(g, 16, 5, 8)),
         "din_attention": (lambda a: da.din_attention(
             a, *_din_case(dev, 16, 10, 8, 16, 8)[1:]), _randn(g, 16, 8)),
+        "embedding_bag": (lambda a: eb.embedding_bag_fixed(
+            a, torch.zeros(4, 3, dtype=torch.int32, device=dev)),
+            _randn(g, 10, 8)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["mari_matmul", "gather_einsum",
-                                    "dot_interaction", "din_attention"])
+                                    "dot_interaction", "din_attention",
+                                    "embedding_bag"])
 def test_kernel_wrappers_refuse_autograd(cuda, kernel):
     """No kernel has a backward: a CUDA input that requires grad under grad
     mode raises instead of leaving its gradient out; without grad mode the
@@ -354,3 +362,240 @@ def test_executor_routes_shared_key_din_to_kernel(cuda):
     da.reset_launches()
     Executor(graph, "vani", use_pallas=True, device=cuda).run(params, feeds)
     assert da.LAUNCHES["shared_keys"] == 0
+
+
+# -- embedding_bag ------------------------------------------------------------
+
+def _bag_case(dev, V, D, S, nnz, seed, lo=0, hi=None, seg_lo=0, seg_hi=None,
+              id_dtype=torch.int32):
+    g = _gen(dev, seed)
+    table = _randn(g, V, D)
+    ids = torch.randint(lo, V if hi is None else hi, (nnz,), generator=g,
+                        device=dev).to(id_dtype)
+    segs = torch.randint(seg_lo, S if seg_hi is None else seg_hi, (nnz,),
+                         generator=g, device=dev)
+    return table, ids, segs, torch.rand(nnz, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("V,D,S,nnz", [(16, 8, 4, 20), (100, 32, 17, 123),
+                                       (1000, 128, 64, 512), (50, 18, 9, 70),
+                                       (30, 1, 5, 40), (200, 130, 33, 300)])
+def test_embedding_bag_kernel_matches_plain(cuda, V, D, S, nnz, combiner,
+                                            weighted):
+    """The reference's sweep (tests/test_kernels.py::TestEmbeddingBag) and
+    ragged widths: D = 18 and 1 take the scalar path, D = 130 a partial
+    column tile; unsorted segments, empty bags."""
+    table, ids, segs, w = _bag_case(cuda, V, D, S, nnz, seed=V + nnz)
+    w = w if weighted else None
+    before = eb.LAUNCHES["csr"]
+    got = eb.embedding_bag(table, ids, segs, S, combiner, w)
+    torch.cuda.synchronize()
+    assert eb.LAUNCHES["csr"] == before + 1
+    torch.testing.assert_close(
+        got, eb.embedding_bag_plain(table, ids, segs, S, combiner, w), **TOL)
+
+
+def test_embedding_bag_kernel_index_contract(cuda):
+    """Ids outside [0, V) clamp to the table's edge rows (no read outside
+    the table); segment ids outside [0, S) are dropped; int64 ids work;
+    empty bags are 0."""
+    table, ids, segs, w = _bag_case(cuda, 64, 16, 8, 400, seed=7, lo=-40,
+                                    hi=120, seg_lo=-3, seg_hi=12,
+                                    id_dtype=torch.int64)
+    for combiner in ("sum", "mean"):
+        got = eb.embedding_bag(table, ids, segs, 8, combiner, w)
+        want = eb.embedding_bag_plain(table, ids, segs, 8, combiner, w)
+        torch.testing.assert_close(got, want, **TOL)
+    clamped = eb.embedding_bag(table, torch.tensor([-5, 999], device=cuda),
+                               torch.tensor([0, 1], device=cuda), 3)
+    torch.testing.assert_close(clamped[:2], table[[0, 63]], **TOL)
+    assert torch.equal(clamped[2], torch.zeros(16, device=cuda))
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("V,B,H,D", [(2_564_352, 4096, 100, 128),
+                                     (1000, 300, 7, 128), (97, 33, 3, 18),
+                                     (500, 5, 1, 64), (40, 17, 12, 1)])
+def test_embedding_bag_fixed_kernel_matches_plain(cuda, V, B, H, D,
+                                                  combiner):
+    """The fixed-hotness entry at the multi-hot DLRM path's largest bag
+    (sparse_20 at scale_tables=0.1) and ragged shapes, int32 and int64."""
+    g = _gen(cuda, B + H)
+    table = _randn(g, V, D)
+    ids = torch.randint(0, V, (B, H), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(B, H, generator=g, device=cuda)
+    before = eb.LAUNCHES["fixed"]
+    for i, weights in enumerate((None, w)):
+        got = eb.embedding_bag_fixed(table, ids.long() if i else ids,
+                                     combiner, weights)
+        torch.testing.assert_close(
+            got, eb.embedding_bag_fixed_plain(table, ids, combiner, weights),
+            **TOL)
+    torch.cuda.synchronize()
+    assert eb.LAUNCHES["fixed"] == before + 2
+
+
+def test_embedding_bag_kernel_rows_and_refusals(cuda):
+    """A bag's result does not depend on B; non-fp32 tables are refused;
+    ``EmbeddingBag`` and ``embedding_bag_lookup`` launch the kernel."""
+    g = _gen(cuda, 3)
+    table = _randn(g, 5000, 128)
+    ids = torch.randint(0, 5000, (300, 27), generator=g, device=cuda)
+    full = eb.embedding_bag_fixed(table, ids)
+    assert torch.equal(full[100:140],
+                       eb.embedding_bag_fixed(table, ids[100:140]))
+    with pytest.raises(TypeError, match="float32 only"):
+        eb.embedding_bag_fixed(table.bfloat16(), ids)
+    bag = EmbeddingBag(vocab=5000, dim=128, combiner="mean")
+    params = {"table": table}
+    flat, segs = ids.reshape(-1), torch.arange(300, device=cuda
+                                               ).repeat_interleave(27)
+    eb.reset_launches()
+    a = bag.apply(params, flat, segs, 300)
+    b = bag.apply_dense(params, ids)
+    c = embedding_bag_lookup(table, flat, segs, 300, combiner="mean")
+    torch.cuda.synchronize()
+    assert eb.LAUNCHES == {"csr": 2, "fixed": 1}
+    for x in (a, c):
+        torch.testing.assert_close(x, b, **TOL)
+
+
+def test_executor_routes_pooled_embedding_to_kernel(cuda):
+    """The pooled ``embedding`` op under ``use_pallas`` launches the
+    fixed-hotness entry and agrees with the plain executor."""
+    graph = smoke_multihot_dlrm(GraphBuilder)
+    params = init_graph_params(graph, seed=0, device=cuda)
+    feeds = make_recsys_feeds(graph, 300, np.random.default_rng(4))
+    want = Executor(graph, "uoi", device=cuda).run(params, feeds)
+    eb.reset_launches()
+    got = Executor(graph, "uoi", use_pallas=True, device=cuda).run(params,
+                                                                   feeds)
+    torch.cuda.synchronize()
+    assert eb.LAUNCHES["fixed"] == 15       # 7 user-side + 8 item-side bags
+    for o in graph.outputs:
+        torch.testing.assert_close(got[o], want[o], **TOL)
+
+
+# -- the device-resident tier on the card -------------------------------------
+
+def _multihot_problem(cuda):
+    graph = smoke_multihot_dlrm(GraphBuilder)
+    return graph, init_graph_params(graph, seed=0, device=cuda)
+
+
+def test_device_tier_multihot_dlrm_matches_plain_twin(cuda):
+    """The multi-hot DLRM on ``tpu`` with the device tier: stage 2 reads
+    the persistent slot tables through mari_matmul's gather init and runs
+    embedding_bag and dot_interaction; every score agrees with a plain
+    re-stacking engine and with its own per-request score, through slot
+    writes, hits, a version bump, LRU steals and overflow."""
+    graph, params = _multihot_problem(cuda)
+    plan = ServePlan.preset("tpu").evolve(
+        batch__max_batch=256, batch__min_bucket=16,
+        cache__device_resident=True, cache__device_slots=4)
+    twin = ServingEngine(graph, params, plan.evolve(
+        kernel__use_pallas=False, kernel__kernel_gather=False,
+        cache__device_resident=False), device=cuda)
+    eng = ServingEngine(graph, params, plan, device=cuda)
+    assert eng.device_resident and not eng.hedging
+    mm.reset_launches()
+    eb.reset_launches()
+    di.reset_launches()
+    passes = [_requests(graph, (11, 300, 5), seed=2)]
+    passes.append(passes[0])                            # slot hits
+    bumped = _requests(graph, (40,), seed=3)[0]
+    bumped.user_id, bumped.feature_version = 0, 1
+    passes.append([bumped])                             # supersede
+    many = _requests(graph, (9,) * 6, seed=4)
+    for r in many:
+        r.user_id += 10
+    passes.append(many)                                 # steal + overflow
+    for reqs in passes:
+        co = eng.score_coalesced(reqs)
+        for r, c in zip(reqs, co):
+            want = twin.score(r).scores
+            np.testing.assert_allclose(c.scores, want, **TOL)
+            np.testing.assert_allclose(eng.score(r).scores, want, **TOL)
+    st = eng.device_store.stats()
+    assert st["writes"] > 0 and st["hits"] > 0 and st["recycles"] > 0
+    assert st["overflows"] > 0
+    assert mm.LAUNCHES["gather"] > 0 and di.LAUNCHES["triu"] > 0
+    assert eb.LAUNCHES["fixed"] > 0
+
+
+def test_device_tier_write_after_launch_keeps_inflight_scores(cuda):
+    """A pack launched before a row write reads the row as it was: the
+    write is enqueued after it on the same stream (with the reference's
+    copy-on-write fork armed, as under in-flight launches)."""
+    graph, params = _multihot_problem(cuda)
+    plan = ServePlan.preset("tpu").evolve(
+        batch__max_batch=256, batch__min_bucket=256,
+        cache__device_resident=True, cache__device_slots=1)
+    eng = ServingEngine(graph, params, plan, device=cuda)
+    a, b = _requests(graph, (200, 200), seed=5)
+    b.user_id = 7
+    want_a, want_b = eng.score(a).scores, eng.score(b).scores
+    eng.score(a)                                  # user a holds the slot
+    h_a = eng.begin_coalesced([a])
+    h_b = eng.begin_coalesced([b])                # steals a's only slot
+    assert eng.pipeline_forks == 1 and eng.device_store.forks == 1
+    np.testing.assert_allclose(eng.collect(h_a)[0].scores, want_a, **TOL)
+    np.testing.assert_allclose(eng.collect(h_b)[0].scores, want_b, **TOL)
+    # without the fork: an in-place write right after a launch
+    h_b = eng.begin_coalesced([b])
+    store = eng.device_store
+    store.ensure_rows([(a.user_id, 0, eng.cache.get((a.user_id, 0)))])
+    assert store.forks == 1 and store.slot_of(b.user_id) is None
+    np.testing.assert_allclose(eng.collect(h_b)[0].scores, want_b, **TOL)
+
+
+@pytest.mark.parametrize("model", ["paper", "din"])
+def test_device_tier_on_earlier_engines(cuda, model):
+    """The paper model and DIN under ``tpu`` with the device tier:
+    mari_matmul's gather init (and DIN's gather_einsum) index the
+    (capacity, ...) slot tables; scores agree with the re-stacking
+    engine."""
+    if model == "paper":
+        graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.1))
+    else:
+        graph, _ = build_din(embed_dim=8, seq_len=12, attn_mlp=(16, 8),
+                             mlp=(24, 12), item_vocab=128)
+    params = init_graph_params(graph, seed=0, device=cuda)
+    plan = ServePlan.preset("tpu").evolve(batch__max_batch=64,
+                                          batch__min_bucket=8)
+    ref = ServingEngine(graph, params, plan, device=cuda)
+    eng = ServingEngine(graph, params, plan.evolve(
+        cache__device_resident=True, cache__device_slots=8), device=cuda)
+    reqs = _requests(graph, (11, 70, 5), seed=1)
+    mm.reset_launches()
+    ge.reset_launches()
+    for r, c in zip(reqs, eng.score_coalesced(reqs)):
+        np.testing.assert_allclose(c.scores, ref.score(r).scores, **TOL)
+    assert eng.device_store.writes == 3
+    assert mm.LAUNCHES["gather"] > 0
+    if model == "din":
+        assert ge.LAUNCHES["bd,uldh->blh"] > 0
+
+
+def test_hedged_dispatch_on_the_card(cuda):
+    """Hedging on (``paper`` + kernels): a policy floor of 0 hedges every
+    dispatch after a shape's first; the duplicate runs on a worker thread
+    on the engine's stream and the scores equal an unhedged engine's."""
+    from repro_torch.serve.hedging import HedgePolicy
+    graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.1))
+    params = init_graph_params(graph, seed=0, device=cuda)
+    plan = ServePlan.preset("paper").evolve(
+        kernel__use_pallas=True, batch__max_batch=64, batch__min_bucket=8)
+    eng = ServingEngine(graph, params, plan, device=cuda,
+                        hedge_policy=HedgePolicy(min_hedge_ms=0.0))
+    ref = ServingEngine(graph, params, plan.evolve(batch__hedging=False),
+                        device=cuda)
+    reqs = _requests(graph, (11, 70, 5), seed=1)
+    for _ in range(2):
+        for r, c in zip(reqs, eng.score_coalesced(reqs)):
+            np.testing.assert_allclose(c.scores, ref.score(r).scores, **TOL)
+    assert eng.ft_stats()["hedges_launched"] > 0
+    eng.close()

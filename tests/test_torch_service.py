@@ -604,8 +604,9 @@ def test_launcher_dump_plan_round_trips(tmp_path):
     launcher.main(["--preset", "tpu", "--dump-plan", str(path),
                    "--requests", "0"])
     assert tserve.ServePlan.load(str(path)) == tserve.ServePlan.preset("tpu")
-    # every dumped field equals the reference preset's
-    theirs = jserve.ServePlan.preset("tpu").to_dict()
+    # every dumped field equals the reference preset's, both as JSON (the
+    # ft section's tuple of sites is a list there)
+    theirs = json.loads(jserve.ServePlan.preset("tpu").to_json())
     for section, fields in json.loads(path.read_text()).items():
         for name, value in fields.items():
             assert theirs[section][name] == value, (section, name)
