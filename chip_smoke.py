@@ -4,12 +4,18 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
-   parallel) and holds every kernel against its plain PyTorch version at the
+   parallel; the ``build`` line has the seconds and the ``-Xptxas -v``
+   report) and holds every kernel against its plain PyTorch version at the
    serving path's full-width shapes plus a ragged shape, timing kernel,
    plain version and a library yardstick (cuBLAS ``addmm`` / a pre-gathered
    ``einsum`` / ``bmm`` plus a triangle gather /
    ``torch.nn.functional.embedding_bag``, used nowhere in the port;
    ``din_attention`` has no single-call counterpart in PyTorch).
+   ``mari_matmul`` (3xTF32 on the tensor cores) is also checked and timed
+   beside ``addmm`` at every ``mari_dense`` shape of the served models, in
+   each init mode, at B = 4096 and 2048 (``mari_matmul_shapes``); its
+   per-call host costs are the ``mari_matmul_host`` line, its bf16 entry
+   is held at 2e-2.
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -57,6 +63,10 @@ call, and in phase 6 the device-tier service, its re-stacking twin, the
 fault run and the hedged engine, each its own path. Every kernel variant
 held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
+Every path hands ``mari_matmul`` prepared weights: weights prepared inside
+a call (``PREPARES``) must be 0 on each path, and x copies to a padded
+row stride (``STRIDE_COPIES``) are printed per path
+(``mari_matmul_host_by_path``).
 Phase 4 also times the ``tpu`` preset as shipped (hedging on) beside
 ``hedging=False`` on its DLRM stream. Prints the kernels JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
@@ -66,6 +76,7 @@ without the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -80,6 +91,18 @@ SRC = os.path.join(ROOT, "src")
 
 TOL = dict(rtol=2e-4, atol=2e-4)      # fp32 parity, as tests/test_kernels.py
 PEAK_FP32_FLOPS = 67e12               # H100 SXM, fp32 outside tensor cores
+PEAK_TF32_FLOPS = 495e12              # H100 SXM tensor cores, dense TF32
+PEAK_BF16_FLOPS = 989e12              # H100 SXM tensor cores, dense bf16
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 parity, as tests/test_kernels.py
+# every mari_dense stream of the served models' rewritten graphs:
+# (model layer, stream K, N, activation)
+MARI_SHAPES = (("paper expert*_fc0", 1064, 512, "relu"),
+               ("paper gate*_proj", 1064, 4, "identity"),
+               ("paper task*_fc0", 256, 128, "relu"),
+               ("paper attn_q_proj", 500, 64, "identity"),
+               ("din mlp_0", 48, 200, "relu"),
+               ("dlrm top_mlp_0", 351, 1024, "relu"),
+               ("deepfm deep_mlp_0", 190, 400, "relu"))
 PEAK_BYTES_S = 3.35e12                # H100 SXM HBM3
 POOLS = (1000, 3000, 5000)            # straddle max_batch = 4096
 SERVED = ("dlrm-mlperf", "deepfm", "fm")
@@ -151,7 +174,9 @@ def main() -> int:
         logf = lib.with_suffix(".log")
         lines = logf.read_text().splitlines() if logf.exists() else []
         ptxas[name] = [ln.strip() for ln in lines
-                       if "registers" in ln or "spill" in ln][:8]
+                       if "registers" in ln or "spill" in ln
+                       or "warning" in ln][:16 if name == "mari_matmul"
+                                           else 8]
     log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
     # ---- phase 1: kernels against their plain versions ---------------------
@@ -165,21 +190,27 @@ def main() -> int:
         return torch.randint(lo, hi, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
 
-    def max_err(a, b):
+    def max_err(a, b, tol=TOL):
         torch.cuda.synchronize()
+        a, b = a.float(), b.float()
         err = (a - b).abs()
-        bad = err > TOL["atol"] + TOL["rtol"] * b.abs()
+        bad = err > tol["atol"] + tol["rtol"] * b.abs()
         if bool(bad.any()) or not bool(torch.isfinite(a).all()):
             raise AssertionError(f"kernel disagrees with its plain version: "
                                  f"max |d| {float(err.max()):.3e}")
         return float(err.max())
 
     def time_ms(fn, iters=20):
+        """Device ms per call: the calls are enqueued behind ~10 ms of
+        device sleep, so the host's launch time (tens of µs per wrapper
+        call on these hosts) never leaves the device waiting between
+        them."""
         for _ in range(3):
             fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(iters):
             fn()
@@ -187,14 +218,43 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def bound(nbytes, flops):
-        t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    def host_us(fn, n=50):
+        """Host µs per call, enqueued behind a device sleep (the device
+        never makes the host wait)."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def bound(nbytes, flops, peak=PEAK_FP32_FLOPS):
+        t_b, t_o = nbytes / PEAK_BYTES_S, flops / peak
         return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
+    def mari_bound(B, K, N, u_rows, mode, dtype=torch.float32):
+        """The least time of one mari_matmul call as the kernel computes
+        it: fp32 through 3xTF32 (three TF32 products; x, the prepared w_hi
+        and w_lo, u and out moved once) or bf16 (one product)."""
+        kp = -(-K // 4) * 4
+        idx_b = 4 * B if mode == "gather" else 0
+        if dtype == torch.float32:
+            return bound(4 * (B * K + 2 * N * kp + u_rows * N + B * N)
+                         + idx_b, 3 * 2 * B * K * N, PEAK_TF32_FLOPS)
+        return bound(2 * (B * K + K * N + B * N) + 4 * u_rows * N + idx_b,
+                     2 * B * K * N, PEAK_BF16_FLOPS)
+
     entries = {}
-    # paper expert fc0 at a full bucket: B=4096, K=64+500+500, N=512; U=8
+    # paper expert fc0 at a full bucket: B=4096, K=64+500+500, N=512; U=8;
+    # the weight prepared once (w_hi / w_lo and their TMA descriptors), as
+    # every path does at load
     B, K, N, U = 4096, 1064, 512, 8
-    x, w = randn(B, K), randn(K, N)
+    x, w = randn(B, K), randn(K, N) * 0.05
+    pw = mm.prepare_mari_weight(w)
     u_of = {"broadcast": randn(1, N), "rowwise": randn(B, N),
             "gather": randn(U, N)}
     idx = randidx(B, U)
@@ -206,9 +266,10 @@ def main() -> int:
         ui = idx if mode == "gather" else None
         errs = []
         for act in ("relu", "identity"):
-            errs.append(max_err(mm.mari_matmul(x, w, u, ui, act),
+            errs.append(max_err(mm.mari_matmul(x, pw, u, ui, act),
                                 mm.mari_matmul_plain(x, w, u, ui, act)))
-        # ragged edges, every other epilogue, out-of-range indices
+        # ragged edges, every other epilogue, out-of-range indices, a raw
+        # (unprepared) weight
         Br, Kr, Nr, Ur = 1000, 333, 65, 5
         xr, wr = randn(Br, Kr), randn(Kr, Nr)
         ur = {"broadcast": randn(1, Nr), "rowwise": randn(Br, Nr),
@@ -218,19 +279,120 @@ def main() -> int:
             errs.append(max_err(mm.mari_matmul(xr, wr, ur, ir, act),
                                 mm.mari_matmul_plain(xr, wr, ur, ir, act)))
         u_init = u.index_select(0, idx) if mode == "gather" else u
-        nbytes = 4 * (B * K + K * N + u.numel() + B * N) + (
-            4 * B if mode == "gather" else 0)
-        b_ms, b_by = bound(nbytes, 2 * B * K * N)
+        b_ms, b_by = mari_bound(B, K, N, u.shape[0], mode)
+        simt_ms, _ = bound(4 * (B * K + K * N + u.shape[0] * N + B * N)
+                           + (4 * B if mode == "gather" else 0), 2 * B * K * N)
+        ms = time_ms(lambda: mm.mari_matmul(x, pw, u, ui, "relu"))
         entries[f"mari_matmul/{mode}"] = dict(
             route="cuda", source="src/repro_torch/csrc/mari_matmul.cu",
-            replaces=replaces[mode], max_abs_err=max(errs),
-            ms=time_ms(lambda: mm.mari_matmul(x, w, u, ui, "relu")),
+            replaces=replaces[mode], max_abs_err=max(errs), ms=ms,
             plain_ms=time_ms(lambda: mm.mari_matmul_plain(x, w, u, ui,
                                                           "relu")),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: torch.addmm(u_init, x, w)),
-            shape=dict(B=B, K=K, N=N, u_rows=u.shape[0], act="relu"),
+            shape=dict(B=B, K=K, N=N, u_rows=u.shape[0], act="relu",
+                       tile=mm.ops.tile_config(B, N)),
+            bound_note="3xTF32: 3 x 2BKN at 495 TFLOP/s, x + w_hi + w_lo + "
+                       "u + out at 3.35 TB/s",
+            share_of_bound=b_ms / ms, bound_fp32_simt_ms=simt_ms,
             library="torch.addmm (init pre-gathered, no activation)")
+
+    # every mari_dense shape of the served models, each init mode, at a full
+    # bucket and at the single call's B, beside torch.addmm
+    sweep = []
+    for layer, Ks, Ns, act in MARI_SHAPES:
+        ws_ = randn(Ks, Ns) * 0.05
+        pws = mm.prepare_mari_weight(ws_)
+        for Bs in (B, SINGLE_CALL_B):
+            xs_ = randn(Bs, Ks)
+            us = {"broadcast": randn(1, Ns), "rowwise": randn(Bs, Ns),
+                  "gather": randn(U, Ns)}
+            for mode in mm.ops.INIT_MODES:
+                ui = idx[:Bs] if mode == "gather" else None
+                u_init = (us[mode].index_select(0, ui) if ui is not None
+                          else us[mode])
+                err = max_err(mm.mari_matmul(xs_, pws, us[mode], ui, act),
+                              mm.mari_matmul_plain(xs_, ws_, us[mode], ui,
+                                                   act))
+                b_ms, _ = mari_bound(Bs, Ks, Ns, us[mode].shape[0], mode)
+                sweep.append(dict(
+                    layer=layer, B=Bs, K=Ks, N=Ns, act=act, mode=mode,
+                    tile=mm.ops.tile_config(Bs, Ns), max_abs_err=err,
+                    stride_copy=not mm.ops.tma_ready(xs_),
+                    ms=time_ms(lambda: mm.mari_matmul(xs_, pws, us[mode], ui,
+                                                      act)),
+                    addmm_ms=time_ms(lambda: torch.addmm(u_init, xs_, ws_)),
+                    bound_ms=b_ms))
+        del xs_, us
+    log("mari_matmul_shapes", tol=TOL, rows=sweep)
+    for mode in mm.ops.INIT_MODES:
+        entries[f"mari_matmul/{mode}"]["all_path_shapes_max_abs_err"] = max(
+            r["max_abs_err"] for r in sweep if r["mode"] == mode)
+
+    # host costs around a launch: x's TMA descriptor, encoded per call
+    # (timed through ctypes, which adds its own cost), and the copy of an x
+    # whose row stride TMA cannot read (DLRM's top_mlp_0 stream, K = 351)
+    desc = bytearray(128)
+    addr = ctypes.addressof(ctypes.c_char.from_buffer(desc))
+    n_enc = 2000
+    t = time.perf_counter()
+    for _ in range(n_enc):
+        mm.ops.encode_map(addr, x, 32, 128)
+    enc_us = (time.perf_counter() - t) / n_enc * 1e6
+    x351 = randn(B, 351)
+
+    # accuracy against an fp64 oracle at the single call's expert fc0,
+    # the kernel beside cuBLAS's fp32 GEMM (the plain version)
+    xo, wo = x[:SINGLE_CALL_B], w
+    oracle = xo.double() @ wo.double()
+    zero = torch.zeros(1, N, device=dev)
+    log("mari_matmul_accuracy", shape=[SINGLE_CALL_B, K, N],
+        max_abs_vs_fp64=dict(
+            kernel=float((mm.mari_matmul(xo, pw, zero).double() - oracle)
+                         .abs().max()),
+            cublas_fp32=float(((xo @ wo).double() - oracle).abs().max())))
+    del oracle, zero
+
+    log("mari_matmul_host", x_descriptor_encode_us=enc_us,
+        stride_copy_ms_4096x351=time_ms(lambda: mm.ops.stream_operand(x351)),
+        wrapper_host_us=host_us(lambda: mm.mari_matmul(
+            x, pw, u_of["broadcast"], None, "relu")),
+        addmm_host_us=host_us(lambda: torch.addmm(u_of["broadcast"], x, w)),
+        note="encode timed on the host clock through ctypes; the copy with "
+             "CUDA events; host µs per call of the wrapper and of one "
+             "torch.addmm at the main shape")
+    del x351
+
+    # the bf16 entry (no path runs it: cast nodes keep plain torch), held
+    # to its plain version at the reference's bf16 tolerance
+    xb, wb = x.bfloat16(), w.bfloat16()
+    pwb = mm.prepare_mari_weight(wb)
+    ub = u_of["broadcast"]
+    errs = [max_err(mm.mari_matmul(xb, pwb, ub, None, "relu"),
+                    mm.mari_matmul_plain(xb, wb, ub, None, "relu"), BF16_TOL)]
+    for mode in mm.ops.INIT_MODES:
+        Br, Kr, Nr, Ur = 1000, 333, 65, 5
+        xr, wr = randn(Br, Kr).bfloat16(), randn(Kr, Nr).bfloat16()
+        ur = {"broadcast": randn(1, Nr), "rowwise": randn(Br, Nr),
+              "gather": randn(Ur, Nr)}[mode]
+        ir = randidx(Br, Ur + 3, lo=-2) if mode == "gather" else None
+        for act in mm.ops.EPILOGUES:
+            errs.append(max_err(mm.mari_matmul(xr, wr, ur, ir, act),
+                                mm.mari_matmul_plain(xr, wr, ur, ir, act),
+                                BF16_TOL))
+    b_ms, b_by = mari_bound(B, K, N, 1, "broadcast", torch.bfloat16)
+    ms = time_ms(lambda: mm.mari_matmul(xb, pwb, ub, None, "relu"))
+    entries["mari_matmul/bf16"] = dict(
+        route="cuda", source="src/repro_torch/csrc/mari_matmul.cu",
+        replaces="src/repro/kernels/mari_matmul/kernel.py:77",
+        max_abs_err=max(errs), tol=BF16_TOL, ms=ms,
+        plain_ms=time_ms(lambda: mm.mari_matmul_plain(xb, wb, ub, None,
+                                                      "relu")),
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+        library_ms=time_ms(lambda: torch.addmm(ub.bfloat16(), xb, wb)),
+        shape=dict(B=B, K=K, N=N, u_rows=1, act="relu", dtype="bfloat16"),
+        library="torch.addmm in bf16 (no activation)")
+    del xb, wb, pwb
 
     # DIN decomposed attention at a full bucket: D=18, L=100, H=80, U=8
     L, D, H = 100, 18, 80
@@ -264,7 +426,7 @@ def main() -> int:
             library_ms=time_ms(lambda: torch.einsum(row_spec, xg, rows)),
             shape=dict(x=list(xs), table=list(ts)),
             library="torch.einsum on pre-gathered rows")
-    del x, w, u_of, rows
+    del x, w, pw, u_of, rows
 
     # DLRM interaction at a full bucket: B=4096, F=27, D=128 -> P=351
     F, D = 27, 128
@@ -419,11 +581,12 @@ def main() -> int:
     del tab, bag_ids, flat, segs, offs
     # "blh,uh->bl" is a spec the kernel supports but the executor's
     # decomposed attention never reaches, no served model keeps the gram's
-    # diagonal, and no path calls the CSR entry of embedding_bag (the
-    # executor's bags have a fixed hotness): checked and timed above, they
-    # are listed in the kernels line with on_path false
+    # diagonal, no path calls the CSR entry of embedding_bag (the
+    # executor's bags have a fixed hotness), and none runs mari_matmul in
+    # bf16 (mixed-precision nodes keep plain torch): checked and timed
+    # above, they are listed in the kernels line with on_path false
     OFF_PATH = ("gather_einsum/blh,uh->bl", "dot_interaction/triu_keep_self",
-                "embedding_bag/csr")
+                "embedding_bag/csr", "mari_matmul/bf16")
     log("kernels_vs_plain", tol=TOL,
         max_abs_err={k: v["max_abs_err"] for k, v in entries.items()},
         ms={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
@@ -561,6 +724,9 @@ def main() -> int:
         return out
 
     by_path: dict[str, dict[str, int]] = {}
+    # mari_matmul's weights prepared inside a call (a raw w) and x operands
+    # copied to a padded row stride, per path
+    host_by_path: dict[str, dict[str, int]] = {}
 
     @contextlib.contextmanager
     def counting(path):
@@ -574,6 +740,10 @@ def main() -> int:
         tot = by_path.setdefault(path, {})
         for k, n in read_launches().items():
             tot[k] = tot.get(k, 0) + n
+        host = host_by_path.setdefault(path, {"prepares": 0,
+                                              "stride_copies": 0})
+        host["prepares"] += sum(mm.PREPARES.values())
+        host["stride_copies"] += sum(mm.STRIDE_COPIES.values())
 
     def serve_phase() -> None:
         """Phase 4: the service's passes count as path ``service``; then the
@@ -769,8 +939,22 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
+    def device_ms_per_call(fn, n=5):
+        """Device busy ms per call (kernel self time, torch.profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")) / n / 1e3
+
     def time_calls(runs, feeds):
-        """timeit (3 warm-up, 20 timed calls, synchronised) per run."""
+        """timeit (3 warm-up, 20 timed calls, synchronised) per run; and
+        what a call costs the device (profiled) and the host (one call
+        enqueued behind a device sleep, so the device never stalls it)."""
         t = {}
         with torch.inference_mode():
             for name, g, p, mode, pallas in runs:
@@ -779,6 +963,14 @@ def main() -> int:
                 t[name] = dict(p50_ms=r["p50_us"] / 1e3,
                                mean_ms=r["mean_us"] / 1e3,
                                p99_ms=r["p99_us"] / 1e3)
+                t[name]["host_ms"] = host_us(lambda: ex.run(p, feeds),
+                                             n=1) / 1e3
+                try:
+                    t[name]["device_ms"] = device_ms_per_call(
+                        lambda: ex.run(p, feeds))
+                except Exception as e:  # a profiler failure is no smoke fail
+                    t[name]["device_ms"] = (f"not measured: "
+                                            f"{type(e).__name__}: {e}")
         return t
 
     def train_convert_phase() -> None:
@@ -850,8 +1042,10 @@ def main() -> int:
             train_step_ms=dict(p50=t_step["p50_us"] / 1e3,
                                mean=t_step["mean_us"] / 1e3))
 
-        # convert, then score one user's 2048 candidates single-call
+        # convert, then score one user's 2048 candidates single-call; the
+        # mari_matmul kernel's weights are prepared once, before the calls
         mg, mp, conv = apply_mari(graph, params)
+        mp = mm.prepare_mari_params(mg, mp)
         feeds = make_recsys_feeds(graph, SINGLE_CALL_B,
                                   np.random.default_rng(4))
         feeds = {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
@@ -894,6 +1088,7 @@ def main() -> int:
         graph, _ = build_paper_ranking_model(PaperRankingConfig())
         params = init_graph_params(graph, seed=0, device=dev)
         mg, mp, conv = apply_mari(graph, params)
+        mp = mm.prepare_mari_params(mg, mp)
         feeds = make_recsys_feeds(graph, SINGLE_CALL_B,
                                   np.random.default_rng(5))
         feeds = {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
@@ -1137,16 +1332,18 @@ def main() -> int:
     conv = mari_rewrite(graph)
     one = requests(graph, (B,), seed=2)[0]
     feeds = {**one.user_feeds, **one.candidate_feeds}
+    eq7_params = mm.prepare_mari_params(conv.graph,
+                                        convert_params(conv, params))
     with counting("paper+din"):
         got = Executor(conv.graph, "uoi", use_pallas=True, device=dev).run(
-            convert_params(conv, params), feeds)
+            eq7_params, feeds)
     want = Executor(graph, "vani", device=dev).run(params, feeds)
     d_eq7 = max(float((got[o] - want[o]).abs().max()) for o in graph.outputs)
     if not all(close(got[o].cpu().numpy(), want[o].cpu().numpy())
                for o in graph.outputs):
         raise AssertionError(f"MaRI executor vs vanilla: {d_eq7:.3e}")
     log("paper_eq7", rows=B, max_abs_mari_vs_vanilla=d_eq7)
-    del params, got, want
+    del params, eq7_params, got, want
 
     graph, _ = build_din(embed_dim=18, seq_len=100, attn_mlp=(80, 40),
                          mlp=(200, 80), item_vocab=10_000_000)
@@ -1197,6 +1394,14 @@ def main() -> int:
                                 "dot_interaction/triu"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
+    # every path hands mari_matmul prepared weights (engines at load, the
+    # single calls before their loop): none is prepared inside a call
+    log("mari_matmul_host_by_path", **host_by_path)
+    prepared_late = {p: h["prepares"] for p, h in host_by_path.items()
+                     if h["prepares"]}
+    if prepared_late:
+        raise AssertionError(f"mari_matmul prepared weights inside calls: "
+                             f"{prepared_late}")
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in entries}
     if missing:

@@ -23,6 +23,7 @@ from repro_torch.core.gca import run_gca
 from repro_torch.core.mari import apply_mari
 from repro_torch.graph.executor import Executor, init_graph_params
 from repro_torch.graph.ir import GraphBuilder
+from repro_torch.kernels.mari_matmul import prepare_mari_params
 
 TOL = dict(rtol=2e-4, atol=2e-4)      # fp32, as tests/test_kernels.py
 
@@ -61,6 +62,8 @@ def main(argv=None):
     params = init_graph_params(graph, seed=0, device=dev)
     mari_graph, mari_params, conv = apply_mari(graph, params)
     print(conv.summary())
+    if args.use_pallas:       # the mari_matmul kernel's weights, once
+        mari_params = prepare_mari_params(mari_graph, mari_params)
 
     # 4. score B candidates for one user, three ways
     B = args.candidates

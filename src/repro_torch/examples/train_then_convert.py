@@ -28,6 +28,7 @@ from repro_torch.common import resolve_device, timeit, tree_size
 from repro_torch.core.mari import apply_mari
 from repro_torch.data.features import make_recsys_feeds
 from repro_torch.graph.executor import Executor, init_graph_params
+from repro_torch.kernels.mari_matmul import prepare_mari_params
 from repro_torch.launch.train import recsys_step
 from repro_torch.models.ranking import (PaperRankingConfig,
                                         build_paper_ranking_model)
@@ -92,6 +93,8 @@ def main(argv=None):
     print("[3/4] GCA + MaRI conversion (training pipeline untouched)...")
     mari_graph, mari_params, conv = apply_mari(graph, params)
     print("   ", conv.summary())
+    if args.use_pallas:       # the mari_matmul kernel's weights, once
+        mari_params = prepare_mari_params(mari_graph, mari_params)
 
     # evaluation: scores + AUC before / after conversion
     feeds, labels = next(teacher_batches(graph, teacher, ex, dev,

@@ -38,7 +38,8 @@ from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_plain)
 from repro_torch.kernels.embedding_bag import embedding_bag_fixed
 from repro_torch.kernels.gather_einsum import gather_einsum, gather_einsum_plain
-from repro_torch.kernels.mari_matmul import mari_matmul_fused_groups
+from repro_torch.kernels.mari_matmul import (aligned_ld, empty_stream,
+                                             mari_matmul_fused_groups)
 from repro_torch.nn.attention import NEG_INF, cross_attention, target_attention
 from repro_torch.nn.layers import ACTIVATIONS, dense_apply
 
@@ -111,16 +112,37 @@ def _bcast_batch(xs: list[Tensor]) -> list[Tensor]:
             for x in xs]
 
 
-def _concat_xs(xs: list[Tensor]) -> Tensor:
+def _concat_xs(xs: list[Tensor], aligned: bool = False) -> Tensor:
+    """Concatenate along the last dim. ``aligned``: when the width's row
+    bytes are not a multiple of 16, into a wider buffer whose row stride
+    the mari_matmul kernel's TMA can read (no extra pass; the (B, K) view
+    is returned)."""
     xs = _bcast_batch(xs) if len({x.shape[0] for x in xs}) > 1 else xs
-    return torch.cat(xs, dim=-1) if len(xs) > 1 else xs[0]
+    if len(xs) == 1:
+        return xs[0]
+    K = sum(x.shape[-1] for x in xs)
+    if aligned and aligned_ld(K, xs[0].dtype) != K:
+        out = empty_stream(xs[0].shape[0], K, xs[0].dtype, xs[0].device)
+        return torch.cat(xs, dim=-1, out=out)
+    return torch.cat(xs, dim=-1)
 
 
 def _concat_ws(ws: list[Tensor]) -> Tensor:
     return torch.cat(ws, dim=0) if len(ws) > 1 else ws[0]
 
 
-def _mari_dense_operands(node: Node, params: dict, vals: dict):
+def _stream_weight(p: dict, kernel: bool, blocks):
+    """The batched stream's weight: the prepared ``w_prep`` on the kernel
+    path, else the pre-concatenated ``w_cat``, else ``blocks()``
+    concatenated now."""
+    w = p.get("w_prep") if kernel else None
+    if w is None:
+        w = p.get("w_cat")
+    return w if w is not None else _concat_ws(blocks())
+
+
+def _mari_dense_operands(node: Node, params: dict, vals: dict,
+                         kernel: bool = False):
     """Assemble (x, w) pairs + accumulator init + bias for a ``mari_dense``.
 
     Returns (parts, acc0, bias): ``parts`` is a list of (x, w) whose products
@@ -130,6 +152,9 @@ def _mari_dense_operands(node: Node, params: dict, vals: dict):
     The batched (non-user) groups are fused into ONE (x, w) stream via the
     block-matmul identity Σ_g x_g W_g == concat(x_g) @ stack(W_g); a
     pre-concatenated ``w_cat`` in the node's params skips the weight concat.
+    ``kernel`` (the mari_matmul path): the stream's w is the node's prepared
+    ``w_prep`` when ``prepare_mari_params`` made one, and a concatenated x
+    lands in a buffer with a row stride TMA can read.
     """
     attrs = node.attrs
     p = params[node.name]
@@ -143,12 +168,10 @@ def _mari_dense_operands(node: Node, params: dict, vals: dict):
     acc0 = vals[node.inputs[0]] if attrs.get("precomputed_user") else None
     if attrs.get("fragment", False):
         if acc0 is not None:
-            x = _concat_xs([seg(nm) for nm in node.inputs[1:]])
-            w = p.get("w_cat")
-            if w is None:
-                w = _concat_ws([p[f"w_seg{i}"]
-                                for i in attrs["seg_param_idx"]])
-            parts.append((x, w))
+            x = _concat_xs([seg(nm) for nm in node.inputs[1:]],
+                           aligned=kernel)
+            parts.append((x, _stream_weight(p, kernel, lambda: [
+                p[f"w_seg{i}"] for i in attrs["seg_param_idx"]])))
         else:
             for i, name in enumerate(node.inputs):
                 parts.append((seg(name), p[f"w_seg{i}"]))
@@ -163,10 +186,8 @@ def _mari_dense_operands(node: Node, params: dict, vals: dict):
                 rest_xs.extend(seg(node.inputs[i]) for i in seg_idx)
                 rest_ws.append(p[f"w_{label}"])
         if rest_xs:
-            w = p.get("w_cat")
-            if w is None:
-                w = _concat_ws(rest_ws)
-            parts.append((_concat_xs(rest_xs), w))
+            parts.append((_concat_xs(rest_xs, aligned=kernel),
+                          _stream_weight(p, kernel, lambda: rest_ws)))
     bias = p["b"] if attrs.get("use_bias", True) else None
     return parts, acc0, bias
 
@@ -181,7 +202,8 @@ def _run_mari_dense(node: Node, params: dict, vals: dict, *,
     arrives as a stacked (U, units) table gathered at accumulator-init load.
     """
     attrs = node.attrs
-    parts, acc0, bias = _mari_dense_operands(node, params, vals)
+    parts, acc0, bias = _mari_dense_operands(node, params, vals,
+                                             kernel=use_pallas)
     activation = attrs.get("activation", "identity")
     if use_pallas:
         return mari_matmul_fused_groups(parts, bias, acc0=acc0,

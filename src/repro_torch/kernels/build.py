@@ -7,6 +7,12 @@ root of the checkout (listed in ``.gitignore``), named by a hash of the
 source and flags, so an edited source rebuilds and an unchanged one is
 reused. ``build_all`` starts one ``nvcc`` per stale source, all at once.
 
+No source needs more than these flags: ``mari_matmul.cu`` (wgmma, TMA,
+setmaxnreg: the ``sm_90a`` target) encodes its TMA descriptors with the
+driver's ``cuTensorMapEncodeTiled``, which it reaches through the runtime's
+``cudaGetDriverEntryPoint(ByVersion)``, so no library links ``-lcuda``; no
+source includes CUTLASS or PyTorch headers.
+
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU machine has no ``nvcc``.
 """

@@ -83,6 +83,8 @@ from repro_torch.ft.faults import CORRUPT, FaultInjector
 from repro_torch.ft.recovery import CircuitBreaker
 from repro_torch.graph.executor import USER_INDEX_FEED, Executor
 from repro_torch.graph.ir import Graph
+from repro_torch.kernels.mari_matmul.ops import (prepare_mari_params,
+                                                 stream_weight_blocks)
 from repro_torch.serve.cache import DeviceRepStore, UserRepCache
 from repro_torch.serve.errors import FaultInjected
 from repro_torch.serve.hedging import HedgedRunner, HedgePolicy
@@ -125,20 +127,9 @@ def _precat_mari_weights(graph: Graph, params: dict) -> dict:
     (stored as ``w_cat`` beside the blocks), so the per-call weight concat
     leaves the hot path. The streamed operand values are unchanged."""
     out = dict(params)
-    for n in graph.nodes.values():
-        if n.op != "mari_dense":
-            continue
-        p = params[n.name]
-        if n.attrs.get("fragment"):
-            if not n.attrs.get("precomputed_user"):
-                continue          # batch-1-ness varies per segment: no fusion
-            ws = [p[f"w_seg{i}"] for i in n.attrs["seg_param_idx"]]
-        else:
-            labels = [lab for lab, _ in n.attrs["groups"] if lab != "user"]
-            ws = [p[f"w_{lab}"] for lab in labels]
-        if len(ws) < 2:
-            continue              # single block: nothing to concatenate
-        out[n.name] = dict(p, w_cat=torch.cat(ws, dim=0))
+    for name, ws in stream_weight_blocks(graph, params).items():
+        if len(ws) > 1:           # a single block: nothing to concatenate
+            out[name] = dict(params[name], w_cat=torch.cat(ws, dim=0))
     return out
 
 
@@ -264,6 +255,9 @@ class ServingEngine:
         if plan.kernel.precat_weights:
             self.params = _precat_mari_weights(batched_graph, self.params)
         self.use_pallas = plan.kernel.use_pallas
+        if self.use_pallas and self.device.type == "cuda":
+            # the mari_matmul kernel's weights, prepared once at load
+            self.params = prepare_mari_params(batched_graph, self.params)
         self.kernel_gather = plan.kernel.kernel_gather
         self.gather_attention = plan.kernel.gather_attention
 

@@ -80,10 +80,119 @@ def test_mari_matmul_row_independent_of_batch(cuda):
 
 
 def test_mari_matmul_kernel_refuses_bf16(cuda):
+    """bf16 runs only with bf16 on both sides: a bf16 x against an fp32 w
+    (or fp16 operands) is refused, not converted."""
     x = torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32 only"):
-        mm.mari_matmul(x, x.T.contiguous(), torch.zeros(1, 4, device=cuda,
-                                                       dtype=torch.bfloat16))
+    u = torch.zeros(1, 4, device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        mm.mari_matmul(x, x.T.contiguous().float(), u)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mm.mari_matmul(x.half(), x.T.contiguous().half(), u)
+
+
+# every mari_dense stream of the served models: (stream K, N)
+MARI_PATH_SHAPES = [(1064, 512), (1064, 4), (256, 128), (500, 64), (48, 200),
+                    (351, 1024), (190, 400)]
+
+
+def _mari_case(dev, B, K, N, mode, U=8, seed=0, scale=0.05):
+    g = _gen(dev, seed + B + K + N)
+    x, w = _randn(g, B, K), _randn(g, K, N) * scale
+    u = _randn(g, {"broadcast": 1, "rowwise": B, "gather": U}[mode], N)
+    idx = (torch.randint(-2, U + 3, (B,), generator=g, device=dev,
+                         dtype=torch.int32) if mode == "gather" else None)
+    return x, w, u, idx
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+@pytest.mark.parametrize("K,N", MARI_PATH_SHAPES)
+def test_mari_matmul_path_shapes_match_plain(cuda, K, N, mode, activation):
+    """Each init mode and epilogue at every mari_dense shape of the served
+    models, a full bucket of 4096, the weight prepared once."""
+    x, w, u, idx = _mari_case(cuda, 4096, K, N, mode)
+    got = mm.mari_matmul(x, mm.prepare_mari_weight(w), u, idx, activation)
+    torch.testing.assert_close(got, mm.mari_matmul_plain(x, w, u, idx,
+                                                         activation), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+@pytest.mark.parametrize("B,K,N", [(1, 3, 1), (65, 33, 9), (129, 31, 130),
+                                   (300, 1, 257), (4097, 37, 129),
+                                   (70, 1064, 33), (200, 0, 16)])
+def test_mari_matmul_ragged_edges(cuda, mode, B, K, N):
+    """Ragged B, K and N (TMA zero-fills, stores masked; K = 0 leaves the
+    init), out-of-range and negative gather indices (clamped)."""
+    x, w, u, idx = _mari_case(cuda, B, K, N, mode, U=5, scale=1.0)
+    got = mm.mari_matmul(x, w, u, idx, "silu")
+    torch.testing.assert_close(got, mm.mari_matmul_plain(x, w, u, idx,
+                                                         "silu"), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+def test_mari_matmul_row_bit_identical_whatever_the_batch(cuda, mode):
+    """A row's output is the same bits at B = 64 (64-row tiles) and inside
+    B = 4096 (128-row tiles): no split-K, one k order."""
+    x, w, u, idx = _mari_case(cuda, 4096, 1064, 512, mode)
+    pw = mm.prepare_mari_weight(w)
+    assert mm.ops.tile_config(64, 512)[0] != mm.ops.tile_config(4096, 512)[0]
+    full = mm.mari_matmul(x, pw, u, idx, "relu")
+    rows = slice(1000, 1064)
+    part = mm.mari_matmul(
+        x[rows].contiguous(), pw, u[rows].contiguous() if mode == "rowwise"
+        else u, None if idx is None else idx[rows].contiguous(), "relu")
+    assert torch.equal(full[rows], part)
+
+
+def test_mari_matmul_prepared_and_raw_weight_agree(cuda):
+    """A raw CUDA weight is prepared inside the call (counted in PREPARES);
+    a prepared one is not; both give the same bits."""
+    x, w, u, _ = _mari_case(cuda, 300, 190, 400, "broadcast")
+    pw = mm.prepare_mari_weight(w)
+    before = dict(mm.PREPARES)
+    raw = mm.mari_matmul(x, w, u, None, "relu")
+    assert mm.PREPARES["float32"] == before["float32"] + 1
+    prepared = mm.mari_matmul(x, pw, u, None, "relu")
+    assert mm.PREPARES == {**before, "float32": before["float32"] + 1}
+    assert torch.equal(raw, prepared)
+    # a weight prepared on the CPU is refused, not moved
+    with pytest.raises(ValueError, match="w on cpu"):
+        mm.mari_matmul(x, mm.prepare_mari_weight(w.cpu()), u)
+
+
+def test_mari_matmul_stride_copies_counted(cuda):
+    """An x whose rows TMA cannot read (351 fp32 = 1404 bytes) is copied to
+    a padded stride and counted; the same values written into an
+    ``empty_stream`` buffer go through as they are."""
+    x, w, u, _ = _mari_case(cuda, 500, 351, 1024, "broadcast")
+    pw = mm.prepare_mari_weight(w)
+    before = mm.STRIDE_COPIES["float32"]
+    copied = mm.mari_matmul(x, pw, u, None, "relu")
+    assert mm.STRIDE_COPIES["float32"] == before + 1
+    xv = mm.empty_stream(500, 351, torch.float32, cuda)
+    xv.copy_(x)
+    direct = mm.mari_matmul(xv, pw, u, None, "relu")
+    assert mm.STRIDE_COPIES["float32"] == before + 1
+    assert torch.equal(copied, direct)
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+@pytest.mark.parametrize("B,K,N", [(4096, 1064, 512), (1000, 333, 65),
+                                   (37, 8, 4)])
+def test_mari_matmul_bf16_matches_plain(cuda, mode, activation, B, K, N):
+    """The bf16 entry: bf16 x and w, the f32 accumulator from the f32 u,
+    bf16 out, within the reference's bf16 tolerance."""
+    x, w, u, idx = _mari_case(cuda, B, K, N, mode)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    before = mm.LAUNCHES["bf16"]
+    got = mm.mari_matmul(xb, wb, u, idx, activation)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert mm.LAUNCHES["bf16"] == before + 1
+    torch.testing.assert_close(
+        got.float(), mm.mari_matmul_plain(xb, wb, u, idx, activation).float(),
+        rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("U", [1, 5])
@@ -202,6 +311,7 @@ def test_engine_on_card_matches_cpu(cuda, model):
         np.testing.assert_allclose(p, w, **TOL)
         np.testing.assert_allclose(c, p, **TOL)
     assert mm.LAUNCHES["gather"] > 0
+    assert sum(mm.PREPARES.values()) == 0      # weights prepared at load
     if model == "din":
         assert ge.LAUNCHES["bd,uldh->blh"] > 0
         assert ge.LAUNCHES["bl,uld->bd"] > 0
@@ -228,6 +338,7 @@ def test_dlrm_tpu_engine_matches_plain_twin(cuda):
         np.testing.assert_allclose(p, w, **TOL)
         np.testing.assert_allclose(c, w, **TOL)
     assert mm.LAUNCHES["gather"] > 0 and di.LAUNCHES["triu"] > 0
+    assert sum(mm.PREPARES.values()) == 0
 
 
 def test_overlapped_groups_keep_private_buffers(cuda):
