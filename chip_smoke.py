@@ -75,6 +75,7 @@ without the repository beside it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -109,6 +110,9 @@ SERVED = ("dlrm-mlperf", "deepfm", "fm")
 DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
 TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
+# builds of a kernel's source with one part left out, timed beside it
+VARIANTS = {"gather_einsum": ("GATHER_EINSUM_NO_ROW_SORT",),
+            "din_attention": ("DIN_ATTENTION_GUARDED_ONLY",)}
 AUC_TOL = 1e-3
 # MLPerf DLRM-DCNv2's Criteo multi-hot sizes (MLCommons training,
 # recommendation_v2/torchrec_dlrm, --multi_hot_sizes), one per sparse field
@@ -167,8 +171,16 @@ def main() -> int:
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
     # ---- build -------------------------------------------------------------
+    # every source, and beside them the variants timed against the kernels
+    # as built (the row sort of gather_einsum left out; din_attention's
+    # guarded instance at DIN's width): all nvcc processes at once
     t0 = time.perf_counter()
-    libs = build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1 + len(VARIANTS)) as pool:
+        variant_builds = [pool.submit(build.build_all, (n,), d)
+                          for n, d in VARIANTS.items()]
+        libs = build.build_all()
+        for f in variant_builds:
+            f.result()
     ptxas = {}
     for name, lib in libs.items():
         logf = lib.with_suffix(".log")
@@ -217,6 +229,17 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    @contextlib.contextmanager
+    def variant(ops_mod, name):
+        """The kernel's wrapper launches the variant build of its source
+        (``VARIANTS[name]``) inside the block."""
+        saved = ops_mod._lib
+        ops_mod._lib = lambda: saved(VARIANTS[name])
+        try:
+            yield
+        finally:
+            ops_mod._lib = saved
 
     def host_us(fn, n=50):
         """Host µs per call, enqueued behind a device sleep (the device
@@ -412,20 +435,61 @@ def main() -> int:
         ir = randidx(xrs[0], trs[0] + 3, lo=-2)
         errs.append(max_err(ge.gather_einsum(spec, xr, tr, ir),
                             ge.gather_einsum_plain(spec, xr, tr, ir)))
+        # the engine's layout: each user's rows one contiguous run (random
+        # run lengths, so run boundaries fall anywhere in a row tile)
+        runs = torch.sort(randidx(B, U)).values
+        errs.append(max_err(ge.gather_einsum(spec, xg, tg, runs),
+                            ge.gather_einsum_plain(spec, xg, tg, runs)))
+        # the device twin's (capacity 64, ...) slot table, both orders, and
+        # packs of short requests: runs of 4 rows, 16 users a 64-row tile
+        t64 = randn(64, *ts[1:])
+        idx64, runs64 = randidx(B, 64), torch.sort(randidx(B, 64)).values
+        short64 = (torch.arange(B, device=dev) // 4 % 64).to(torch.int32)
+        for i64 in (idx64, runs64, short64):
+            errs.append(max_err(ge.gather_einsum(spec, xg, t64, i64),
+                                ge.gather_einsum_plain(spec, xg, t64, i64)))
         rows = tg.index_select(0, idx)
         row_spec = ge.parse_spec(spec)[3]
         b_ms, b_by = bound(4 * nfloats + 4 * B, flops)
+        ms = time_ms(lambda: ge.gather_einsum(spec, xg, tg, idx))
         entries[f"gather_einsum/{spec}"] = dict(
             route="cuda", source="src/repro_torch/csrc/gather_einsum.cu",
             replaces="src/repro/kernels/gather_einsum/kernel.py:79",
-            max_abs_err=max(errs),
-            ms=time_ms(lambda: ge.gather_einsum(spec, xg, tg, idx)),
+            max_abs_err=max(errs), ms=ms,
+            ms_runs=time_ms(lambda: ge.gather_einsum(spec, xg, tg, runs)),
             plain_ms=time_ms(lambda: ge.gather_einsum_plain(spec, xg, tg,
                                                             idx)),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
             library_ms=time_ms(lambda: torch.einsum(row_spec, xg, rows)),
+            u64=dict(ms=time_ms(lambda: ge.gather_einsum(spec, xg, t64,
+                                                         idx64)),
+                     ms_runs=time_ms(lambda: ge.gather_einsum(spec, xg, t64,
+                                                              runs64)),
+                     ms_short_runs=time_ms(lambda: ge.gather_einsum(
+                         spec, xg, t64, short64)),
+                     bound_ms=bound(4 * (nfloats + (64 - U) * t64[0].numel())
+                                    + 4 * B, flops)[0]),
             shape=dict(x=list(xs), table=list(ts)),
+            timing="ms: user_index in random order; ms_runs: contiguous "
+                   "runs of random length (the engine's layout); u64: the "
+                   "same at a 64-slot table, and ms_short_runs: runs of 4 "
+                   "rows (16 users a 64-row tile)",
             library="torch.einsum on pre-gathered rows")
+        if spec == "bd,uldh->blh":   # a random order without the row sort
+            with variant(ge.ops, "gather_einsum"):
+                errs.append(max_err(ge.gather_einsum(spec, xg, tg, idx),
+                                    ge.gather_einsum_plain(spec, xg, tg,
+                                                           idx)))
+                entries[f"gather_einsum/{spec}"]["no_row_sort_ms"] = time_ms(
+                    lambda: ge.gather_einsum(spec, xg, tg, idx))
+            entries[f"gather_einsum/{spec}"]["timing"] += (
+                "; no_row_sort_ms: ms, built without the row sort")
+            entries[f"gather_einsum/{spec}"]["max_abs_err"] = max(errs)
+        if spec == "bl,uld->bd":     # the same kernel at B = 1: its floor
+            x1, i1 = xg[:1], idx[:1]
+            entries[f"gather_einsum/{spec}"]["launch_floor_ms"] = time_ms(
+                lambda: ge.gather_einsum(spec, x1, tg, i1))
+        del t64
     del x, w, pw, u_of, rows
 
     # DLRM interaction at a full bucket: B=4096, F=27, D=128 -> P=351
@@ -481,7 +545,14 @@ def main() -> int:
                  + 2 * Lq * Dq * h1 + Bq * (2 * Dq * h1 + h1))
         nbytes = 4 * (2 * Bq * Dq + Lq * Dq + 4 * Dq * h1 + h1 + h1 * h2
                       + 2 * h2 + 1) + Lq          # the mask is bool
-        return bound(nbytes, flops), flops
+        # the kernel's route: the two per-pair products ((k*q) W1d, layer
+        # 2) as 3xTF32 on the tensor cores, the rest on the CUDA cores
+        mma = 3 * 2 * (Dq * h1 + h1 * h2) * Bq * Lq
+        simt = flops - 2 * (Dq * h1 + h1 * h2) * Bq * Lq
+        b3x = max(bound(nbytes, 0)[0], mma / PEAK_TF32_FLOPS * 1e3,
+                  simt / PEAK_FP32_FLOPS * 1e3)
+        by = "bytes" if b3x == bound(nbytes, 0)[0] else "operations"
+        return (b3x, by), flops, bound(nbytes, flops)[0]
 
     Lq, Dq, H1, H2 = 100, 18, 80, 40
     timed = {}
@@ -490,14 +561,25 @@ def main() -> int:
         dargs = din_args(Bq, Lq, Dq, H1, H2)
         errs.append(max_err(da.din_attention(*dargs),
                             da.din_attention_plain(*dargs)))
-        (b_ms, b_by), flops = din_bound(Bq, Lq, Dq, H1, H2)
+        (b_ms, b_by), flops, simt_ms = din_bound(Bq, Lq, Dq, H1, H2)
+        ms = time_ms(lambda: da.din_attention(*dargs))
+        with variant(da.ops, "din_attention"):
+            errs.append(max_err(da.din_attention(*dargs),
+                                da.din_attention_plain(*dargs)))
+            guarded_ms = time_ms(lambda: da.din_attention(*dargs))
         timed[Bq] = dict(
-            ms=time_ms(lambda: da.din_attention(*dargs)),
-            plain_ms=time_ms(lambda: da.din_attention_plain(*dargs)),
-            bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+            ms=ms, plain_ms=time_ms(lambda: da.din_attention_plain(*dargs)),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+            bound_3xtf32_ms=b_ms,
+            bound_fp32_simt_ms=simt_ms, share_of_bound_fp32_simt=simt_ms / ms,
+            guarded_instance_ms=guarded_ms, gflop=flops / 1e9)
         del dargs
-    for shp in ((4, 5, 8), (33, 20, 18), (128, 100, 18)):
-        a = din_args(*shp, 16, 8)
+    # ... and histories of several 112-key chunks, up to the longest one a
+    # block holds at DIN width
+    for shp in ((4, 5, 8, 16, 8), (33, 20, 18, 16, 8), (128, 100, 18, 16, 8),
+                (1, 7, 6, 12, 5), (300, 37, 33, 128, 64),
+                (40, 300, 18, 80, 40), (64, 920, 18, 80, 40)):
+        a = din_args(*shp)
         errs.append(max_err(da.din_attention(*a), da.din_attention_plain(*a)))
     entries["din_attention/shared_keys"] = dict(
         route="cuda", source="src/repro_torch/csrc/din_attention.cu",
@@ -507,8 +589,15 @@ def main() -> int:
         library_ms=None,
         shape=dict(B=SINGLE_CALL_B, L=Lq, D=Dq, h1=H1, h2=H2,
                    gflop=timed[SINGLE_CALL_B]["gflop"],
-                   also=[[B, Lq, Dq], [4, 5, 8], [33, 20, 18],
-                         [128, 100, 18]]),
+                   also=[[B, Lq, Dq, H1, H2], [4, 5, 8, 16, 8],
+                         [33, 20, 18, 16, 8], [128, 100, 18, 16, 8],
+                         [1, 7, 6, 12, 5], [300, 37, 33, 128, 64],
+                         [40, 300, 18, 80, 40], [64, 920, 18, 80, 40]]),
+        bound_note="3xTF32: the least work's two per-pair products as "
+                   "3xTF32 at 495 TFLOP/s, the rest at 67 TFLOP/s fp32; "
+                   "bound_fp32_simt_ms: all of it at 67",
+        timing="guarded_instance_ms: the build without the unguarded "
+               "instance for these tile counts",
         at_full_bucket=dict(B=B, **timed[B]),
         library="none: no single PyTorch call computes the unit")
     # EmbeddingBag at the multi-hot DLRM path's largest bag: the sparse_20

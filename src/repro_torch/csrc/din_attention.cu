@@ -11,87 +11,274 @@
 // kernel.py:47), which ran the unit per 128-row batch tile in VMEM with
 // the MLP on the MXU; the (B, L, 4D) feature block never reached HBM.
 //
-// What bounds it on an H100: the least work splits the first layer,
-// [k, q, k-q, k*q] W1 = k (W1a + W1c) + q (W1b - W1c) + (k*q) W1d, so a
-// (b, l) pair needs only 2 * (D*h1 + h1*h2 + h2) FLOP plus adds, the key
-// and query parts being computed once per l and once per b. At the single
-// call's shape (B = 2048, L = 100, D = 18, h1 = 80, h2 = 40) that is
-// 1.98 GFLOP against ~0.34 MB of inputs and outputs, so it is bound by
-// operations: 0.029 ms at 67 TFLOP/s fp32 (0.059 ms at B = 4096). This
-// kernel does the whole 4D first layer per pair, ~1.9x that work.
+// Least work. The first layer splits exactly:
+//   [k, q, k-q, k*q] W1 = k (W1a + W1c) + q (W1b - W1c) + (k*q) W1d,
+// so K1[l] = k_l (W1a + W1c) + b1 is needed once per key and Q1[b] =
+// q_b (W1b - W1c) once per query row, and a (b, l) pair needs only
+//   D (k*q) + 2 D h1 ((k*q) W1d) + 2 h1 (+ K1 + Q1, relu)
+//   + 2 h1 h2 + h2 (layer 2, b2) + 2 h2 + 1 (layer 3, b3) + 3 + 2 D
+// (softmax, pool) operations: the per-pair count of chip_smoke.py's
+// din_bound, 2 * (18*80 + 80*40) = 9280 of ~9.6k FLOP at DIN width
+// (B = 2048, L = 100, D = 18, h1 = 80, h2 = 40: 1.98 GFLOP in all).
 //
-// The design: one block of 256 threads per 8 query rows. The block stages
-// the keys, its 8 query rows and all three weight matrices (columns
-// zero-padded to multiples of 16) in shared memory, then walks its 8 * L
-// pairs in chunks of 128. A thread is (pair lane, hidden lane), 16 x 16:
-// it owns 8 pairs x ceil(h1/16) hidden units of the first layer in
-// registers and forms each pair's 4D features on the fly from the staged
-// k and q, so the feature block never exists anywhere. The relu'd first
-// layer of the chunk goes to shared memory; the second layer is spread
-// the same way, and the third (h2 -> 1) is a shuffle reduction over the
-// 16 hidden lanes. Scores land in shared memory; after the last chunk one
-// warp per row does the masked softmax (warp reductions) and the pooled
-// sum over l = 0..L-1 in order. Every pair and every row is summed in one
-// fixed order, so a row's result never depends on B; rows past B are
-// guarded, not padded. Rows of D = 18 floats are not 16-byte aligned, so
-// every load is a 4-byte one. Tensor cores for the two MLP layers, and
-// computing the per-key part k (W1a + W1c) once per l rather than once
-// per pair, are later work.
+// What bounds it on an H100: operations. On the CUDA cores (67 TFLOP/s
+// fp32) the least work takes 0.0295 ms. This kernel runs the two per-pair
+// products on the tensor cores with mma.sync.m16n8k8 tf32 and a 3xTF32
+// split (hi = tf32(a), lo = tf32(a - hi), each product lo*hi + hi*lo +
+// hi*hi accumulated in fp32: the fp32 accuracy mari_matmul.cu keeps), so
+// its bound is 3 * 2 * (D h1 + h1 h2) per pair at 495 TFLOP/s, 0.0115 ms.
+// The mma shape pads that work: D to a multiple of 8 (18 -> 24) and L to a
+// multiple of 16 (100 -> 112).
+//
+// The design: one block of 256 threads (8 warps) per 8 query rows, so
+// B = 2048 gives 256 blocks, two resident per SM at DIN width (107 KB of
+// shared memory each). The block stages the keys, its rows' queries, the
+// folded first-layer blocks (W1a + W1c, W1b - W1c) and W1d and W2 as hi /
+// lo mma B fragments (16 bytes a lane, conflict-free). Then, for each
+// chunk of up to 112 keys (7 m16 tiles; DIN's 100 keys are one chunk), it
+// computes the chunk's K1 (keys x h1) and, with the first chunk, its
+// rows' Q1 (8 x h1) on the CUDA cores in shared memory, a thread owning 4
+// rows x 4 columns, and then the chunk's scores. A warp task is one query
+// row against 16 consecutive keys (an m16 tile), one n tile of 8 hidden
+// units at a time:
+//   GEMM 1: C = K1[l] + Q1[b] (fp32 adds), then += (k*q) W1d, the A
+//           fragment formed from the staged k and q and split in registers;
+//   relu;   the C fragment of GEMM 1 is GEMM 2's A fragment as it lies:
+//           W2's rows are permuted inside each 8-row block to match
+//           (thread t holds columns 2t, 2t+1 of C and k = t, t+4 of A);
+//   GEMM 2: C2 = b2, += relu(h1) W2, one k step per n tile of GEMM 1;
+//   layer 3 (h2 -> 1) on the CUDA cores: each lane sums its columns, the
+//           four lanes of a row reduce by a fixed shuffle tree.
+// The hi*hi products and the two cross terms go to separate accumulators,
+// added once a sum is complete, so chains of dependent mma stay short.
+// Scores land in shared memory; then one warp per row does the masked
+// softmax (warp reductions) and the pooled sum over l = 0..L-1 in order.
+// A pair (b, l) always sits at row l % 16 of its tile and runs the same
+// instruction sequence whatever B, so a row's result never depends on B;
+// rows past B are guarded, not padded. Register tiles: an unguarded
+// instance for D 17..24, h1 73..80, h2 33..40 (DIN's width) and a guarded
+// one for D <= 64, h1 <= 128, h2 <= 64.
+//
+// Limits. Shared memory holds every key (a padded row each), the 8 rows'
+// scores for every key and the mask: 148 bytes a key at DIN width, beside
+// one chunk of K1 (39 KB) and the weights' fragments; so a block takes
+// up to 920 keys at DIN width (1442 at h1 = 16, h2 = 8). A longer history
+// is refused (din_attention_smem_bytes), and the executor routes it to
+// the plain version.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;             // query rows per block (one warp each)
-constexpr int kHidLanes = 16;        // thread = (pair lane, hidden lane)
-constexpr int kPairLanes = kThreads / kHidLanes;
-constexpr int kPairsPer = 8;         // pairs per thread in a chunk
-constexpr int kChunk = kPairLanes * kPairsPer;     // 128 pairs per pass
-constexpr int kJ1Max = 8;            // h1 <= 128
-constexpr int kJ2Max = 4;            // h2 <= 64
+constexpr int kM = 16;               // keys per mma tile
+constexpr int kChunk = 7 * kM;       // keys whose K1 a block holds at once
+constexpr int kKT1Max = 8;           // D <= 64
+constexpr int kNT1Max = 16;          // h1 <= 128
+constexpr int kNT2Max = 8;           // h2 <= 64
+#ifdef DIN_ATTENTION_GUARDED_ONLY
+constexpr bool kUnguarded = false;
+#else
+constexpr bool kUnguarded = true;
+#endif
 constexpr float kNegInf = -1e30f;    // the reference's mask constant
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Layout {
-  int J1, J2, h1p, h2p, hs;          // hs: row stride of the chunk's layer 1
-  int k, q, w1, b1, w2, b2, w3, h, s, total;  // offsets in floats
+  int dk, ks, kt1, h1p, nt1, h2p, nt2, hs;
+  // offsets in floats: B fragments of W1d and W2, K1, Q1, keys, queries,
+  // the folded key / query blocks of W1, b1, b2, w3, scores, the mask
+  int fb1, fb2, k1, q1, k, q, wk, wq, b1, b2, w3, s, m, total;
 };
+
+// a row stride (a multiple of 8 floats) at which the 8 rows g = 0..7 of a
+// fragment's float2 reads fall on distinct banks
+__host__ __device__ inline int bank_stride(int n) {
+  return (n % 32 == 8 || n % 32 == 24) ? n : n + 8;
+}
 
 __host__ __device__ inline Layout layout(int L, int D, int h1, int h2) {
   Layout o;
-  o.J1 = (h1 + kHidLanes - 1) / kHidLanes;
-  o.J2 = (h2 + kHidLanes - 1) / kHidLanes;
-  o.h1p = o.J1 * kHidLanes;
-  o.h2p = o.J2 * kHidLanes;
-  o.hs = o.h1p + 1;
-  o.k = 0;
-  o.q = o.k + L * D;
-  o.w1 = o.q + kRows * D;
-  o.b1 = o.w1 + 4 * D * o.h1p;
-  o.w2 = o.b1 + o.h1p;
-  o.b2 = o.w2 + h1 * o.h2p;
+  o.dk = (D + 7) / 8 * 8;
+  o.ks = o.dk + 4;                   // A reads at rows g, columns t: no conflict
+  o.kt1 = o.dk / 8;
+  o.h1p = (h1 + 7) / 8 * 8;
+  o.nt1 = o.h1p / 8;
+  o.h2p = (h2 + 7) / 8 * 8;
+  o.nt2 = o.h2p / 8;
+  o.hs = bank_stride(o.h1p);
+  o.fb1 = 0;
+  o.fb2 = o.fb1 + o.kt1 * o.nt1 * 128;
+  o.k1 = o.fb2 + o.nt1 * o.nt2 * 128;
+  o.q1 = o.k1 + (L < kChunk ? L : kChunk) * o.hs;
+  o.k = o.q1 + kRows * o.hs;
+  o.q = o.k + L * o.ks;
+  o.wk = o.q + kRows * o.ks;
+  o.wq = o.wk + D * o.h1p;
+  o.b1 = o.wq + D * o.h1p;
+  o.b2 = o.b1 + o.h1p;
   o.w3 = o.b2 + o.h2p;
-  o.h = o.w3 + o.h2p;
-  o.s = o.h + kChunk * o.hs;
-  o.total = o.s + kRows * L;
+  o.s = o.w3 + o.h2p;
+  o.m = o.s + kRows * L;
+  o.total = o.m + L;
   return o;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// hi = tf32(v), lo = tf32(v - hi)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// C (16 x 8, f32) += A (16 x 8, tf32) * B (8 x 8, tf32)
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, float b0,
+                                    float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+__device__ __forceinline__ float4 split4(float v0, float v1) {
+  uint32_t h0, l0, h1, l1;
+  split(v0, h0, l0);
+  split(v1, h1, l1);
+  return make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                     __uint_as_float(l0), __uint_as_float(l1));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+    v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-// two blocks per SM: at most 128 registers a thread
-__global__ void __launch_bounds__(kThreads, 2)
+struct Smem {
+  const float4 *b1, *b2;                 // B fragments of W1d, W2
+  const float *k1, *q1, *k, *q, *b2v, *w3;
+  float* s;                              // scores (kRows x L)
+};
+
+// The scores of one m16 tile: query row r against keys l0 .. l0 + 15 (rows
+// past L clamped, never stored). GEMM 1 runs one n tile (8 hidden units) at
+// a time and hands it, relu'd, to GEMM 2 as its k step. The 3xTF32 terms
+// go to separate accumulators (hi*hi beside lo*hi and hi*lo), added in a
+// fixed order once a sum is complete. EXACT: the widths equal the register
+// tiles, so no guard splits the unrolled code.
+template <int KT1, int NT1, int NT2, bool EXACT>
+__device__ __forceinline__ void score_tile(const Smem& sm, const Layout& lo,
+                                           int r, int l0, int c0, int L,
+                                           float bias3) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ks = lo.ks, hs = lo.hs;
+  const int kt1 = EXACT ? KT1 : lo.kt1, nt1 = EXACT ? NT1 : lo.nt1,
+            nt2 = EXACT ? NT2 : lo.nt2;
+  const int la = min(l0 + g, L - 1), lb = min(l0 + g + 8, L - 1);
+  uint32_t ah[KT1][4], al[KT1][4];           // (k * q) as GEMM 1's A
+#pragma unroll
+  for (int kt = 0; kt < KT1; ++kt) {
+    if (kt < kt1) {
+      const int d0 = kt * 8 + t, d1 = d0 + 4;
+      const float q0 = sm.q[r * ks + d0], q1 = sm.q[r * ks + d1];
+      split(sm.k[la * ks + d0] * q0, ah[kt][0], al[kt][0]);  // row g,   k t
+      split(sm.k[lb * ks + d0] * q0, ah[kt][1], al[kt][1]);  // row g+8, k t
+      split(sm.k[la * ks + d1] * q1, ah[kt][2], al[kt][2]);  // row g,   k t+4
+      split(sm.k[lb * ks + d1] * q1, ah[kt][3], al[kt][3]);  // row g+8, k t+4
+    }
+  }
+  float c2[NT2][4], c2s[NT2][4];             // b2 + hi*hi; lo*hi + hi*lo
+#pragma unroll
+  for (int j = 0; j < NT2; ++j) {
+    if (j < nt2) {
+      const float2 bv = *reinterpret_cast<const float2*>(sm.b2v + j * 8 + 2 * t);
+      c2[j][0] = c2[j][2] = bv.x;
+      c2[j][1] = c2[j][3] = bv.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c2s[j][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT1; ++j) {
+    if (j < nt1) {
+      // GEMM 1, hidden units 8j .. 8j + 7: K1[l] + Q1[b] + (k*q) W1d
+      const int col = j * 8 + 2 * t;
+      const float2 ka =
+          *reinterpret_cast<const float2*>(sm.k1 + (la - c0) * hs + col);
+      const float2 kb =
+          *reinterpret_cast<const float2*>(sm.k1 + (lb - c0) * hs + col);
+      const float2 qv = *reinterpret_cast<const float2*>(sm.q1 + r * hs + col);
+      float c1[4] = {ka.x + qv.x, ka.y + qv.y, kb.x + qv.x, kb.y + qv.y};
+      float c1a[4] = {0.f, 0.f, 0.f, 0.f}, c1b[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kt = 0; kt < KT1; ++kt) {
+        if (kt < kt1) {
+          const float4 b = sm.b1[(kt * nt1 + j) * 32 + lane];
+          mma(c1a, al[kt], b.x, b.y);          // lo * hi
+          mma(c1b, ah[kt], b.z, b.w);          // hi * lo
+          mma(c1, ah[kt], b.x, b.y);           // hi * hi
+        }
+      }
+      // relu; C's fragment is GEMM 2's A fragment for k step j
+      float h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[e] = fmaxf(c1[e] + (c1a[e] + c1b[e]), 0.f);
+      uint32_t bh[4], bl[4];
+      split(h[0], bh[0], bl[0]);               // row g,     col 2t
+      split(h[2], bh[1], bl[1]);               // row g + 8, col 2t
+      split(h[1], bh[2], bl[2]);               // row g,     col 2t + 1
+      split(h[3], bh[3], bl[3]);               // row g + 8, col 2t + 1
+#pragma unroll
+      for (int j2 = 0; j2 < NT2; ++j2) {
+        if (j2 < nt2) {
+          const float4 b = sm.b2[(j * nt2 + j2) * 32 + lane];
+          mma(c2s[j2], bl, b.x, b.y);          // lo * hi
+          mma(c2s[j2], bh, b.z, b.w);          // hi * lo
+          mma(c2[j2], bh, b.x, b.y);           // hi * hi
+        }
+      }
+    }
+  }
+  // layer 3: relu(C2) w3 + b3, the four lanes of a row in a fixed tree
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT2; ++j) {
+    if (j < nt2) {
+      const float2 wv = *reinterpret_cast<const float2*>(sm.w3 + j * 8 + 2 * t);
+      sa = fmaf(fmaxf(c2[j][0] + c2s[j][0], 0.f), wv.x, sa);
+      sa = fmaf(fmaxf(c2[j][1] + c2s[j][1], 0.f), wv.y, sa);
+      sb = fmaf(fmaxf(c2[j][2] + c2s[j][2], 0.f), wv.x, sb);
+      sb = fmaf(fmaxf(c2[j][3] + c2s[j][3], 0.f), wv.y, sb);
+    }
+  }
+  sa += __shfl_xor_sync(kFull, sa, 1);
+  sb += __shfl_xor_sync(kFull, sb, 1);
+  sa += __shfl_xor_sync(kFull, sa, 2);
+  sb += __shfl_xor_sync(kFull, sb, 2);
+  if (t == 0) {
+    if (l0 + g < L) sm.s[r * L + l0 + g] = sa + bias3;
+    if (l0 + g + 8 < L) sm.s[r * L + l0 + g + 8] = sb + bias3;
+  }
+}
+
+template <int KT1, int NT1, int NT2, bool EXACT>
+__global__ void __launch_bounds__(kThreads, KT1 <= 3 ? 2 : 1)
     din_attention_kernel(const float* __restrict__ q,
                          const float* __restrict__ keys,
                          const int* __restrict__ mask,
@@ -103,148 +290,143 @@ __global__ void __launch_bounds__(kThreads, 2)
                          const float* __restrict__ b3,
                          float* __restrict__ out, int B, int L, int D, int h1,
                          int h2) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Layout lo = layout(L, D, h1, h2);
+  float4* sB1 = reinterpret_cast<float4*>(smem + lo.fb1);
+  float4* sB2 = reinterpret_cast<float4*>(smem + lo.fb2);
+  float* sK1 = smem + lo.k1;
+  float* sQ1 = smem + lo.q1;
   float* sK = smem + lo.k;
   float* sQ = smem + lo.q;
-  float* sW1 = smem + lo.w1;
-  float* sB1 = smem + lo.b1;
-  float* sW2 = smem + lo.w2;
-  float* sB2 = smem + lo.b2;
-  float* sW3 = smem + lo.w3;
-  float* sH = smem + lo.h;
+  float* sWk = smem + lo.wk;
+  float* sWq = smem + lo.wq;
+  float* sb1 = smem + lo.b1;
+  float* sb2 = smem + lo.b2;
+  float* sw3 = smem + lo.w3;
   float* sS = smem + lo.s;
+  int* sM = reinterpret_cast<int*>(smem + lo.m);
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - row0);
+  const int dk = lo.dk, ks = lo.ks, hs = lo.hs, h1p = lo.h1p;
+  const int nt1 = lo.nt1, nt2 = lo.nt2;
 
-  // ---- stage keys, this block's query rows and the padded weights ------
-  for (int i = tid; i < L * D; i += kThreads) sK[i] = keys[i];
-  for (int i = tid; i < nrows * D; i += kThreads)
-    sQ[i] = q[(size_t)row0 * D + i];
-  for (int i = tid; i < 4 * D * lo.h1p; i += kThreads) {
-    const int r = i / lo.h1p, c = i - r * lo.h1p;
-    sW1[i] = c < h1 ? w1[r * h1 + c] : 0.f;
+  // ---- stage keys, queries, the folded W1 blocks and the B fragments ----
+#pragma unroll 4
+  for (int i = tid; i < L * dk; i += kThreads) {
+    const int l = i / dk, d = i - l * dk;
+    sK[l * ks + d] = d < D ? keys[l * D + d] : 0.f;
   }
-  for (int i = tid; i < lo.h1p; i += kThreads) sB1[i] = i < h1 ? b1[i] : 0.f;
-  for (int i = tid; i < h1 * lo.h2p; i += kThreads) {
-    const int r = i / lo.h2p, c = i - r * lo.h2p;
-    sW2[i] = c < h2 ? w2[r * h2 + c] : 0.f;
+#pragma unroll 4
+  for (int i = tid; i < kRows * dk; i += kThreads) {
+    const int r = i / dk, d = i - r * dk;
+    sQ[r * ks + d] = r < nrows && d < D ? q[(size_t)(row0 + r) * D + d] : 0.f;
   }
+  for (int i = tid; i < h1p; i += kThreads) sb1[i] = i < h1 ? b1[i] : 0.f;
+  for (int i = tid; i < L; i += kThreads) sM[i] = mask[i];
   for (int i = tid; i < lo.h2p; i += kThreads) {
-    sB2[i] = i < h2 ? b2[i] : 0.f;
-    sW3[i] = i < h2 ? w3[i] : 0.f;
+    sb2[i] = i < h2 ? b2[i] : 0.f;
+    sw3[i] = i < h2 ? w3[i] : 0.f;
+  }
+#pragma unroll 4
+  for (int i = tid; i < D * h1p; i += kThreads) {
+    const int d = i / h1p, c = i - d * h1p;
+    float a = 0.f, b = 0.f;
+    if (c < h1) {
+      const float wc = w1[(2 * D + d) * h1 + c];
+      a = w1[d * h1 + c] + wc;            // W1a + W1c
+      b = w1[(D + d) * h1 + c] - wc;      // W1b - W1c
+    }
+    sWk[i] = a;
+    sWq[i] = b;
+  }
+  // W1d: b0 = W1d[8 kt + t][8 j + g], b1 = W1d[8 kt + t + 4][8 j + g]
+#pragma unroll 4
+  for (int i = tid; i < lo.kt1 * nt1 * 32; i += kThreads) {
+    const int lane = i & 31, j = (i >> 5) % nt1, kt = (i >> 5) / nt1;
+    const int d0 = kt * 8 + (lane & 3), d1 = d0 + 4, n = j * 8 + (lane >> 2);
+    const float* wd = w1 + (size_t)3 * D * h1;
+    sB1[i] = split4(d0 < D && n < h1 ? wd[d0 * h1 + n] : 0.f,
+                    d1 < D && n < h1 ? wd[d1 * h1 + n] : 0.f);
+  }
+  // W2, rows permuted to GEMM 1's C layout: b0 = W2[8 kt + 2t][8 j + g],
+  // b1 = W2[8 kt + 2t + 1][8 j + g]
+#pragma unroll 4
+  for (int i = tid; i < nt1 * nt2 * 32; i += kThreads) {
+    const int lane = i & 31, j = (i >> 5) % nt2, kt = (i >> 5) / nt2;
+    const int r0 = kt * 8 + 2 * (lane & 3), r1 = r0 + 1;
+    const int n = j * 8 + (lane >> 2);
+    sB2[i] = split4(r0 < h1 && n < h2 ? w2[r0 * h2 + n] : 0.f,
+                    r1 < h1 && n < h2 ? w2[r1 * h2 + n] : 0.f);
   }
   __syncthreads();
-  const float bias3 = b3[0];
 
-  // ---- scores of the block's nrows * L pairs, kChunk at a time ----------
-  const int hl = tid % kHidLanes;
-  const int pl = tid / kHidLanes;
-  const int npairs = nrows * L;
-  for (int c0 = 0; c0 < npairs; c0 += kChunk) {
-    int ko[kPairsPer], qo[kPairsPer];
+  // ---- by chunks of kChunk keys: K1 = k (W1a + W1c) + b1 of the
+  // chunk's keys (with the first chunk, Q1 = q (W1b - W1c) of the rows),
+  // then the chunk's scores --------------------------------------------
+  const Smem sm{sB1, sB2, sK1, sQ1, sK, sQ, sb2, sw3, sS};
+  const float bias3 = b3[0];
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cgroups = h1p / 4;
+  for (int c0 = 0; c0 < L; c0 += kChunk) {
+    const int nl = min(kChunk, L - c0);
+    // a thread owns 4 rows x 4 columns (keys in groups of 4, then the 8
+    // query rows), each sum over d = 0..D-1 in order
+    const int kgroups = (nl + 3) / 4, qgroups = c0 == 0 ? kRows / 4 : 0;
+    for (int i = tid; i < (kgroups + qgroups) * cgroups; i += kThreads) {
+      const int rg = i / cgroups, c = (i - rg * cgroups) * 4;
+      const bool is_key = rg < kgroups;
+      const float* xs = is_key ? sK : sQ;
+      const float* ws = (is_key ? sWk : sWq) + c;
+      int rows[4];
+      float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < kPairsPer; ++i) {
-      // a ragged chunk's spare lanes recompute the last pair (never stored)
-      const int p = min(c0 + pl + kPairLanes * i, npairs - 1);
-      const int r = p / L;
-      ko[i] = (p - r * L) * D;
-      qo[i] = r * D;
-    }
-    // layer 1: features formed on the fly, d outer, [k, q, k-q, k*q] inner
-    float acc[kPairsPer][kJ1Max];
+      for (int a = 0; a < 4; ++a) {
+        const int r = is_key ? rg * 4 + a : (rg - kgroups) * 4 + a;
+        rows[a] = is_key ? c0 + min(r, nl - 1) : r;
 #pragma unroll
-    for (int j = 0; j < kJ1Max; ++j) {
-      const float bj = j < lo.J1 ? sB1[hl + kHidLanes * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kPairsPer; ++i) acc[i][j] = bj;
-    }
-    for (int d = 0; d < D; ++d) {
-      float fk[kPairsPer], fq[kPairsPer];
-#pragma unroll
-      for (int i = 0; i < kPairsPer; ++i) {
-        fk[i] = sK[ko[i] + d];
-        fq[i] = sQ[qo[i] + d];
+        for (int e = 0; e < 4; ++e) acc[a][e] = is_key ? sb1[c + e] : 0.f;
       }
-      const float* wr = sW1 + d * lo.h1p + hl;
+#pragma unroll 6
+      for (int d = 0; d < D; ++d) {
+        const float4 w = *reinterpret_cast<const float4*>(ws + d * h1p);
 #pragma unroll
-      for (int j = 0; j < kJ1Max; ++j) {
-        if (j < lo.J1) {
-          const int c = kHidLanes * j;
-          const float wk = wr[c];
-          const float wq = wr[D * lo.h1p + c];
-          const float wd = wr[2 * D * lo.h1p + c];
-          const float wm = wr[3 * D * lo.h1p + c];
-#pragma unroll
-          for (int i = 0; i < kPairsPer; ++i) {
-            float a = fmaf(fk[i], wk, acc[i][j]);
-            a = fmaf(fq[i], wq, a);
-            a = fmaf(fk[i] - fq[i], wd, a);
-            acc[i][j] = fmaf(fk[i] * fq[i], wm, a);
-          }
+        for (int a = 0; a < 4; ++a) {
+          const float xv = xs[rows[a] * ks + d];
+          acc[a][0] = fmaf(xv, w.x, acc[a][0]);
+          acc[a][1] = fmaf(xv, w.y, acc[a][1]);
+          acc[a][2] = fmaf(xv, w.z, acc[a][2]);
+          acc[a][3] = fmaf(xv, w.w, acc[a][3]);
         }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < kJ1Max; ++j) {
-      if (j < lo.J1) {
-#pragma unroll
-        for (int i = 0; i < kPairsPer; ++i)
-          sH[(pl + kPairLanes * i) * lo.hs + hl + kHidLanes * j] =
-              fmaxf(acc[i][j], 0.f);
+      for (int a = 0; a < 4; ++a) {
+        const int r = is_key ? rg * 4 + a : (rg - kgroups) * 4 + a;
+        if (is_key && r >= nl) continue;
+        *reinterpret_cast<float4*>((is_key ? sK1 : sQ1) + r * hs + c) =
+            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
       }
     }
     __syncthreads();
 
-    // layer 2 over the chunk's relu'd layer 1, then layer 3 as a reduction
-    float acc2[kPairsPer][kJ2Max];
-#pragma unroll
-    for (int j = 0; j < kJ2Max; ++j) {
-      const float bj = j < lo.J2 ? sB2[hl + kHidLanes * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kPairsPer; ++i) acc2[i][j] = bj;
+    // scores: warp w takes tiles w, w + 8, ... (tile = one row against 16
+    // consecutive keys of the chunk)
+    const int ltiles = (nl + kM - 1) / kM;
+    for (int ti = warp; ti < nrows * ltiles; ti += kWarps) {
+      const int r = ti / ltiles;
+      score_tile<KT1, NT1, NT2, EXACT>(sm, lo, r,
+                                       c0 + (ti - r * ltiles) * kM, c0, L,
+                                       bias3);
     }
-    for (int k = 0; k < h1; ++k) {
-      float hv[kPairsPer];
-#pragma unroll
-      for (int i = 0; i < kPairsPer; ++i)
-        hv[i] = sH[(pl + kPairLanes * i) * lo.hs + k];
-      const float* wr = sW2 + k * lo.h2p + hl;
-#pragma unroll
-      for (int j = 0; j < kJ2Max; ++j) {
-        if (j < lo.J2) {
-          const float w = wr[kHidLanes * j];
-#pragma unroll
-          for (int i = 0; i < kPairsPer; ++i)
-            acc2[i][j] = fmaf(hv[i], w, acc2[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPairsPer; ++i) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < kJ2Max; ++j)
-        if (j < lo.J2)
-          s = fmaf(fmaxf(acc2[i][j], 0.f), sW3[hl + kHidLanes * j], s);
-      // the 16 hidden lanes of a pair are 16 consecutive lanes of one warp
-#pragma unroll
-      for (int off = kHidLanes / 2; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      const int p = c0 + pl + kPairLanes * i;
-      if (hl == 0 && p < npairs) sS[p] = s + bias3;   // sS[r * L + l]
-    }
-    __syncthreads();                  // sH is rewritten by the next chunk
+    __syncthreads();                   // K1's buffer is free for the next
   }
 
   // ---- masked softmax over L and the pooled keys, one warp per row ------
-  const int warp = tid >> 5, lane = tid & 31;
   if (warp >= nrows) return;
   float* srow = sS + warp * L;
   float m = -INFINITY;
   for (int l = lane; l < L; l += 32) {
-    const float v = mask[l] != 0 ? srow[l] : kNegInf;
+    const float v = sM[l] != 0 ? srow[l] : kNegInf;
     srow[l] = v;
     m = fmaxf(m, v);
   }
@@ -261,9 +443,33 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* orow = out + (size_t)(row0 + warp) * D;
   for (int d = lane; d < D; d += 32) {
     float o = 0.f;
-    for (int l = 0; l < L; ++l) o = fmaf(srow[l], sK[l * D + d], o);
+#pragma unroll 10
+    for (int l = 0; l < L; ++l) o = fmaf(srow[l], sK[l * ks + d], o);
     orow[d] = o;
   }
+}
+
+template <int KT1, int NT1, int NT2, bool EXACT>
+int launch(const float* q, const float* keys, const int* mask,
+           const float* w1, const float* b1, const float* w2, const float* b2,
+           const float* w3, const float* b3, float* out, int B, int L, int D,
+           int h1, int h2, cudaStream_t stream) {
+  const size_t smem = (size_t)layout(L, D, h1, h2).total * sizeof(float);
+  if (smem > 48 * 1024) {
+    // two blocks an SM at DIN's width need the largest carveout
+    cudaError_t e = cudaFuncSetAttribute(
+        din_attention_kernel<KT1, NT1, NT2, EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(din_attention_kernel<KT1, NT1, NT2, EXACT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (B + kRows - 1) / kRows;
+  din_attention_kernel<KT1, NT1, NT2, EXACT><<<blocks, kThreads, smem, stream>>>(
+      q, keys, mask, w1, b1, w2, b2, w3, b3, out, B, L, D, h1, h2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -271,12 +477,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 extern "C" {
 
 // Bytes of shared memory one block stages for a unit of these widths, or
-// -1 when L or D is not positive or h1 / h2 exceed the register tiles
-// (h1 <= 128, h2 <= 64). kernels/din_attention/ops.py asks this before it
+// -1 when L, D, h1 or h2 is not positive or D, h1, h2 exceed the register
+// tiles (D <= 64, h1 <= 128, h2 <= 64). kernels/din_attention/ops.py asks this before it
 // routes a unit here and refuses what a block cannot hold.
 long din_attention_smem_bytes(int L, int D, int h1, int h2) {
-  if (L <= 0 || D <= 0 || h1 <= 0 || h2 <= 0 || h1 > kJ1Max * kHidLanes ||
-      h2 > kJ2Max * kHidLanes)
+  if (L <= 0 || D <= 0 || h1 <= 0 || h2 <= 0 || D > kKT1Max * 8 ||
+      h1 > kNT1Max * 8 || h2 > kNT2Max * 8)
     return -1;
   return (long)layout(L, D, h1, h2).total * (long)sizeof(float);
 }
@@ -292,18 +498,17 @@ int din_attention_f32(const float* q, const float* keys, const int* mask,
                       const float* b2, const float* w3, const float* b3,
                       float* out, int B, int L, int D, int h1, int h2,
                       void* stream) {
-  const size_t smem = (size_t)layout(L, D, h1, h2).total * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        din_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (B + kRows - 1) / kRows;
-  din_attention_kernel<<<blocks, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      q, keys, mask, w1, b1, w2, b2, w3, b3, out, B, L, D, h1, h2);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout lo = layout(L, D, h1, h2);
+  // 3 k tiles of GEMM 1, 10 n tiles of GEMM 1 and 5 of GEMM 2 (D 17..24,
+  // h1 73..80, h2 33..40): an unguarded instance with two blocks an SM;
+  // a build with -DDIN_ATTENTION_GUARDED_ONLY leaves it out, only for
+  // chip_smoke.py to time the guarded instance at these tile counts
+  if (kUnguarded && lo.kt1 == 3 && lo.nt1 == 10 && lo.nt2 == 5)
+    return launch<3, 10, 5, true>(q, keys, mask, w1, b1, w2, b2, w3, b3, out,
+                                  B, L, D, h1, h2, s);
+  return launch<kKT1Max, kNT1Max, kNT2Max, false>(
+      q, keys, mask, w1, b1, w2, b2, w3, b3, out, B, L, D, h1, h2, s);
 }
 
 const char* repro_error_string(int e) {

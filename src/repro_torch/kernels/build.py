@@ -51,25 +51,31 @@ def nvcc_path() -> str:
                        "the CUDA kernels build from source at first use")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines=()) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, Path]:
+def build_all(names=SOURCES, defines=()) -> dict[str, Path]:
     """Compile every stale source in ``names`` (one ``nvcc`` each, started
-    together); returns name -> library path. The compiler's ``-Xptxas=-v``
-    report (registers, shared memory, spills) goes to ``<lib>.log``."""
+    together); returns name -> library path. ``defines`` (macro names, none
+    by default) build a source's variant that ``chip_smoke.py`` times
+    beside it. The compiler's ``-Xptxas=-v`` report (registers, shared
+    memory, spills) goes to ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
+    paths = {n: library_path(n, defines) for n in names}
     procs = []
     for name, lib in paths.items():
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
         log = open(lib.with_suffix(".log"), "w")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs.append((name, lib, tmp, log,
                       subprocess.Popen(cmd, stdout=log,
@@ -88,16 +94,18 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed.
-    Every source exports ``repro_error_string(int)`` beside its launchers."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    building it if needed. Every source exports ``repro_error_string(int)``
+    beside its launchers."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            lib = ctypes.CDLL(str(build_all((name,), defines)[name]))
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
+            _loaded[key] = lib
         return lib
 
 

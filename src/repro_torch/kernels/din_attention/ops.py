@@ -55,8 +55,8 @@ def _limit_error(L: int, D: int, h1: int, h2: int) -> str | None:
     need = _lib().din_attention_smem_bytes(L, D, h1, h2)
     if 0 < need <= MAX_SMEM_BYTES:
         return None
-    why = ("L, D, h1, h2 must be positive and h1, h2 within its register "
-           "tiles" if need < 0 else
+    why = ("L, D, h1, h2 must be positive and D, h1, h2 within its "
+           "register tiles (D <= 64, h1 <= 128, h2 <= 64)" if need < 0 else
            f"it would stage {need} bytes of shared memory, a block holds "
            f"{MAX_SMEM_BYTES}")
     return (f"din_attention kernel cannot take h1={h1}, h2={h2}, L={L}, "
@@ -95,8 +95,9 @@ def din_attention_plain(query: Tensor, keys: Tensor, mask: Tensor,
     return torch.einsum("bl,ld->bd", w, keys)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("din_attention")
+def _lib(defines=()) -> ctypes.CDLL:
+    """The kernel's library; ``defines`` name a variant build (``build``)."""
+    lib = build.load("din_attention", defines)
     if lib.din_attention_f32.argtypes is None:
         lib.din_attention_f32.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])

@@ -97,8 +97,9 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("gather_einsum")
+def _lib(defines=()) -> ctypes.CDLL:
+    """The kernel's library; ``defines`` name a variant build (``build``)."""
+    lib = build.load("gather_einsum", defines)
     if lib.gather_einsum_f32.argtypes is None:
         lib.gather_einsum_f32.argtypes = _ARGTYPES
         lib.gather_einsum_f32.restype = ctypes.c_int

@@ -216,6 +216,84 @@ def test_gather_einsum_kernel_matches_plain(cuda, spec, U):
                                                            idx), **TOL)
 
 
+def _ge_operands(g, spec, B, U, L, D, H):
+    x_shape, t_shape = {
+        "bd,uldh->blh": ((B, D), (U, L, D, H)),
+        "bl,uld->bd": ((B, L), (U, L, D)),
+        "blh,uh->bl": ((B, L, H), (U, H)),
+    }[spec]
+    return _randn(g, *x_shape), _randn(g, *t_shape)
+
+
+def _ge_index(g, order, B, U):
+    """user_index in the engine's layout or another order: "runs" sorts
+    random slots (contiguous runs of random length, boundaries anywhere in
+    a 64-row tile), "runs_aligned" gives each user B // U rows,
+    "short_runs" cycles through the U slots in runs of 3 rows (more than 8
+    users a 64-row tile once U > 8), "random" draws each row's slot,
+    "clamped" adds out-of-range values."""
+    dev = g.device
+    if order == "clamped":
+        return torch.randint(-3, U + 4, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+    idx = torch.randint(0, U, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if order == "runs":
+        return torch.sort(idx).values
+    if order == "runs_aligned":
+        return (torch.arange(B, device=dev) * U // B).to(torch.int32)
+    if order == "short_runs":
+        return (torch.arange(B, device=dev) // 3 % U).to(torch.int32)
+    return idx
+
+
+# (order, U, B, L, H): runs inside and across row tiles, random order at U =
+# 1, 8, 64, short runs (tiles of more than 8 users, read from L2),
+# out-of-range indices, B of 1, 301 and 4096, and L*H that is no multiple
+# of the column tile (L*H = 660), of 4 (91) or of 2 (63)
+GE_CASES = [("runs", 8, 301, 100, 80), ("runs", 8, 4096, 100, 80),
+            ("runs_aligned", 8, 4096, 100, 80), ("runs", 64, 4096, 100, 80),
+            ("runs", 3, 130, 33, 20), ("random", 1, 301, 100, 80),
+            ("random", 8, 4096, 100, 80), ("random", 64, 301, 100, 80),
+            ("random", 64, 4096, 100, 80), ("clamped", 8, 301, 100, 80),
+            ("clamped", 64, 1, 100, 80), ("random", 8, 1, 100, 80),
+            ("random", 11, 301, 33, 20), ("random", 5, 77, 7, 13),
+            ("runs", 9, 200, 9, 7), ("random", 40, 300, 9, 7),
+            ("short_runs", 64, 4096, 100, 80), ("short_runs", 9, 301, 33, 20),
+            ("short_runs", 64, 200, 9, 7)]
+
+
+@pytest.mark.parametrize("order,U,B,L,H", GE_CASES)
+@pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
+def test_gather_einsum_kernel_index_orders(cuda, spec, order, U, B, L, H):
+    g = _gen(cuda, U * B + L * H)
+    x, table = _ge_operands(g, spec, B, U, L, 18, H)
+    idx = _ge_index(g, order, B, U)
+    got = ge.gather_einsum(spec, x, table, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ge.gather_einsum_plain(spec, x, table,
+                                                           idx), **TOL)
+
+
+@pytest.mark.parametrize("order,U", [("random", 8), ("runs", 8),
+                                     ("random", 64), ("short_runs", 64)])
+@pytest.mark.parametrize("spec", ["bd,uldh->blh", "bl,uld->bd"])
+def test_gather_einsum_row_bit_identical_whatever_the_batch(cuda, spec,
+                                                            order, U):
+    """A row's result depends on its own x and user alone: a slice of the
+    rows (other tiles, other neighbours) gives the same bits. Over 64 slots
+    a full tile holds more than 8 users (slices read from L2) and a short
+    slice fewer (staged in shared memory): both routes agree."""
+    g = _gen(cuda, 7)
+    x, table = _ge_operands(g, spec, 301, U, 100, 18, 80)
+    idx = _ge_index(g, order, 301, U)
+    full = ge.gather_einsum(spec, x, table, idx)
+    for lo, hi in ((117, 203), (0, 1), (250, 301), (250, 255), (64, 70)):
+        part = ge.gather_einsum(spec, x[lo:hi].contiguous(), table,
+                                idx[lo:hi].contiguous())
+        assert torch.equal(full[lo:hi], part)
+
+
 def test_gather_einsum_other_spec_raises_on_cuda(cuda):
     x = torch.zeros(3, 4, device=cuda)
     table = torch.zeros(2, 4, 5, device=cuda)
@@ -372,11 +450,13 @@ def _din_case(dev, B, L, D, h1, h2, seed=0):
 
 
 @pytest.mark.parametrize("B,L,D,h1,h2", [(4096, 100, 18, 80, 40),
+                                         (2048, 100, 18, 80, 40),
                                          (4, 5, 8, 16, 8),
                                          (33, 20, 18, 16, 8),
                                          (128, 100, 18, 16, 8),
                                          (1, 7, 6, 12, 5),
-                                         (300, 37, 33, 128, 64)])
+                                         (300, 37, 33, 128, 64),
+                                         (40, 300, 18, 80, 40)])
 def test_din_attention_kernel_matches_plain(cuda, B, L, D, h1, h2):
     args = _din_case(cuda, B, L, D, h1, h2, seed=B + L)
     before = da.LAUNCHES["shared_keys"]
@@ -400,6 +480,27 @@ def test_din_attention_kernel_rows_and_masks(cuda):
     torch.testing.assert_close(got, args[1].mean(0).expand_as(got), **TOL)
 
 
+def test_din_attention_kernel_longest_history(cuda):
+    """At DIN width a block holds every key, its rows' scores and 112 keys'
+    first-layer parts at a time: up to 920 keys. The kernel takes 920 (nine
+    chunks) and holds the plain version, a row slice gives the same bits,
+    and 921 is refused, so the executor routes it to the plain version."""
+    lib = da.ops._lib()
+    assert (lib.din_attention_smem_bytes(920, 18, 80, 40)
+            <= da.ops.MAX_SMEM_BYTES
+            < lib.din_attention_smem_bytes(921, 18, 80, 40))
+    args = _din_case(cuda, 64, 920, 18, 80, 40, seed=5)
+    assert da.fits(*args)
+    full = da.din_attention(*args)
+    torch.testing.assert_close(full, da.din_attention_plain(*args), **TOL)
+    part = da.din_attention(args[0][21:30].contiguous(), *args[1:])
+    assert torch.equal(full[21:30], part)
+    longer = _din_case(cuda, 8, 921, 18, 80, 40)
+    assert not da.fits(*longer)
+    with pytest.raises(ValueError, match="shared memory"):
+        da.din_attention(*longer)
+
+
 def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
     args = _din_case(cuda, 8, 10, 6, 16, 8)
     with pytest.raises(TypeError, match="float32 only"):
@@ -414,8 +515,8 @@ def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
     assert da.fits(*args) and da.fits(*_din_case(cuda, 8, 100, 18, 80, 40))
     assert not da.fits(*wide) and not da.fits(*long)
     assert not da.fits(*_din_case(cuda, 8, 10, 6, 16, 65))
-    # DIN at configs/din.py width stages 91552 bytes: room to spare
-    assert da.ops._lib().din_attention_smem_bytes(100, 18, 80, 40) == 91552
+    # DIN at configs/din.py width stages 106832 bytes: two blocks an SM
+    assert da.ops._lib().din_attention_smem_bytes(100, 18, 80, 40) == 106832
     with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
         da.din_attention(args[0], args[1], args[2], args[3][:-1], *args[4:])
 
