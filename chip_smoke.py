@@ -11,6 +11,12 @@
    ``einsum`` / ``bmm`` plus a triangle gather /
    ``torch.nn.functional.embedding_bag``, used nowhere in the port;
    ``din_attention`` has no single-call counterpart in PyTorch).
+   ``dot_interaction`` is also timed at the service's buckets 256 .. 2048
+   (``by_batch``) and checked on both copy instances (TMA, 4-byte
+   ``cp.async``); the CSR entry of ``embedding_bag`` with sorted and
+   shuffled segment ids, its counting sort alone (``prep_ms``) and the
+   sort-based preparation it replaced (``old_prep_ms``), whose output it
+   must equal bit for bit.
    ``mari_matmul`` (3xTF32 on the tensor cores) is also checked and timed
    beside ``addmm`` at every ``mari_dense`` shape of the served models, in
    each init mode, at B = 4096 and 2048 (``mari_matmul_shapes``); its
@@ -112,7 +118,8 @@ TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
 # builds of a kernel's source with one part left out, timed beside it
 VARIANTS = {"gather_einsum": ("GATHER_EINSUM_NO_ROW_SORT",),
-            "din_attention": ("DIN_ATTENTION_GUARDED_ONLY",)}
+            "din_attention": ("DIN_ATTENTION_GUARDED_ONLY",),
+            "dot_interaction": ("DOT_INTERACTION_RING_ONLY",)}
 AUC_TOL = 1e-3
 # MLPerf DLRM-DCNv2's Criteo multi-hot sizes (MLCommons training,
 # recommendation_v2/torchrec_dlrm, --multi_hot_sizes), one per sparse field
@@ -173,7 +180,8 @@ def main() -> int:
     # ---- build -------------------------------------------------------------
     # every source, and beside them the variants timed against the kernels
     # as built (the row sort of gather_einsum left out; din_attention's
-    # guarded instance at DIN's width): all nvcc processes at once
+    # guarded instance at DIN's width; dot_interaction's ring plan at
+    # every batch): all nvcc processes at once
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1 + len(VARIANTS)) as pool:
         variant_builds = [pool.submit(build.build_all, (n,), d)
@@ -499,25 +507,54 @@ def main() -> int:
         xd = randn(B, F, D)
         errs = [max_err(di.dot_interaction(xd, keep_self),
                         di.dot_interaction_plain(xd, keep_self))]
-        for Br, Fr, Dr in ((1000, 5, 128), (1, 27, 16), (130, 7, 33),
-                           (33, 40, 64)):
-            xr = randn(Br, Fr, Dr)
+        # ragged shapes and views that take the 4-byte cp.async instance
+        # (D % 32 != 0; a start 4 bytes past 16-byte alignment)
+        routes = {}
+        for Br, Fr, Dr, shift in ((1000, 5, 128, 0), (1, 27, 16, 0),
+                                  (130, 7, 33, 0), (33, 40, 64, 0),
+                                  (1, 27, 128, 1), (64, 27, 128, 1),
+                                  (256, 27, 128, 1)):
+            xr = randn(Br * Fr * Dr + shift)[shift:].view(Br, Fr, Dr)
+            routes[f"{Br}x{Fr}x{Dr}" + ("+4B" if shift else "")] = \
+                di.copy_route(xr)
             errs.append(max_err(di.dot_interaction(xr, keep_self),
                                 di.dot_interaction_plain(xr, keep_self)))
+        # a row's bits do not depend on B
+        if not torch.equal(di.dot_interaction(xd, keep_self)[100:356],
+                           di.dot_interaction(xd[100:356], keep_self)):
+            raise AssertionError("dot_interaction: a row's result depends "
+                                 "on B")
         iu, ju = torch.triu_indices(F, F, offset=0 if keep_self else 1,
                                     device=dev)
+        # the service's smaller buckets: leading rows of the same x
+        by_batch = {}
+        for Bs in (256, 512, 1024, 2048):
+            xs_ = xd[:Bs]
+            bs_ms = bound(4 * (Bs * F * D + Bs * P), 2 * Bs * P * D)[0]
+            ms_s = time_ms(lambda: di.dot_interaction(xs_, keep_self))
+            by_batch[Bs] = dict(ms=ms_s, bound_ms=bs_ms,
+                                share_of_bound=bs_ms / ms_s)
+            if Bs == 1024:     # 8 rows a block: the plan of 11 consumers
+                with variant(di.ops, "dot_interaction"):
+                    errs.append(max_err(
+                        di.dot_interaction(xs_, keep_self),
+                        di.dot_interaction_plain(xs_, keep_self)))
+                    by_batch[Bs]["ring_plan_only_ms"] = time_ms(
+                        lambda: di.dot_interaction(xs_, keep_self))
         b_ms, b_by = bound(4 * (B * F * D + B * P), 2 * B * P * D)
+        ms = time_ms(lambda: di.dot_interaction(xd, keep_self))
         entries[f"dot_interaction/{di.VARIANTS[keep_self]}"] = dict(
             route="cuda", source="src/repro_torch/csrc/dot_interaction.cu",
             replaces="src/repro/kernels/dot_interaction/kernel.py:41",
-            max_abs_err=max(errs),
-            ms=time_ms(lambda: di.dot_interaction(xd, keep_self)),
+            max_abs_err=max(errs), ms=ms, share_of_bound=b_ms / ms,
             plain_ms=time_ms(lambda: di.dot_interaction_plain(xd,
                                                               keep_self)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(
                 lambda: torch.bmm(xd, xd.transpose(1, 2))[:, iu, ju]),
-            shape=dict(B=B, F=F, D=D, P=P, keep_self=keep_self),
+            shape=dict(B=B, F=F, D=D, P=P, keep_self=keep_self,
+                       copy_route=di.copy_route(xd), ragged_routes=routes),
+            by_batch=by_batch,
             library="torch.bmm (cuBLAS) then a triangle index gather: two "
                     "PyTorch calls")
     del xd
@@ -643,11 +680,39 @@ def main() -> int:
                      distinct_rows_read=rows_read,
                      mbytes_for_bound=(Db * 4 * rows_read + 4 * Bb * Hb
                                        + 4 * Bb * Db) / 1e6)
+    # the CSR entry with the segment ids sorted (as above) and shuffled,
+    # and its preparation (the counting sort) alone; beside them the
+    # sort-based preparation it replaced (csr_prep_plain, then the same
+    # bag kernel), whose output the entry must equal bit for bit
+    perm = torch.randperm(flat.numel(), generator=gen, device=dev)
+    flat_sh, segs_sh = flat[perm].contiguous(), segs[perm].contiguous()
+
+    def old_prep(f_, s_):
+        order, o_ = eb.csr_prep_plain(s_, Bb)
+        return eb.ops._launch("csr", tab, f_[order], o_, None, Bb, 0, "sum")
+
+    for f_, s_ in ((flat, segs), (flat_sh, segs_sh)):
+        if not torch.equal(eb.embedding_bag(tab, f_, s_, Bb),
+                           old_prep(f_, s_)):
+            raise AssertionError("embedding_bag/csr differs from the "
+                                 "sort-based preparation")
+    fixed_ms = time_ms(lambda: eb.embedding_bag_fixed(tab, bag_ids))
+    csr_ms = time_ms(lambda: eb.embedding_bag(tab, flat, segs, Bb))
+    csr_timing = dict(
+        ms_shuffled=time_ms(lambda: eb.embedding_bag(tab, flat_sh, segs_sh,
+                                                     Bb)),
+        prep_ms=time_ms(lambda: eb.csr_prep(segs, flat, None, Bb)),
+        prep_ms_shuffled=time_ms(lambda: eb.csr_prep(segs_sh, flat_sh, None,
+                                                     Bb)),
+        old_prep_ms=time_ms(lambda: old_prep(flat, segs)),
+        old_prep_ms_shuffled=time_ms(lambda: old_prep(flat_sh, segs_sh)))
+    csr_b_ms, csr_b_by = bound(Db * 4 * rows_read + 12 * Bb * Hb
+                               + 4 * Bb * Db, Bb * Hb * Db)
     entries["embedding_bag/fixed"] = dict(
         route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag/kernel.py:37",
-        max_abs_err=max(errs["fixed"]),
-        ms=time_ms(lambda: eb.embedding_bag_fixed(tab, bag_ids)),
+        max_abs_err=max(errs["fixed"]), ms=fixed_ms,
+        share_of_bound=b_ms / fixed_ms,
         plain_ms=time_ms(lambda: eb.embedding_bag_fixed_plain(tab, bag_ids)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.embedding_bag(flat, tab, offs,
@@ -657,17 +722,21 @@ def main() -> int:
     entries["embedding_bag/csr"] = dict(
         route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag/kernel.py:37",
-        max_abs_err=max(errs["csr"]),
-        ms=time_ms(lambda: eb.embedding_bag(tab, flat, segs, Bb)),
+        max_abs_err=max(errs["csr"]), ms=csr_ms,
+        share_of_bound=csr_b_ms / csr_ms,
         plain_ms=time_ms(lambda: eb.embedding_bag_plain(tab, flat, segs,
                                                         Bb)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=csr_b_ms, bound_by=csr_b_by,
         library_ms=time_ms(lambda: F.embedding_bag(flat, tab, offs,
                                                    mode="sum")),
-        shape=dict(bag_shape, note="ms includes the wrapper's stable sort "
-                   "and CSR offsets"),
+        **csr_timing,
+        shape=dict(bag_shape, segment_ids="int64, sorted (ms) or shuffled "
+                   "(ms_shuffled)", note="ms includes the counting sort "
+                   "(prep_ms alone); old_prep_ms: csr_prep_plain's stable "
+                   "sort + searchsorted + gathers, then the same bag kernel; "
+                   "bound adds the int64 segment ids read"),
         library="torch.nn.functional.embedding_bag (mode='sum', offsets)")
-    del tab, bag_ids, flat, segs, offs
+    del tab, bag_ids, flat, segs, offs, flat_sh, segs_sh
     # "blh,uh->bl" is a spec the kernel supports but the executor's
     # decomposed attention never reaches, no served model keeps the gram's
     # diagonal, no path calls the CSR entry of embedding_bag (the
@@ -1495,20 +1564,19 @@ def main() -> int:
                 for k in entries}
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    kernels = [{"name": name, "launches": launches[name],
-                "launches_by_path": {p: c.get(name, 0)
-                                     for p, c in by_path.items()},
-                "on_path": name not in OFF_PATH,
-                **e} for name, e in entries.items()]
-    print(json.dumps({"kernels": kernels}), flush=True)
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: rc={smi.returncode} {smi.stderr.strip()}",
-          flush=True)
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: rc={smi.returncode} {smi.stderr.strip()}")
+    kernels = [{"name": name, "launches": launches[name],
+                "launches_by_path": {p: c.get(name, 0)
+                                     for p, c in by_path.items()},
+                "on_path": name not in OFF_PATH, "card": card,
+                **e} for name, e in entries.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

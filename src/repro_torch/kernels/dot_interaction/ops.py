@@ -6,8 +6,12 @@ upper triangle of each row's F x F gram, in ``torch.triu_indices`` order
 (offset 1, or 0 with ``keep_self``). A CPU tensor goes to
 ``dot_interaction_plain``; a CUDA tensor launches
 ``csrc/dot_interaction.cu`` or raises. The reference's batch padding to a
-multiple of its tile is gone: the kernel runs one warp per row.
-``LAUNCHES`` counts kernel launches per triangle variant.
+multiple of its tile is gone: persistent blocks walk the rows, a producer
+warp copying them into shared-memory slots while consumer warps compute
+earlier ones, a lane per 4 x 4 tile of the gram. ``copy_route`` picks the
+kernel's instance: one TMA copy per row where x is 16-byte aligned,
+D % 32 == 0 and F <= 256, 4-byte ``cp.async`` otherwise. ``LAUNCHES``
+counts kernel launches per triangle variant.
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ VARIANTS = ("triu", "triu_keep_self")
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 MAX_SMEM_BYTES = 232448          # a Hopper block's dynamic shared memory
-ROWS_PER_BLOCK = 4               # candidate rows (one warp each) per block
 
 
 def reset_launches() -> None:
@@ -36,6 +39,33 @@ def n_pairs(f: int, keep_self: bool = False) -> int:
     return f * (f + 1) // 2 if keep_self else f * (f - 1) // 2
 
 
+def smem_bytes(f: int, d: int, keep_self: bool = False, consumers: int = 1,
+               slots_per_warp: int = 1) -> int:
+    """Shared memory of one block (``csrc/dot_interaction.cu`` ``Plan``):
+    two mbarriers per slot and a staging row of ceil4(P) floats per
+    consumer warp (together rounded up to 1024 bytes), the 1024-byte
+    aligned slots of ceil(D / 32) chunks of F rows of 128 bytes (and 3
+    rows that padding features read), and up to 1008 bytes to align them.
+    The kernel's plans take 7 consumers of 2 slots or 11 of 1, as many as
+    fit; one consumer of one slot is the smallest plan, which decides what
+    it refuses."""
+    def up(n, k):
+        return -(-n // k) * k
+    slots = consumers * slots_per_warp
+    head = up(16 * slots + 4 * consumers * up(n_pairs(f, keep_self), 4),
+              1024)
+    return head + slots * up((-(-d // 32) * f + 3) * 128, 1024) + 1008
+
+
+def copy_route(x: Tensor) -> str:
+    """The kernel instance x takes: ``"tma"`` (one TMA copy per row, with
+    the 128-byte swizzle) where D % 32 == 0, F <= 256 and x starts 16-byte
+    aligned, else ``"cp.async"`` (4-byte copies into the same layout)."""
+    _, f, d = x.shape
+    aligned = d % 32 == 0 and f <= 256 and x.data_ptr() % 16 == 0
+    return "tma" if aligned else "cp.async"
+
+
 def dot_interaction_plain(x: Tensor, keep_self: bool = False) -> Tensor:
     """Plain PyTorch version: x (..., F, D) -> (..., P) triangle dots."""
     f = x.shape[-2]
@@ -45,8 +75,8 @@ def dot_interaction_plain(x: Tensor, keep_self: bool = False) -> Tensor:
     return z[..., iu, ju]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("dot_interaction")
+def _lib(defines=()) -> ctypes.CDLL:
+    lib = build.load("dot_interaction", defines)
     if lib.dot_interaction_f32.argtypes is None:
         lib.dot_interaction_f32.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -60,13 +90,11 @@ def _launch(x: Tensor, keep_self: bool) -> Tensor:
         raise TypeError(f"dot_interaction CUDA kernel takes float32 only, "
                         f"x is {x.dtype} (bf16 is not ported yet)")
     B, F, D = x.shape
-    # the kernel stages each row as (D, F padded to a multiple of 4) floats
-    row_bytes = D * -(-F // 4) * 16
-    if row_bytes > MAX_SMEM_BYTES:
+    need = smem_bytes(F, D, keep_self)
+    if need > MAX_SMEM_BYTES:
         raise ValueError(f"dot_interaction: one row of x (F={F}, D={D}) "
-                         f"needs {row_bytes} bytes of shared memory, more "
-                         f"than a block's {MAX_SMEM_BYTES}")
-    rows = min(ROWS_PER_BLOCK, MAX_SMEM_BYTES // row_bytes)
+                         f"needs {need} bytes of shared memory, more than "
+                         f"a block's {MAX_SMEM_BYTES}")
     P = n_pairs(F, keep_self)
     out = torch.empty((B, P), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -78,7 +106,8 @@ def _launch(x: Tensor, keep_self: bool) -> Tensor:
     lib = _lib()
     with torch.cuda.device(x.device):    # launch in the tensor's context
         rc = lib.dot_interaction_f32(
-            x.data_ptr(), out.data_ptr(), B, F, D, int(keep_self), rows,
+            x.data_ptr(), out.data_ptr(), B, F, D, int(keep_self),
+            int(copy_route(x) == "tma"),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "dot_interaction")
     build.count_launch(LAUNCHES, VARIANTS[int(keep_self)])

@@ -7,10 +7,13 @@ reduction, one warp per bag):
 * ``embedding_bag(table, ids, segment_ids, num_segments, combiner,
   weights=None)`` — the reference's ``ops.py`` contract: flat ``(nnz,)``
   ids with the bag (segment) each belongs to, sorted or not; returns
-  ``(num_segments, D)``. The wrapper stable-sorts by segment and builds
-  CSR offsets (the cumulative bincount of the segments, read off the
-  sorted segments with ``searchsorted``, so no host sync); an empty bag is
-  0 and ``mean`` is ``sum / max(count, 1)``.
+  ``(num_segments, D)``. On the card the CSR offsets and the ids (and
+  weights) in bag order come from a stable counting sort by segment in
+  three hand-written launches (``embedding_bag_csr_prep``: tile
+  histograms, a scan over (segment, tile), a stable scatter; no host
+  sync), tiled by ``csr_plan``; ``csr_prep_plain`` is the sort-based
+  preparation it replaced, kept as its plain version. An empty bag is 0
+  and ``mean`` is ``sum / max(count, 1)``.
 * ``embedding_bag_fixed(table, ids, combiner, weights=None)`` — a fixed
   hotness: ids ``(B, H)``, bag ``b`` is row ``b`` (implicit offsets
   ``b * H``), so nothing is sorted. This is the executor's pooled
@@ -38,6 +41,8 @@ VARIANTS = ("csr", "fixed")
 COMBINERS = ("sum", "mean")
 # kernel launches per entry (one per launch, counted nowhere else)
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
+CSR_TILE = 4096                 # segment ids per tile of the counting sort
+CSR_MAX_SCRATCH = 1 << 22       # bound on tiles * (S + 1) int32 counts
 
 
 def reset_launches() -> None:
@@ -91,6 +96,33 @@ def embedding_bag_fixed_plain(table: Tensor, ids: Tensor,
     return out / max(H, 1) if combiner == "mean" else out
 
 
+def csr_plan(nnz: int, num_segments: int) -> tuple[int, int]:
+    """(tile, n_tiles) of the counting sort: tiles of ``CSR_TILE`` ids (a
+    multiple of 32), larger where (n_tiles * (S + 1)) counts would pass
+    ``CSR_MAX_SCRATCH``; at least one tile, so an empty input still
+    writes its offsets."""
+    keys = num_segments + 1
+    tile = max(CSR_TILE, -(-nnz // max(1, CSR_MAX_SCRATCH // keys)))
+    tile = -(-tile // 32) * 32
+    return tile, max(1, -(-nnz // tile))
+
+
+def csr_prep_plain(segment_ids: Tensor, num_segments: int
+                   ) -> tuple[Tensor, Tensor]:
+    """The sort-based CSR preparation: ``(order, offsets)`` with ``order``
+    the stable sort of the segments (dropped ones, outside
+    ``[0, num_segments)``, sort last, past ``offsets[S]``) and ``offsets``
+    (S + 1,) int64 the bag boundaries. ``ids[order]`` is what the
+    counting sort writes."""
+    S = int(num_segments)
+    seg = torch.where((segment_ids >= 0) & (segment_ids < S),
+                      segment_ids.long(), S)
+    seg_sorted, order = torch.sort(seg, stable=True)
+    offsets = torch.searchsorted(
+        seg_sorted, torch.arange(S + 1, device=seg.device))
+    return order, offsets
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("embedding_bag")
     if lib.embedding_bag_f32.argtypes is None:
@@ -99,12 +131,54 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
             + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.embedding_bag_f32.restype = ctypes.c_int
+        lib.embedding_bag_csr_prep.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 5)
+        lib.embedding_bag_csr_prep.restype = ctypes.c_int
     return lib
 
 
-def _launch(variant: str, table: Tensor, ids: Tensor,
-            offsets: Tensor | None, weights: Tensor | None, S: int,
-            H: int, combiner: str) -> Tensor:
+def csr_prep(segment_ids: Tensor, ids: Tensor, weights: Tensor | None,
+             S: int) -> tuple[Tensor, Tensor, Tensor | None]:
+    """The CUDA preparation alone: the counting sort's three launches give
+    (offsets, ids in bag order, weights in bag order); every size comes
+    from the host, so nothing synchronises."""
+    dev = ids.device
+    if segment_ids.device != dev:
+        raise ValueError(f"embedding_bag: segment_ids on "
+                         f"{segment_ids.device}, ids on {dev}")
+    if segment_ids.dtype not in (torch.int32, torch.int64):
+        segment_ids = segment_ids.long()
+    nnz = ids.numel()
+    if nnz >= 2 ** 31:
+        raise ValueError(f"embedding_bag: {nnz} ids, the CSR entry takes "
+                         f"fewer than 2**31")
+    tile, n_tiles = csr_plan(nnz, S)
+    seg = segment_ids.contiguous()
+    ids = ids.contiguous()
+    weights = weights.contiguous() if weights is not None else None
+    scratch = torch.empty(n_tiles * (S + 1) + -(-(S + 1) // 32) + n_tiles
+                          + 2, dtype=torch.int32, device=dev)
+    offsets = torch.empty(S + 1, dtype=torch.int64, device=dev)
+    ids_out = torch.empty_like(ids)
+    w_out = torch.empty_like(weights) if weights is not None else None
+    lib = _lib()
+    with torch.cuda.device(dev):           # launch in the tensor's context
+        rc = lib.embedding_bag_csr_prep(
+            seg.data_ptr(), int(seg.dtype == torch.int64), ids.data_ptr(),
+            int(ids.dtype == torch.int64),
+            weights.data_ptr() if weights is not None else None, nnz, S,
+            tile, n_tiles, scratch.data_ptr(), offsets.data_ptr(),
+            ids_out.data_ptr(),
+            w_out.data_ptr() if w_out is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, "embedding_bag CSR preparation")
+    return offsets, ids_out, w_out
+
+
+def _check_launch(table: Tensor, ids: Tensor, weights: Tensor | None,
+                  offsets: Tensor | None = None) -> None:
     build.refuse_autograd("embedding_bag", table, weights)
     if table.dtype != torch.float32 or (
             weights is not None and weights.dtype != torch.float32):
@@ -118,6 +192,12 @@ def _launch(variant: str, table: Tensor, ids: Tensor,
         if t is not None and t.device != table.device:
             raise ValueError(f"embedding_bag: {name} on {t.device}, table "
                              f"on {table.device}")
+
+
+def _launch(variant: str, table: Tensor, ids: Tensor,
+            offsets: Tensor | None, weights: Tensor | None, S: int,
+            H: int, combiner: str) -> Tensor:
+    _check_launch(table, ids, weights, offsets)
     V, D = table.shape
     out = torch.empty((S, D), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
@@ -165,16 +245,13 @@ def embedding_bag(table: Tensor, ids: Tensor, segment_ids: Tensor,
         return embedding_bag_plain(table, ids, segment_ids, num_segments,
                                    combiner, weights)
     S = int(num_segments)
-    # ids of dropped segments sort past the last bag: they sit beyond
+    if S * table.shape[1] == 0:           # nothing to prepare or launch
+        return _launch("csr", table, ids, None, weights, S, 0, combiner)
+    _check_launch(table, ids, weights)
+    # ids of dropped segments land past the last bag: they sit beyond
     # offsets[S] and the kernel never reads them
-    seg = torch.where((segment_ids >= 0) & (segment_ids < S),
-                      segment_ids.long(), S)
-    seg_sorted, order = torch.sort(seg, stable=True)
-    offsets = torch.searchsorted(
-        seg_sorted, torch.arange(S + 1, device=seg.device))
-    return _launch("csr", table, ids[order], offsets,
-                   weights[order] if weights is not None else None, S,
-                   0, combiner)
+    offsets, ids_bag, w_bag = csr_prep(segment_ids, ids, weights, S)
+    return _launch("csr", table, ids_bag, offsets, w_bag, S, 0, combiner)
 
 
 def embedding_bag_fixed(table: Tensor, ids: Tensor, combiner: str = "sum",

@@ -347,6 +347,30 @@ def test_dot_interaction_kernel_refuses_what_it_cannot_take(cuda):
         di.dot_interaction(torch.zeros(2, 64, 1024, device=cuda))
 
 
+@pytest.mark.parametrize("B", [1, 64, 256])
+@pytest.mark.parametrize("keep_self", [False, True])
+@pytest.mark.parametrize("shape", ["ragged_d", "shifted_view", "aligned"])
+def test_dot_interaction_copy_routes(cuda, shape, keep_self, B):
+    """The 4-byte cp.async instance (D = 33; a view starting 4 bytes past
+    16-byte alignment) and the TMA instance hold the plain version, and a
+    row's bits do not depend on the route."""
+    g = _gen(cuda, B)
+    if shape == "ragged_d":
+        x = _randn(g, B, 7, 33)
+    else:
+        flat = _randn(g, B * 27 * 128 + 1)
+        x = (flat[1:] if shape == "shifted_view" else flat[:-1]).view(
+            B, 27, 128)
+    want = {"ragged_d": "cp.async", "shifted_view": "cp.async",
+            "aligned": "tma"}[shape]
+    assert di.copy_route(x) == want
+    got = di.dot_interaction(x, keep_self)
+    torch.testing.assert_close(got, di.dot_interaction_plain(x, keep_self),
+                               **TOL)
+    if shape == "shifted_view":
+        assert torch.equal(got, di.dot_interaction(x.clone(), keep_self))
+
+
 def _requests(graph, pools, seed):
     rng = np.random.default_rng(seed)
     vocab = {n.inputs[0]: n.attrs["vocab"] for n in graph.nodes.values()
@@ -673,6 +697,69 @@ def test_embedding_bag_kernel_rows_and_refusals(cuda):
     assert eb.LAUNCHES == {"csr": 2, "fixed": 1}
     for x in (a, c):
         torch.testing.assert_close(x, b, **TOL)
+
+
+def _csr_old_prep(table, ids, segs, S, combiner, w):
+    """The sort-based preparation (csr_prep_plain) feeding the same bag
+    kernel: what the counting sort replaced."""
+    order, offsets = eb.csr_prep_plain(segs, S)
+    return eb.ops._launch("csr", table, ids[order], offsets,
+                          w[order] if w is not None else None, S, 0,
+                          combiner)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("seg_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "dropped_empty"])
+@pytest.mark.parametrize("S,nnz", [(4096, 409_600), (300, 2000),
+                                   (100_000, 300_000), (1, 50)])
+def test_embedding_bag_csr_bitwise_old_preparation(cuda, S, nnz, order,
+                                                   seg_dtype, combiner):
+    """The counting sort puts each bag's ids in input order, as the stable
+    sort did, so the CSR entry equals the old preparation feeding the same
+    bag kernel bit for bit, with and without weights."""
+    g = _gen(cuda, S + nnz)
+    table = _randn(g, 3000, 64)
+    ids = torch.randint(-2, 3002, (nnz,), generator=g, device=cuda)
+    if order == "sorted":
+        segs = torch.randint(0, S, (nnz,), generator=g, device=cuda).sort()[0]
+    elif order == "shuffled":
+        segs = torch.randint(0, S, (nnz,), generator=g, device=cuda)
+    else:                                  # out of range, every other bag
+        segs = 2 * torch.randint(-1, (S + 3) // 2, (nnz,), generator=g,
+                                 device=cuda)
+    segs = segs.to(seg_dtype)
+    w = torch.rand(nnz, generator=g, device=cuda)
+    for weights in (None, w):
+        got = eb.embedding_bag(table, ids, segs, S, combiner, weights)
+        assert torch.equal(got, _csr_old_prep(table, ids, segs, S, combiner,
+                                              weights))
+        assert torch.equal(got, eb.embedding_bag(table, ids, segs, S,
+                                                 combiner, weights))
+
+
+def test_kernel_wrappers_do_not_synchronise(cuda):
+    """Neither the CSR entry (its counting sort included) nor the
+    dot_interaction wrapper makes a host synchronisation."""
+    g = _gen(cuda, 5)
+    table = _randn(g, 500, 32)
+    ids = torch.randint(0, 500, (3000,), generator=g, device=cuda)
+    segs = torch.randint(-1, 70, (3000,), generator=g, device=cuda)
+    w = torch.rand(3000, generator=g, device=cuda)
+    x, xr = _randn(g, 300, 27, 128), _randn(g, 130, 7, 33)
+    eb.embedding_bag(table, ids, segs, 64, "mean", w)      # built, loaded
+    di.dot_interaction(x)
+    di.dot_interaction(xr)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eb.embedding_bag(table, ids, segs, 64, "mean", w)
+        eb.embedding_bag(table, ids.int(), segs.int(), 64)
+        di.dot_interaction(x)
+        di.dot_interaction(xr, keep_self=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_executor_routes_pooled_embedding_to_kernel(cuda):
