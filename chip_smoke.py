@@ -45,8 +45,8 @@
    through the kernels: the whole DIN attention unit is ``din_attention``)
    against ``use_pallas=False`` executors, with per-task AUC; then times
    each paradigm and one training step. Last, the paper model at full
-   width single-call in VanI / UOI / MaRI at B = 2048 (the reference's
-   ``bench_table1``), timed and printed.
+   width single-call in VanI / UOI / MaRI at B = 2048, compiled as the
+   reference's ``bench_table1`` and eager, timed and printed.
 6. Multi-hot DLRM (``build_dlrm``'s topology at its published widths, the
    26 tables at ``scale_tables=0.1``, sparse fields multi-hot with MLPerf
    DLRM-DCNv2's hotness, pooled with ``pool="sum"``: 8 bags per
@@ -61,8 +61,23 @@
    retries; (c) hedging on the ``paper`` preset with kernels; (d, inside
    phases 2 and 3) device-resident twins of the paper and DIN engines.
 
+Every stage runs compiled, as the reference's ``jax.jit``: the engines'
+stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
+and the single calls (``CompiledRun`` over ``Executor(g, mode).run``) are
+replays of captured CUDA graphs. Per path the run prints max |Δ| of the
+compiled scores against the same engine's stage bodies run eagerly on the
+card and against ``use_pallas=False``; the graphs built (stage-2 graphs
+held equal to the distinct (rows, bucket, route) signatures served, and a
+repeated warm pass held to capture nothing) and the memory their captures
+reserved; ``dispatch`` ms per pack compiled and eager; and one pass traced
+into ``build/chip_smoke_traces/<path>.json`` (written, reloaded, its B/E
+pairs and events checked). The single calls print compiled and eager
+p50 / device / host side by side and the MaRI / UOI ratio beside the
+paper's 1.32x.
+
 Kernel launch counts are zeroed just before each run of a path and read
-just after it, the readings summed per path: the paper and DIN ``tpu``
+just after it (a replay counts the launches its graph holds), the
+readings summed per path: the paper and DIN ``tpu``
 engines, their device-resident twins, the phase-4 service, that service
 under the preset's default hedging, train + convert, the paper's single
 call, and in phase 6 the device-tier service, its re-stacking twin, the
@@ -169,7 +184,10 @@ def main() -> int:
                                            build_dlrm, pad_vocab)
     from repro_torch.serve import (RankingService, ServePlan, ServeRequest,
                                    ServingEngine)
+    from repro_torch.serve.engine import _CAND, _TABLE, _UIDX
     from repro_torch.serve.hedging import HedgePolicy
+    from repro_torch.graph.compiled import CompiledRun
+    from repro_torch.obs import Tracer, write_trace
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -807,7 +825,18 @@ def main() -> int:
                 t = time.perf_counter()
                 co = eng.score_coalesced(reqs)           # users now cached
                 co_ms = (time.perf_counter() - t) * 1e3
+                cold_prof = eng.profiler.snapshot(reset=True)
                 warm = [eng.score(r) for r in reqs]
+            built = graph_stats(eng)
+            d_eager, eager_dispatch = 0.0, []
+            for r, p in zip(reqs, per):
+                e, ts = eager_scores(eng, r)
+                eager_dispatch += ts
+                if not close(p.scores, e):
+                    raise AssertionError(
+                        f"{tag}/{name}: compiled vs eager "
+                        f"{np.abs(p.scores - e).max():.3e}")
+                d_eager = max(d_eager, float(np.abs(p.scores - e).max()))
             d_ref = d_co = 0.0
             for r, p, c, o in zip(reqs, per, co, ref):
                 n = next(iter(r.candidate_feeds.values())).shape[0]
@@ -828,16 +857,31 @@ def main() -> int:
                     window = device_window(eng, reqs)
             except Exception as e:       # a profiler failure is no smoke fail
                 window = f"not measured: {type(e).__name__}: {e}"
+            with counting("paper+din"):
+                trace = traced(f"{tag}_{name}", {tag: eng},
+                               lambda: eng.score_coalesced(reqs))
+            check_graphs(f"{tag}/{name}", eng)
+            if graph_stats(eng) != built:      # warm passes capture nothing
+                raise AssertionError(f"{tag}/{name}: a warm pass captured: "
+                                     f"{built} -> {graph_stats(eng)}")
             log(tag, plan=name, pools=[r.scores.shape[0] for r in per],
                 max_abs_kernel_vs_plain=d_ref,
+                max_abs_compiled_vs_eager=d_eager,
                 max_abs_per_vs_coalesced=d_co,
                 cold_latency_ms=[r.latency_ms for r in per],
                 cold_stage1_ms=[r.stage1_ms for r in per],
                 warm_latency_ms=[r.latency_ms for r in warm],
                 coalesced_ms=co_ms, stage2_calls=eng.stage2_calls,
                 coalesced_calls=eng.coalesced_calls,
+                dispatch_ms_per_pack=dict(
+                    compiled=prof["dispatch"]["mean_us"] / 1e3,
+                    eager=float(np.mean(eager_dispatch)) * 1e3,
+                    replay_alone=replay_host_us(eng) / 1e3),
+                graphs=built,
+                profile_cold={k: v for k, v in cold_prof.items()
+                              if v["calls"]},
                 profile={k: v for k, v in prof.items() if v["calls"]},
-                device_window=window)
+                device_window=window, trace=trace)
             if name == "tpu":
                 device_twin(tag, graph, params, plan, reqs, per)
             del eng
@@ -860,7 +904,9 @@ def main() -> int:
                     raise AssertionError(
                         f"{tag}/device twin: {np.abs(got - w.scores).max()}")
                 d = max(d, float(np.abs(got - w.scores).max()))
+        check_graphs(f"{tag}/device twin", twin)
         log(f"{tag}_device_twin", max_abs_vs_tpu=d,
+            graphs=graph_stats(twin),
             store=twin.device_store.stats(),
             warm_latency_ms=[r.latency_ms for r in per],
             coalesced_latency_ms=co[0].latency_ms,
@@ -903,6 +949,116 @@ def main() -> int:
         host["prepares"] += sum(mm.PREPARES.values())
         host["stride_copies"] += sum(mm.STRIDE_COPIES.values())
 
+    def eager_scores(eng, req):
+        """The engine's own stage bodies run eagerly on the card (what its
+        graphs capture), one request at U = 1, padded to the engine's
+        buckets: (scores, host seconds per stage-2 enqueue). The oracle of
+        compiled against eager, and the eager ``dispatch`` per pack."""
+        times, out = [], []
+        with torch.inference_mode():
+            if eng.two_stage:
+                reps = eng._stage1.run(eng.params, {
+                    k: torch.as_tensor(np.asarray(v), device=dev)
+                    for k, v in req.user_feeds.items()
+                    if k in eng._stage1_inputs})
+            else:
+                reps = {k: torch.as_tensor(np.asarray(v), device=dev)
+                        for k, v in req.user_feeds.items()}
+            n = next(iter(req.candidate_feeds.values())).shape[0]
+            for lo in range(0, n, eng.max_batch):
+                hi = min(lo + eng.max_batch, n)
+                b = eng._bucket(hi - lo)
+                feeds = {_TABLE + k: v for k, v in reps.items()}
+                for k, v in req.candidate_feeds.items():
+                    c = np.asarray(v[lo:hi])
+                    c = np.concatenate([c, np.repeat(c[-1:], b - len(c), 0)])
+                    feeds[_CAND + k] = torch.as_tensor(c, device=dev)
+                feeds[_UIDX] = torch.zeros(b, dtype=torch.int32, device=dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                o = eng._stage2_body(eng.params, feeds)
+                times.append(time.perf_counter() - t)
+                out.append(torch.cat([o[k] for k in eng.outputs],
+                                     -1)[:hi - lo])
+        return torch.cat(out).cpu().numpy(), times
+
+    def graph_stats(eng):
+        """The engine's compiled graphs: stage-2 graphs against the
+        (rows, bucket) shapes and (rows, bucket, route) signatures it
+        served, stage-1 graphs, and the memory their captures reserved."""
+        return dict(stage2_compilations=eng.stage2_compilations,
+                    stage2_shapes=eng.stage2_shapes,
+                    stage2_routes=eng.stage2_routes,
+                    stage1_compilations=eng.stage1_compilations,
+                    captures=eng.graph_pool.captures,
+                    graph_reserved_mb=eng.graph_pool.reserved_bytes / 1e6)
+
+    def replay_host_us(eng):
+        """Host µs of one ``replay()`` alone (no copy-in, no copy-out) of
+        the engine's largest stage-2 graph: the floor of a compiled
+        ``dispatch``."""
+        entries = list(eng._stage2_run._entries.values())
+        big = max(entries, key=lambda e: sum(t.numel()
+                                              for t in e.static.values()))
+        with eng.graph_pool.lock:
+            return host_us(big.graph.replay, n=20)
+
+    def check_graphs(tag, eng):
+        if eng.stage2_compilations != eng.stage2_routes:
+            raise AssertionError(
+                f"{tag}: {eng.stage2_compilations} stage-2 graphs for "
+                f"{eng.stage2_routes} distinct (rows, bucket, route)")
+
+    TRACE_DIR = os.path.join(ROOT, "build", "chip_smoke_traces")
+
+    def traced(tag, engines, fn, need=("group", "pack", "dispatch",
+                                       "begin_coalesced", "collect")):
+        """One more pass of ``fn`` with a tracer on each engine (and the
+        batchers over them): writes ``<tag>.json``, reloads it, checks
+        every B/E pair and the ``need`` events, and returns a summary with
+        each span's mean µs."""
+        tracers = {name: Tracer() for name in engines}
+        for name, e in engines.items():
+            e.set_tracer(tracers[name])
+        try:
+            fn()
+        finally:
+            for e in engines.values():
+                e.set_tracer(None)
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        path = os.path.join(TRACE_DIR, f"{tag}.json")
+        payload = write_trace(path, tracers)
+        with open(path) as f:
+            back = json.load(f)
+        evs = back["traceEvents"]
+        if len(evs) != len(payload["traceEvents"]):
+            raise AssertionError(f"trace {tag}: reload lost events")
+        depth = {}
+        for e in evs:
+            key = (e["pid"], e["tid"])
+            if e["ph"] == "B":
+                depth[key] = depth.get(key, 0) + 1
+            elif e["ph"] == "E":
+                depth[key] = depth.get(key, 0) - 1
+                if depth[key] < 0:
+                    raise AssertionError(f"trace {tag}: E before its B")
+        names = {}
+        spans = {}
+        for e in evs:
+            if e["ph"] == "M":
+                continue
+            names[e["name"]] = names.get(e["name"], 0) + 1
+            if e["ph"] == "X":
+                spans.setdefault(e["name"], []).append(e["dur"])
+        missing = [n for n in need if n not in names]
+        if missing or any(depth.values()):
+            raise AssertionError(f"trace {tag}: missing {missing}, "
+                                 f"open spans {depth}")
+        return dict(file=os.path.relpath(path, ROOT), events=len(evs),
+                    names=names,
+                    span_mean_us={k: float(np.mean(v))
+                                  for k, v in spans.items()})
+
     def serve_phase() -> None:
         """Phase 4: the service's passes count as path ``service``; then the
         preset's default hedging beside ``hedging=False`` (path
@@ -939,20 +1095,32 @@ def main() -> int:
                  for sc, req in items]
         passes = (("first", items), ("cold_users", again),
                   ("warm_users", again))
-        out = {}
+        out, built, pass_prof = {}, {}, {}
         for name, stream in passes:
+            if name == "warm_users":
+                built = {sc: graph_stats(svc.engine(sc)) for sc in SERVED}
             with counting("service"):
                 t = time.perf_counter()
                 out[name] = svc.score_many(stream)
                 stream_ms = (time.perf_counter() - t) * 1e3
+            pass_prof[name] = {sc: {k: v for k, v in svc.engine(sc)
+                                    .profiler.snapshot(reset=True).items()
+                                    if v["calls"]} for sc in SERVED}
             log("service_pass", name=name, stream_ms=stream_ms,
                 requests=len(stream), latency_ms={
                     sc: [r.latency_ms for (s, _), r in zip(stream,
                                                            out[name])
                          if s == sc] for sc in SERVED},
-                profile={sc: {k: v for k, v in svc.engine(sc).profiler
-                              .snapshot(reset=True).items() if v["calls"]}
-                         for sc in SERVED})
+                profile=pass_prof[name])
+        # the repeated warm pass captured nothing; three batcher threads
+        # captured and replayed their engines' graphs
+        for sc in SERVED:
+            eng = svc.engine(sc)
+            check_graphs(f"service/{sc}", eng)
+            if graph_stats(eng) != built[sc]:
+                raise AssertionError(f"service/{sc}: the warm pass "
+                                     f"captured: {built[sc]} -> "
+                                     f"{graph_stats(eng)}")
         results = out["first"]
         for name in ("cold_users", "warm_users"):
             for (sc, _), r, r0 in zip(items, out[name], results):
@@ -970,10 +1138,18 @@ def main() -> int:
                           .snapshot(reset=True).items() if v["calls"]}
                      for sc in SERVED})
 
-        d_ref, d_per = {}, {}
+        d_ref, d_per, d_eager, eager_dispatch = {}, {}, {}, {}
         for (sc, req), res, p in zip(items, results, per):
             n = next(iter(req.candidate_feeds.values())).shape[0]
             want = oracle[sc].score(req).scores
+            e, ts = eager_scores(svc.engine(sc), req)
+            eager_dispatch.setdefault(sc, []).extend(ts)
+            if not close(res.scores, e):
+                raise AssertionError(
+                    f"service/{sc}: compiled vs eager "
+                    f"{np.abs(res.scores - e).max():.3e}")
+            d_eager[sc] = max(d_eager.get(sc, 0.0),
+                              float(np.abs(res.scores - e).max()))
             for s in (res.scores, p.scores):
                 if s.shape != (n, 1) or not np.isfinite(s).all():
                     raise AssertionError(
@@ -993,10 +1169,26 @@ def main() -> int:
             window = device_window(svc.engine("dlrm-mlperf"), dlrm_reqs)
         except Exception as e:          # a profiler failure is no smoke fail
             window = f"not measured: {type(e).__name__}: {e}"
+        # one traced pass of the stream (warm users), every scenario's
+        # engine and batcher into one file
+        with counting("service"):
+            trace = traced("service", {sc: svc.engine(sc) for sc in SERVED},
+                           lambda: svc.score_many(again),
+                           need=("submit", "queue_claim", "group_launch",
+                                 "resolve", "group", "pack", "dispatch",
+                                 "collect", "cache_hit"))
+        log("service_trace", **trace)
         for sc in SERVED:
             s = stats["scenarios"][sc]
             log("service", scenario=sc, pools=list(POOLS),
                 max_abs_kernel_vs_plain=d_ref[sc],
+                max_abs_compiled_vs_eager=d_eager[sc],
+                dispatch_ms_per_pack=dict(
+                    compiled=pass_prof["warm_users"][sc]["dispatch"]
+                    ["mean_us"] / 1e3,
+                    eager=float(np.mean(eager_dispatch[sc])) * 1e3,
+                    replay_alone=replay_host_us(svc.engine(sc)) / 1e3),
+                graphs=graph_stats(svc.engine(sc)),
                 max_abs_per_request_vs_batcher=d_per[sc],
                 requests=s["requests"],
                 batches=s["batches"],
@@ -1085,20 +1277,47 @@ def main() -> int:
         log("service_default_hedging", scenario="dlrm-mlperf",
             pools=list(POOLS), max_abs_vs_first_pass=d, **rec)
 
-    def single_call(graph, runs, feeds):
-        """Score one request single-call through each (name, graph,
-        params, mode, use_pallas) run; returns name -> (B, tasks) scores."""
+    def make_calls(runs):
+        """name -> (params, compiled call, eager call) per (name, graph,
+        params, mode, use_pallas) run: the compiled call is ``CompiledRun``
+        over ``Executor(g, mode).run`` (the reference's ``jax.jit(
+        Executor(g, mode).run)``), the eager one the executor itself."""
         out = {}
-        with torch.inference_mode():
-            for name, g, p, mode, pallas in runs:
-                o = Executor(g, mode, use_pallas=pallas, device=dev).run(
-                    p, feeds)
-                out[name] = torch.cat([o[k] for k in graph.outputs], -1)
+        for name, g, p, mode, pallas in runs:
+            ex = Executor(g, mode, use_pallas=pallas, device=dev)
+
+            def eager(p_, f_, ex=ex):
+                with torch.inference_mode():
+                    return ex.run(p_, f_)
+            out[name] = (p, CompiledRun(ex.run, device=dev), eager)
+        return out
+
+    def single_call(outputs, calls, feeds, which=1):
+        """Score one request single-call through each run, compiled
+        (``which=1``) or eager (2); returns name -> (B, tasks) scores."""
+        out = {}
+        for name, c in calls.items():
+            o = c[which](c[0], feeds)
+            out[name] = torch.cat([o[k] for k in outputs], -1)
         torch.cuda.synchronize()
         return out
 
+    def compiled_vs_eager(outputs, calls, feeds, compiled):
+        """max |Δ| of each run's compiled scores against its eager ones."""
+        eager = single_call(outputs, calls, feeds, which=2)
+        d = {k: float((compiled[k] - eager[k]).abs().max()) for k in calls}
+        for k, v in d.items():
+            a, b = compiled[k].cpu().numpy(), eager[k].cpu().numpy()
+            if not close(a, b):
+                raise AssertionError(f"single call {k}: compiled vs eager "
+                                     f"{v:.3e}")
+        return d
+
     def device_ms_per_call(fn, n=5):
-        """Device busy ms per call (kernel self time, torch.profiler)."""
+        """Device busy ms per call (kernel self time, torch.profiler);
+        "not measured" when the profiler recorded no device time (it does
+        not always see the kernels of a graph replay: device_span_ms, from
+        CUDA events, stands beside it)."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1106,30 +1325,44 @@ def main() -> int:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")) / n / 1e3
+        return busy if busy else "not measured: no device time recorded"
 
-    def time_calls(runs, feeds):
-        """timeit (3 warm-up, 20 timed calls, synchronised) per run; and
-        what a call costs the device (profiled) and the host (one call
-        enqueued behind a device sleep, so the device never stalls it)."""
+    def time_calls(calls, feeds):
+        """Per run, compiled and eager side by side: timeit (3 warm-up, 20
+        timed calls, synchronised) p50 / mean / p99; what a call costs the
+        device (profiled kernel busy time, and CUDA-event ms of 5 calls
+        queued behind a device sleep) and the host (one call enqueued
+        behind a device sleep)."""
         t = {}
-        with torch.inference_mode():
-            for name, g, p, mode, pallas in runs:
-                ex = Executor(g, mode, use_pallas=pallas, device=dev)
-                r = timeit(lambda: ex.run(p, feeds), warmup=3, iters=20)
-                t[name] = dict(p50_ms=r["p50_us"] / 1e3,
-                               mean_ms=r["mean_us"] / 1e3,
-                               p99_ms=r["p99_us"] / 1e3)
-                t[name]["host_ms"] = host_us(lambda: ex.run(p, feeds),
-                                             n=1) / 1e3
+        for name, (p, comp, eager) in calls.items():
+            t[name] = {}
+            for label, fn in (("compiled", comp), ("eager", eager)):
+                def call(fn=fn):
+                    return fn(p, feeds)
+                r = timeit(call, warmup=3, iters=20)
+                d = dict(p50_ms=r["p50_us"] / 1e3, mean_ms=r["mean_us"] / 1e3,
+                         p99_ms=r["p99_us"] / 1e3,
+                         host_ms=host_us(call, n=1) / 1e3,
+                         device_span_ms=time_ms(call, iters=5))
                 try:
-                    t[name]["device_ms"] = device_ms_per_call(
-                        lambda: ex.run(p, feeds))
+                    d["device_ms"] = device_ms_per_call(call)
                 except Exception as e:  # a profiler failure is no smoke fail
-                    t[name]["device_ms"] = (f"not measured: "
-                                            f"{type(e).__name__}: {e}")
+                    d["device_ms"] = (f"not measured: {type(e).__name__}: "
+                                      f"{e}")
+                t[name][label] = d
         return t
+
+    def ratio(times, num, den):
+        """times[num] / times[den] per measure, compiled and eager."""
+        out = {}
+        for label in ("compiled", "eager"):
+            for k in ("p50_ms", "device_ms", "device_span_ms"):
+                a, b = times[num][label][k], times[den][label][k]
+                if isinstance(a, float) and isinstance(b, float) and b:
+                    out[f"{label}_{k}"] = a / b
+        return out
 
     def train_convert_phase() -> None:
         """Phase 5 (path ``train+convert``)."""
@@ -1212,7 +1445,9 @@ def main() -> int:
                 ("uoi", graph, params, "uoi", True),
                 ("mari_plain", mg, mp, "uoi", False),
                 ("mari", mg, mp, "uoi", True)]
-        scores = single_call(graph, runs, feeds)
+        calls = make_calls(runs)
+        scores = single_call(outputs, calls, feeds)
+        d_eager = compiled_vs_eager(outputs, calls, feeds, scores)
         with torch.inference_mode():
             tl = Executor(graph, "uoi", device=dev).run(teacher, feeds)
             tl = torch.cat([tl[o] for o in outputs], -1)
@@ -1233,16 +1468,21 @@ def main() -> int:
                 for t in range(len(outputs))]
         if not all(abs(a - b) <= AUC_TOL for a, b in aucs):
             raise AssertionError(f"AUC moved with the conversion: {aucs}")
-        times = time_calls(runs, feeds)
+        times = time_calls(calls, feeds)
         log("single_call", model="din", candidates=SINGLE_CALL_B,
             rewrites=[r.dense for r in conv.rewrites],
             attn_rewrites=len(conv.attn_rewrites), max_abs=d,
+            max_abs_compiled_vs_eager=d_eager,
             auc_vani_mari=aucs, auc_delta=[abs(a - b) for a, b in aucs],
-            times=times)
+            times=times, uoi_over_mari=ratio(times, "uoi", "mari"),
+            graph_reserved_mb={k: c[1].pool.reserved_bytes / 1e6
+                               for k, c in calls.items()})
 
     def table1_phase() -> None:
-        """The paper model at full width single-call in VanI / UOI / MaRI
-        (the reference's bench_table1), timed and printed, not gated."""
+        """The paper model at full width single-call in VanI / UOI / MaRI,
+        compiled as the reference's bench_table1 (``jax.jit(Executor(g,
+        mode).run)``) and eager side by side, timed and printed, not
+        gated."""
         graph, _ = build_paper_ranking_model(PaperRankingConfig())
         params = init_graph_params(graph, seed=0, device=dev)
         mg, mp, conv = apply_mari(graph, params)
@@ -1254,15 +1494,22 @@ def main() -> int:
                 ("uoi", graph, params, "uoi", True),
                 ("mari_plain", mg, mp, "uoi", False),
                 ("mari", mg, mp, "uoi", True)]
-        scores = single_call(graph, runs, feeds)
-        times = time_calls(runs, feeds)
+        outputs = list(graph.outputs)
+        calls = make_calls(runs)
+        scores = single_call(outputs, calls, feeds)
+        d_eager = compiled_vs_eager(outputs, calls, feeds, scores)
+        times = time_calls(calls, feeds)
         log("table1", model="paper", candidates=SINGLE_CALL_B,
             rewrites=[r.dense for r in conv.rewrites],
             max_abs_vs_vani={k: float((v - scores["vani"]).abs().max())
                              for k, v in scores.items() if k != "vani"},
-            times=times, speedup_mari_vs_uoi=dict(
-                p50=times["uoi"]["p50_ms"] / times["mari"]["p50_ms"],
-                mean=times["uoi"]["mean_ms"] / times["mari"]["mean_ms"]),
+            max_abs_compiled_vs_eager=d_eager,
+            times=times,
+            # the paper's Table 1: MaRI 1.32x faster than UOI
+            speedup_mari_vs_uoi=dict(ratio(times, "uoi", "mari"),
+                                     paper_claim=1.32),
+            graph_reserved_mb={k: c[1].pool.reserved_bytes / 1e6
+                               for k, c in calls.items()},
             note="printed, not gated")
 
 
@@ -1393,11 +1640,38 @@ def main() -> int:
                             f"{np.abs(own - g.scores).max():.3e} vs own")
                     d_ref = max(d_ref, float(np.abs(g.scores - want).max()))
                     d_per = max(d_per, float(np.abs(own - g.scores).max()))
+            d_eager, eager_dispatch = 0.0, []
+            for r, g in zip(passes[-1][1], res[label][-1]):
+                e, ts = eager_scores(eng, r)
+                eager_dispatch += ts
+                if not close(g.scores, e):
+                    raise AssertionError(
+                        f"multihot/{label}: compiled vs eager "
+                        f"{np.abs(g.scores - e).max():.3e}")
+                d_eager = max(d_eager, float(np.abs(g.scores - e).max()))
+            check_graphs(f"multihot/{label}", eng)
             st = svc.stats()["scenarios"]["dlrm-multihot"]
             log("multihot_service", plan=label, passes=prof[label],
                 max_abs_vs_plain=d_ref, max_abs_vs_own_score=d_per,
+                max_abs_compiled_vs_eager=d_eager,
+                eager_dispatch_ms_per_pack=float(np.mean(eager_dispatch))
+                * 1e3, graphs=graph_stats(eng),
                 store=st["device_store"], pipeline_forks=st["pipeline_forks"],
                 hedging=st["hedging"])
+        # one traced pass of new users on the tier: slot writes, steals and
+        # the tier's row writes as instants beside the spans
+        tier_eng = svcs["device_tier"].engine("dlrm-multihot")
+        tr_reqs = requests(graph, (300,) * 12, seed=63)
+        for i, r in enumerate(tr_reqs):
+            r.user_id = 300 + i
+        with counting("multihot"):
+            trace = traced("multihot", {"dlrm-multihot": tier_eng},
+                           lambda: svcs["device_tier"].score_many(
+                               [("dlrm-multihot", r) for r in tr_reqs]),
+                           need=("group", "pack", "dispatch", "collect",
+                                 "submit", "slot_steal", "cache_miss"))
+        log("multihot_trace", **trace)
+        check_graphs("multihot/traced pass", tier_eng)
         # the passes themselves wrote, hit, stole and overflowed slots
         after = store.stats()
         moved = {k: after[k] - before[k] for k in ("writes", "hits",
@@ -1412,8 +1686,16 @@ def main() -> int:
         svc.register("dlrm-multihot-ft", graph=graph, params=params,
                      plan=fplan)
         freqs = stream(200, 3, seed=64)
+        feng = svc.engine("dlrm-multihot-ft")
         with counting("multihot_faults"):
-            fres = svc.score_many([("dlrm-multihot-ft", r) for r in freqs])
+            fres = []
+            ftrace = traced("multihot_faults", {"dlrm-multihot-ft": feng},
+                            lambda: fres.extend(svc.score_many(
+                                [("dlrm-multihot-ft", r) for r in freqs])),
+                            need=("fault_injected", "quarantine",
+                                  "corruption_detected", "retry",
+                                  "group", "pack", "collect"))
+        check_graphs("multihot/faults", feng)
         fst = svc.stats()["scenarios"]["dlrm-multihot-ft"]
         d_f = 0.0
         for r, g in zip(freqs, fres):
@@ -1425,7 +1707,8 @@ def main() -> int:
             faults_fired=fst["faults_fired"], quarantines=fst["quarantines"],
             corruptions_detected=fst["corruptions_detected"],
             retries_attempted=fst["retries_attempted"],
-            breaker=fst["breaker"], max_abs_vs_plain=d_f)
+            breaker=fst["breaker"], max_abs_vs_plain=d_f,
+            graphs=graph_stats(feng), trace=ftrace)
         if fst["faults_fired"] != 2 or fst["quarantines"] < 1:
             raise AssertionError(f"faults: {fst['faults_fired']} fired, "
                                  f"{fst['quarantines']} quarantines")
@@ -1459,7 +1742,9 @@ def main() -> int:
                     raise AssertionError("hedged scores differ")
                 d_h = max(d_h, float(np.abs(g.scores - w.scores).max()))
         hst = heng.ft_stats()
+        check_graphs("multihot/hedging", heng)
         log("multihot_hedging", hedges_launched=hst["hedges_launched"],
+            graphs=graph_stats(heng),
             hedge_wins=hst["hedge_wins"],
             hedged_per_request=[r.hedged for r in lat["hedged"][-1]],
             max_abs_vs_unhedged=d_h,
@@ -1493,9 +1778,11 @@ def main() -> int:
     eq7_params = mm.prepare_mari_params(conv.graph,
                                         convert_params(conv, params))
     with counting("paper+din"):
-        got = Executor(conv.graph, "uoi", use_pallas=True, device=dev).run(
+        got = CompiledRun(Executor(conv.graph, "uoi", use_pallas=True,
+                                   device=dev).run, device=dev)(
             eq7_params, feeds)
-    want = Executor(graph, "vani", device=dev).run(params, feeds)
+    with torch.inference_mode():
+        want = Executor(graph, "vani", device=dev).run(params, feeds)
     d_eq7 = max(float((got[o] - want[o]).abs().max()) for o in graph.outputs)
     if not all(close(got[o].cpu().numpy(), want[o].cpu().numpy())
                for o in graph.outputs):

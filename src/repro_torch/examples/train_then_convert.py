@@ -27,6 +27,7 @@ from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.common import resolve_device, timeit, tree_size
 from repro_torch.core.mari import apply_mari
 from repro_torch.data.features import make_recsys_feeds
+from repro_torch.graph.compiled import CompiledRun
 from repro_torch.graph.executor import Executor, init_graph_params
 from repro_torch.kernels.mari_matmul import prepare_mari_params
 from repro_torch.launch.train import recsys_step
@@ -105,7 +106,7 @@ def main(argv=None):
     mex = Executor(mari_graph, "uoi", use_pallas=args.use_pallas, device=dev)
     with torch.inference_mode():
         base = ex.run(params, feeds)
-        mout = mex.run(mari_params, sfeeds)
+    mout = CompiledRun(mex.run, device=dev)(mari_params, sfeeds)
     base_logits = torch.cat([base[o] for o in outputs], -1)
     mari_logits = torch.cat([mout[o] for o in outputs], -1)
     err = float((base_logits - mari_logits).abs().max())
@@ -130,9 +131,10 @@ def main(argv=None):
     times = {}
     for name, g, p in [("UOI (prod baseline)", graph, params),
                        ("MaRI", mari_graph, mari_params)]:
-        run = Executor(g, "uoi", use_pallas=args.use_pallas, device=dev).run
-        with torch.inference_mode():
-            t = timeit(lambda: run(p, bench), warmup=3, iters=20)
+        # compiled, as the reference's jax.jit(Executor(g, mode).run)
+        run = CompiledRun(Executor(g, "uoi", use_pallas=args.use_pallas,
+                                   device=dev).run, device=dev)
+        t = timeit(lambda: run(p, bench), warmup=3, iters=20)
         times[name] = t
         print(f"    {name:<20} {t['mean_us'] / 1e3:8.2f} ms "
               f"(p50 {t['p50_us'] / 1e3:.2f}, p99 {t['p99_us'] / 1e3:.2f} ms)")

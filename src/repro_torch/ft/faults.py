@@ -187,6 +187,11 @@ class FaultInjector:
         self.fired: dict[str, int] = {s: 0 for s in self._specs}
         self.total_fired = 0
 
+    def set_tracer(self, tracer) -> None:
+        """Attach (or, with None, detach) a ``Tracer`` for the
+        ``fault_injected`` instants."""
+        self._tracer = tracer
+
     # -- arming ---------------------------------------------------------
     @property
     def armed(self) -> bool:

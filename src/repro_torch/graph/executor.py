@@ -234,6 +234,7 @@ class Executor:
         self.device = resolve_device(device)
         self.use_pallas = use_pallas
         self.gather_attention = gather_attention
+        self._consts: dict = {}       # per-node constant tensors, by device
         self._user_inputs = {
             n.name for n in graph.input_nodes() if n.attrs.get("domain") == "user"
         }
@@ -428,8 +429,14 @@ class Executor:
                 return dot_interaction(ins[0], keep_self)
             return dot_interaction_plain(ins[0], keep_self)
         if op == "gather_last":
-            idx = torch.as_tensor(n.attrs["indices"], dtype=torch.int64,
-                                  device=ins[0].device)
+            # the index tensor is made once per device: a host-to-device
+            # copy inside a CUDA graph capture is not allowed
+            key = (n.name, ins[0].device)
+            idx = self._consts.get(key)
+            if idx is None:
+                idx = self._consts[key] = torch.as_tensor(
+                    n.attrs["indices"], dtype=torch.int64,
+                    device=ins[0].device)
             return torch.index_select(ins[0], -1, idx)
         if op == "stack_features":
             return torch.stack(_bcast_batch(ins), dim=-2)

@@ -18,6 +18,7 @@ the CPU machine has no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -109,11 +110,41 @@ def load(name: str, defines=()) -> ctypes.CDLL:
         return lib
 
 
+_recording = threading.local()
+
+
 def count_launch(launches: dict[str, int], key: str) -> None:
     """Add one to ``launches[key]``: the serving batchers launch kernels
-    from one worker thread per scenario, so the increment takes a lock."""
+    from one worker thread per scenario, so the increment takes a lock.
+    Inside ``recording_launches`` on this thread (a CUDA graph capture,
+    which runs nothing on the card) the launch is recorded instead."""
+    rec = getattr(_recording, "log", None)
+    if rec is not None:
+        rec.append((launches, key))
+        return
     with _count_lock:
         launches[key] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record, not count, this thread's ``count_launch`` calls inside the
+    block; yields the list of ``(counts dict, key)`` recorded, which
+    ``add_launches`` counts once per replay of what was captured."""
+    prev = getattr(_recording, "log", None)
+    _recording.log = log = []
+    try:
+        yield log
+    finally:
+        _recording.log = prev
+
+
+def add_launches(recorded) -> None:
+    """Count every ``(counts dict, key)`` of ``recorded`` once."""
+    if recorded:
+        with _count_lock:
+            for launches, key in recorded:
+                launches[key] += 1
 
 
 def refuse_autograd(what: str, *tensors) -> None:

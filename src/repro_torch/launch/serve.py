@@ -15,9 +15,15 @@ Multi-scenario (a ``RankingService`` routing an interleaved stream)::
 
 ``--smoke`` is on by default; ``--no-smoke`` builds the full-size
 registry models. ``--device`` defaults to ``cuda`` (the run fails without
-a card); ``--device cpu`` runs on the CPU, where the kernel wrappers take
-their plain PyTorch versions. The reference's ``--cold-tier`` and
-``--trace`` are not ported yet.
+a card): every stage then runs as replays of captured CUDA graphs.
+``--device cpu`` runs on the CPU, where the same static buffers run the
+stages eagerly and the kernel wrappers take their plain PyTorch versions.
+
+``--trace out.json`` turns on ``ObsPlan.trace`` for the run and writes a
+Chrome trace-event file (load it at https://ui.perfetto.dev): one process
+per scenario, the engine's group / stage1 / pack / dispatch / collect
+spans and the batcher's and caches' instants. The reference's
+``--cold-tier`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import numpy as np
 
 from repro_torch.data.features import make_recsys_feeds
 from repro_torch.graph.executor import init_graph_params
+from repro_torch.obs import write_trace
 from repro_torch.serve import (RankingService, ServePlan, ServeRequest,
                                ServingEngine)
 from repro_torch.serve.plan import MODES, PRESETS
@@ -55,6 +62,8 @@ def build_plan(args) -> ServePlan:
         over["kernel__use_pallas"] = args.use_pallas
     if args.continuous is not None:
         over["batch__continuous"] = args.continuous
+    if args.trace:
+        over["obs__trace"] = True
     return plan.evolve(**over) if over else plan
 
 
@@ -92,6 +101,12 @@ def serve_single(args, plan: ServePlan) -> None:
         lats.append(engine.score(req).latency_ms)
     _summary(f"arch={args.arch} mode={engine.mode}",
              lats[min(2, len(lats) - 1):])   # drop the first, cold calls
+    if args.trace and engine.tracer is not None:
+        write_trace(args.trace, {args.arch: engine.tracer})
+        print(f"[serve] wrote trace -> {args.trace} "
+              f"({len(engine.tracer)} events, "
+              f"{engine.tracer.dropped} dropped)")
+    engine.close()
 
 
 def serve_multi(args, plan: ServePlan, scenarios: list[str]) -> None:
@@ -123,6 +138,14 @@ def serve_multi(args, plan: ServePlan, scenarios: list[str]) -> None:
         print(f"[serve] shared_cache users={cache['users']} "
               f"hits={cache['hits']} misses={cache['misses']} "
               f"evictions={cache['evictions']}")
+        if args.trace:
+            tracers = {sc: svc.engine(sc).tracer for sc in svc.scenarios
+                       if svc.engine(sc).tracer is not None}
+            if tracers:
+                write_trace(args.trace, tracers)
+                n = sum(len(t) for t in tracers.values())
+                print(f"[serve] wrote trace -> {args.trace} "
+                      f"({n} events across {len(tracers)} scenarios)")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -168,6 +191,9 @@ def main(argv: list[str] | None = None) -> None:
                     action=argparse.BooleanOptionalAction, default=None,
                     help="continuous (two-phase overlapped) dispatch loop "
                          "in the scenario batchers")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="trace the run (ObsPlan.trace) and write a "
+                         "Perfetto-loadable Chrome trace-event JSON here")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu runs "
                          "the kernels' plain versions)")

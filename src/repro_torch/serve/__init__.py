@@ -28,6 +28,7 @@ from repro_torch.serve.errors import (  # noqa: F401
 from repro_torch.serve.hedging import HedgedRunner, HedgePolicy  # noqa: F401
 from repro_torch.serve.plan import (  # noqa: F401
     FaultPlan,
+    ObsPlan,
     PlanError,
     PlanResolutionWarning,
     ServePlan,

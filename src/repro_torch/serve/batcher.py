@@ -1,5 +1,8 @@
 """Async request queue that coalesces candidate chunks across users
-(port of ``repro.serve.batcher``; request tracing is not ported yet).
+(port of ``repro.serve.batcher``, with its request-tracing instants:
+``submit``, ``admission_shed``, ``admission_degrade``, ``queue_claim``,
+``group_launch``, ``resolve``, ``retry``, ``retry_exhausted``,
+``worker_crash``, ``worker_respawn``).
 
 At "millions of users" scale the compiled stage-2 buckets sit mostly idle
 if each request is served alone: every ragged pool pays its own padding and
@@ -199,10 +202,12 @@ class CoalescingBatcher:
         self.retries_exhausted = 0    # requests failed after all retries
         self.worker_crashes = 0       # dispatch-loop escapes caught
         self.worker_respawns = 0      # dispatch-loop restarts (same thread)
-        # queue wait and request latency are log-bucketed histograms:
+        # observability: the engine's tracer (``tracer`` below) and
+        # metrics registry (a private one when the engine has none). Queue
+        # wait and request latency are log-bucketed histograms:
         # Histogram.record is locked, so the worker's records and stats()
         # reads cannot race
-        self.metrics = MetricsRegistry()
+        self.metrics = getattr(engine, "metrics", None) or MetricsRegistry()
         self.queue_wait = self.metrics.histogram("queue_wait_ms")
         self.request_latency = self.metrics.histogram("request_latency_ms")
         for name in ("requests", "batches", "coalesced_requests",
@@ -214,6 +219,12 @@ class CoalescingBatcher:
             self.metrics.gauge(name, lambda n=name: getattr(self, n))
         if auto_start:
             self.start()
+
+    @property
+    def tracer(self):
+        """The engine's tracer, read per event (None when tracing is off),
+        so a tracer attached to the engine later traces the batcher too."""
+        return getattr(self.engine, "tracer", None)
 
     @property
     def queue_wait_ms(self) -> float:
@@ -299,6 +310,9 @@ class CoalescingBatcher:
             self.shed_deadline += 1
         else:
             self.shed_best_effort += 1
+        if self.tracer is not None:
+            self.tracer.instant("admission_shed", slo=slo,
+                                depth=self._queued, reason=reason)
         # claim-then-fail: the waiter sees the typed error immediately —
         # a shed future must never hang
         fut.set_running_or_notify_cancel()
@@ -369,11 +383,21 @@ class CoalescingBatcher:
                             req = slim
                             degraded = True
                             self.degraded_requests += 1
+                            if self.tracer is not None:
+                                self.tracer.instant(
+                                    "admission_degrade",
+                                    depth=self._queued, user=req.user_id)
             now = time.perf_counter()
             deadline_at = (now + deadline_ms / 1e3
                            if deadline_ms is not None else None)
             self._queued += 1
             seq = self._next_seq()
+            if self.tracer is not None and self.tracer.sampled(seq):
+                # req=seq is the request's trace identity: queue_claim /
+                # group_launch / resolve carry the same seq, and
+                # group_launch links it to the engine's group id
+                self.tracer.instant("submit", req=seq, slo=slo,
+                                    user=req.user_id, degraded=degraded)
             self._q.put(_Item(prio=_PRIO[slo], seq=seq,
                               req=req, fut=fut, deadline_at=deadline_at,
                               submitted_at=now, degraded=degraded))
@@ -417,6 +441,9 @@ class CoalescingBatcher:
                 return                # clean exit: stop set, queue drained
             except BaseException as e:
                 self.worker_crashes += 1
+                if self.tracer is not None:
+                    self.tracer.instant("worker_crash",
+                                        error=type(e).__name__)
                 self._on_worker_crash(e)
                 if self._stop.is_set():
                     # crash-looping during drain: give up after a few
@@ -426,6 +453,9 @@ class CoalescingBatcher:
                     if stop_crashes >= 3:
                         return
                 self.worker_respawns += 1
+                if self.tracer is not None:
+                    self.tracer.instant("worker_respawn",
+                                        respawns=self.worker_respawns)
 
     def _on_worker_crash(self, exc: BaseException) -> None:
         """Resolve everything the dead dispatch loop was holding."""
@@ -545,15 +575,24 @@ class CoalescingBatcher:
         # future can no longer be cancelled — so set_result below cannot
         # race a cancel and kill the worker with InvalidStateError
         now = time.perf_counter()
+        trc = self.tracer
         for it in group:
-            if it.submitted_at is not None:
-                self.queue_wait.record((now - it.submitted_at) * 1e3)
+            if it.submitted_at is None:
+                continue
+            wait_ms = (now - it.submitted_at) * 1e3
+            self.queue_wait.record(wait_ms)
+            if trc is not None and trc.sampled(it.seq):
+                trc.instant("queue_claim", req=it.seq,
+                            wait_ms=round(wait_ms, 3))
         claimed = [it for it in group
                    if it.fut.set_running_or_notify_cancel()]
         if not claimed:
             return
         reqs = [it.req for it in claimed]
         if not continuous:
+            if trc is not None:
+                trc.instant("group_launch",
+                            reqs=[it.seq for it in claimed])
             try:
                 results = self.engine.score_coalesced(reqs)
             except BaseException as e:      # propagate to every waiter
@@ -568,6 +607,12 @@ class CoalescingBatcher:
         except BaseException as e:
             self._fail_or_retry(claimed, e)
             return
+        if trc is not None:
+            # request -> group linkage: each member seq joins the engine
+            # group id the two-phase API assigned this launch
+            trc.instant("group_launch", group=getattr(handle, "gid", None),
+                        reqs=[it.seq for it in claimed],
+                        overlapped=overlapped)
         if overlapped and prof is not None:
             # host work done UNDER a still-executing previous group — the
             # time the continuous loop hides beneath device compute
@@ -620,6 +665,7 @@ class CoalescingBatcher:
         backoff that would overrun the deadline stops the retry loop.
         Resolves the future with a result or a typed ``RetryExhausted``
         carrying the last error as ``__cause__``."""
+        trc = self.tracer
         last = first_exc
         attempts = 0
         for attempt in range(self.retries):
@@ -632,6 +678,9 @@ class CoalescingBatcher:
                 time.sleep(delay_s)
             attempts += 1
             self.retries_attempted += 1
+            if trc is not None:
+                trc.instant("retry", req=it.seq, attempt=attempts,
+                            error=type(last).__name__)
             try:
                 res = self.engine.score_coalesced([it.req])[0]
             except (AdmissionError, BatcherClosedError) as e:
@@ -645,9 +694,14 @@ class CoalescingBatcher:
             if it.submitted_at is not None:
                 self.request_latency.record(
                     (time.perf_counter() - it.submitted_at) * 1e3)
+            if trc is not None and trc.sampled(it.seq):
+                trc.instant("resolve", req=it.seq, retried=attempts)
             it.fut.set_result(res)
             return
         self.retries_exhausted += 1
+        if trc is not None:
+            trc.instant("retry_exhausted", req=it.seq, attempts=attempts,
+                        error=type(last).__name__)
         err = RetryExhausted(
             f"request failed after {attempts} retry attempt(s): "
             f"{type(last).__name__}: {last}", attempts=attempts)
@@ -659,9 +713,12 @@ class CoalescingBatcher:
         if len(claimed) > 1:
             self.coalesced_requests += len(claimed)
         now = time.perf_counter()
+        trc = self.tracer
         for it, res in zip(claimed, results):
             if it.degraded:
                 res.degraded = True
             if it.submitted_at is not None:
                 self.request_latency.record((now - it.submitted_at) * 1e3)
+            if trc is not None and trc.sampled(it.seq):
+                trc.instant("resolve", req=it.seq)
             it.fut.set_result(res)

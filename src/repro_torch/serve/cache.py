@@ -34,9 +34,16 @@ Ordering replaces the reference's buffer donation: a row write is
 enqueued on the current CUDA stream of the calling thread, which is the
 engine's stream, the one its stage-2 launches run on. A stage-2 launch
 enqueued before a write therefore reads the row as it was, and one
-enqueued after reads the new row, with no copy and no wait. The
-reference's copy-on-write fork (``fork_next_write``) is kept, as a
-``clone()`` of the generation, for its contract and counters.
+enqueued after reads the new row, with no copy and no wait. So the
+reference's copy-on-write fork needs no copy here: ``fork_next_write``
+keeps its contract and counters (``forks`` counts the writes ordered
+behind in-flight launches), and the tables keep their address for their
+whole life — quarantine included — which the engine's captured stage-2
+graphs read by address. The row writes themselves run eagerly.
+
+With a tracer attached (``set_tracer``), the cache records ``cache_evict``
+instants and the store ``slot_steal``, ``slot_drop``, ``table_fork`` and
+``quarantine``, under the reference's names.
 """
 from __future__ import annotations
 
@@ -88,6 +95,12 @@ class UserRepCache:
         self.misses = 0
         self._listeners: list[Callable[[Hashable], None]] = []
         self._removal_listeners: list[Callable[..., None]] = []
+        self._tracer = None              # repro_torch.obs.Tracer
+
+    def set_tracer(self, tracer) -> None:
+        """Attach a ``Tracer``: every removal records a ``cache_evict``
+        instant (user, reason), emitted outside the cache lock."""
+        self._tracer = tracer
 
     def subscribe(self, on_remove: Callable[[Hashable], None]) -> None:
         """Register a callback fired with ``user_id`` whenever that user's
@@ -120,7 +133,10 @@ class UserRepCache:
         the snapshots taken inside the mutating acquisition (no second
         acquisition — rules out lock-order inversion against listener
         locks such as the cold-tier arena lock)."""
+        trc = self._tracer
         for uid, ver, reps, reason in removed:
+            if trc is not None:
+                trc.instant("cache_evict", user=uid, reason=reason)
             for cb in listeners:
                 cb(uid)
             for cb in removal_listeners:
@@ -231,9 +247,11 @@ class DeviceRepStore:
 
     Writes go on the calling thread's current CUDA stream: callers must
     enqueue them on the stream their stage-2 launches use (the engine
-    does both from its dispatching thread). ``fork_next_write`` makes the
-    next write land in a ``clone()`` of the tables instead, leaving the
-    generation that in-flight launches were handed untouched.
+    does both from its dispatching thread), so a launch enqueued before a
+    write reads the row as it was. The tables are allocated once and keep
+    their address: ``fork_next_write`` only counts the next write as one
+    ordered behind in-flight launches, and ``quarantine`` frees every slot
+    but keeps the allocation.
     """
 
     def __init__(self, capacity: int,
@@ -254,11 +272,18 @@ class DeviceRepStore:
         self.recycles = 0    # LRU slot steals (capacity pressure)
         self.drops = 0       # slots returned via drop()
         self.overflows = 0   # ensure_rows rows that could not get a slot
-        self.forks = 0       # copy-on-write generation forks (writes armed
-        #                      by fork_next_write under in-flight launches)
+        self.forks = 0       # writes armed by fork_next_write: ordered
+        #                      behind in-flight launches on the stream
         self.quarantines = 0  # generation invalidations (failed write or
         #                       detected corruption)
         self._injector = None  # repro_torch.ft.FaultInjector, when injecting
+        self._tracer = None    # repro_torch.obs.Tracer, when tracing
+
+    def set_tracer(self, tracer) -> None:
+        """Attach a ``Tracer`` for ``slot_steal`` / ``slot_drop`` /
+        ``table_fork`` / ``quarantine`` instants (emitted under the store
+        lock: the tracer's lock is a leaf)."""
+        self._tracer = tracer
 
     def set_fault_injector(self, injector) -> None:
         """Attach a ``FaultInjector``: row writes poke the ``slot_write``
@@ -343,13 +368,15 @@ class DeviceRepStore:
                     if self._tables is None:
                         self._alloc(reps)
                     if self._fork_pending:
-                        # copy-on-write: in-flight launches keep the
-                        # generation they were handed; this write and the
-                        # ones after it land in the fork
-                        self._tables = {k: t.clone()
-                                        for k, t in self._tables.items()}
+                        # the reference's copy-on-write fork: here the
+                        # write is enqueued behind the in-flight launches
+                        # on their stream, so they read the rows as they
+                        # were and no copy is needed
                         self._fork_pending = False
                         self.forks += 1
+                        if self._tracer is not None:
+                            self._tracer.instant("table_fork", user=user,
+                                                 slot=slot)
                     self._write(slot, reps)
                 except Exception:
                     # a failed alloc/write (e.g. a rep row violating the
@@ -370,6 +397,8 @@ class DeviceRepStore:
             if user not in protected:
                 _, slot = self._map.pop(user)
                 self.recycles += 1
+                if self._tracer is not None:
+                    self._tracer.instant("slot_steal", user=user, slot=slot)
                 return slot
         return None
 
@@ -383,36 +412,40 @@ class DeviceRepStore:
             if entry is not None:
                 self._free.append(entry[1])
                 self.drops += 1
+                if self._tracer is not None:
+                    self._tracer.instant("slot_drop", user=user,
+                                         slot=entry[1])
 
     def slot_of(self, user: Hashable) -> int | None:
         with self._lock:
             entry = self._map.get(user)
             return None if entry is None else entry[1]
 
-    def quarantine(self) -> None:
+    def quarantine(self, reason: str = "") -> None:
         """Invalidate the current table generation wholesale.
 
         After a failed write or detected corruption nothing in the
-        generation may be served again: the slot map clears, every slot
-        returns to the free list, and the tables drop — they rebuild
-        lazily from the host LRU on the next ``ensure_rows`` (one row
-        write per user, like a cold start). The host tier is untouched:
-        quarantine costs re-writes, never re-computes. Launches already
-        enqueued on the stream finish before the freed memory is reused
-        (the caching allocator is stream-ordered)."""
+        generation may be served again: the slot map clears and every
+        slot returns to the free list, so no row of it is referenced
+        again; the rows rebuild lazily from the host LRU on the next
+        ``ensure_rows`` (one row write per user, like a cold start). The
+        allocation is kept, so graphs captured over the tables stay
+        valid. The host tier is untouched: quarantine costs re-writes,
+        never re-computes."""
         with self._lock:
             self._map.clear()
             self._free = list(range(self.capacity - 1, -1, -1))
-            self._tables = None
             self._fork_pending = False
             self.quarantines += 1
+            if self._tracer is not None:
+                self._tracer.instant("quarantine", reason=reason[:120])
 
     def fork_next_write(self) -> None:
-        """Arm copy-on-write for the NEXT row write: it lands in a
-        ``clone()`` of the tables and leaves the generation in-flight
-        launches were handed untouched. Later writes of the same
-        resolution write the fork in place. Disarm with
-        ``clear_fork_mark`` if the anticipated write never happens."""
+        """Arm the reference's copy-on-write fork for the NEXT row write:
+        it is counted in ``forks`` (and traced as ``table_fork``) as a
+        write ordered behind in-flight launches, which stream order alone
+        keeps from seeing it. Disarm with ``clear_fork_mark`` if the
+        anticipated write never happens."""
         with self._lock:
             self._fork_pending = True
 
@@ -431,8 +464,8 @@ class DeviceRepStore:
     @property
     def tables(self) -> dict[str, torch.Tensor] | None:
         """The live per-boundary ``(capacity, ...)`` tables (None until the
-        first write). Read-only for callers; a later ``ensure_rows`` may
-        replace the dict (fork, quarantine)."""
+        first write; then allocated once, at a fixed address). Read-only
+        for callers."""
         return self._tables
 
     def __len__(self) -> int:

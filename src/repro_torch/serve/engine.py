@@ -1,8 +1,8 @@
 """Per-request orchestration for two-stage serving (port of
 ``repro.serve.engine``: graph, split, cache, bucketing, coalescing, the
-two-phase dispatch, the device-resident rep tier, hedging, fault injection,
-quarantine and the circuit breaker; sharding, tracing and the memory tier
-are not ported yet).
+two-phase dispatch, compiled stages, the device-resident rep tier,
+hedging, fault injection, quarantine, the circuit breaker and request
+tracing; sharding and the memory tier are not ported yet).
 
 ``ServingEngine`` rewrites a ranking graph per its ``ServePlan``, splits it
 into the two stages of ``repro_torch.core.split`` and scores candidate
@@ -26,15 +26,34 @@ Numerics: the engine sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False — the reference is fp32 and
 TF32 keeps only ~3 decimal digits.
 
+Compiled stages (the reference's ``jax.jit``): stage 1 and stage 2 run
+through ``repro_torch.graph.compiled.CompiledRun`` — on CUDA one captured
+``torch.cuda.CUDAGraph`` per signature, replayed; on the CPU the same
+static buffers with the body run eagerly. Stage 2 has one graph per
+(rep-table rows, bucket) shape and table route: a re-stacked pack copies
+its users' rows into the graph's static table (``torch.cat(...,
+out=...)``), a device-tier pack reads the persistent tables in place.
+``stage2_compilations`` counts the graphs (the reference's name and
+contract), ``stage2_shapes`` the (rows, bucket) shapes. All graphs of an
+engine share one memory pool (``GraphPool``).
+
 Dispatch: ``begin_coalesced`` runs stage 1, packs chunks into pow2 buckets
 and enqueues every pack on the current CUDA stream without waiting, then
 records a ``torch.cuda.Event`` per pack; ``poll`` queries those events and
 ``collect`` waits on them, copies scores to the host and slices
 per-request results. ``score_coalesced`` is ``collect(begin_coalesced())``
 and ``score`` is its one-request case. Candidate rows are filled into
-pinned host buffers PRIVATE to each pack and copied ``non_blocking``: the
-copy runs later on the stream, so a buffer shared between packs could be
-refilled by the next pack before its pending copy has read it.
+pinned host buffers PRIVATE to each pack and copied ``non_blocking`` into
+the graph's static inputs at dispatch: the copy runs later on the stream,
+so a buffer shared between packs could be refilled by the next pack
+before its pending copy has read it.
+
+Tracing (``plan.obs.trace``): a ``Tracer`` records the reference's events
+at the same places — a ``group`` begin/end per call on its own track,
+``stage1``, ``pack``, ``dispatch``, ``begin_coalesced`` and ``collect``
+spans, ``cache_hit`` / ``cache_miss``, ``fork_armed``,
+``corruption_detected``, ``breaker_*`` and ``breaker_fallback`` instants;
+the caches, the fault injector and the batcher add theirs.
 
 Device-resident tier (``plan.cache.device_resident``): cached stage-1 reps
 also live in a ``DeviceRepStore`` — ONE persistent ``(capacity, ...)``
@@ -64,7 +83,10 @@ Hedging (``plan.batch.hedging``, forced off by the device tier): a pack
 at an already-seen shape is dispatched through a ``HedgedRunner`` — stage
 2 runs on a worker thread, which enters ``torch.inference_mode`` and the
 caller's CUDA stream itself, and synchronises; if it straggles past the
-policy deadline a duplicate runs and the first result wins.
+policy deadline a duplicate runs and the first result wins. Primary and
+duplicate each copy the pack in, replay and copy their own outputs out
+under the graph pool's lock. The first call at a new shape captures and
+is never hedged.
 """
 from __future__ import annotations
 
@@ -81,10 +103,12 @@ from repro_torch.core.mari import convert_params, mari_rewrite
 from repro_torch.core.split import split_two_stage
 from repro_torch.ft.faults import CORRUPT, FaultInjector
 from repro_torch.ft.recovery import CircuitBreaker
+from repro_torch.graph.compiled import CompiledRun, GraphPool
 from repro_torch.graph.executor import USER_INDEX_FEED, Executor
 from repro_torch.graph.ir import Graph
 from repro_torch.kernels.mari_matmul.ops import (prepare_mari_params,
                                                  stream_weight_blocks)
+from repro_torch.obs import DEFAULT_CAPACITY, MetricsRegistry, Tracer
 from repro_torch.serve.cache import DeviceRepStore, UserRepCache
 from repro_torch.serve.errors import FaultInjected
 from repro_torch.serve.hedging import HedgedRunner, HedgePolicy
@@ -92,6 +116,10 @@ from repro_torch.serve.plan import ServePlan
 from repro_torch.serve.profile import StageProfiler
 
 Tensor = torch.Tensor
+
+# stage 2's compiled feed names: rep-table entries, candidate feeds and the
+# per-row user index (prefixed: a boundary may share a candidate's name)
+_TABLE, _CAND, _UIDX = "t:", "c:", "uidx"
 
 
 def bucket_for(n: int, *, min_bucket: int = 128, max_batch: int = 4096) -> int:
@@ -153,6 +181,17 @@ class _ReqInfo:                   # per-request working state inside a batch
 
 
 @dataclasses.dataclass(eq=False)
+class _Pack:
+    """One prepared stage-2 call."""
+    table: dict                   # name -> rep tensor / per-slot rows
+    table_refs: dict              # name -> persistent table (device tier)
+    uidx: Tensor                  # (bucket,) int32, host (pinned on CUDA)
+    cand: dict                    # name -> (bucket, ...) host buffer
+    n_slots: int
+    first_shape: bool             # first call at its graph signature
+
+
+@dataclasses.dataclass(eq=False)
 class _InFlight:
     """Opaque handle for a launched-but-uncollected ``begin_coalesced``
     call (identity semantics: two handles never compare equal)."""
@@ -165,6 +204,9 @@ class _InFlight:
     slots_mask: list = dataclasses.field(default_factory=list)
     #                               per pack: True = device-slot path
     #                               (breaker accounting at collect)
+    gid: int = 0                  # engine group id (trace linkage)
+    track: str | None = None      # synthetic trace track ("group:k")
+    slot: int = -1                # its slot, released at collect
 
 
 class ServingEngine:
@@ -190,6 +232,8 @@ class ServingEngine:
             # the reference is fp32: no TF32 in cuBLAS or cuDNN
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        # one graph memory pool for every compiled stage of this engine
+        self.graph_pool = GraphPool(self.device)
         params = tree_map(lambda t: torch.as_tensor(t, device=self.device),
                           params)
 
@@ -245,11 +289,16 @@ class ServingEngine:
             self._stage1 = Executor(self.split.stage1, "uoi",
                                     use_pallas=plan.kernel.use_pallas,
                                     device=self.device)
-            self._stage1_inputs = {
-                n.name for n in self.split.stage1.input_nodes()}
+            # stage 1 at batch 1: one graph per user-feed signature
+            self._stage1_run = CompiledRun(self._stage1.run,
+                                           device=self.device,
+                                           pool=self.graph_pool)
+            # a list, not a set: its order is the stage-1 graphs' feed order
+            self._stage1_inputs = [
+                n.name for n in self.split.stage1.input_nodes()]
             batched_graph = self.split.stage2
         else:
-            self._stage1 = None
+            self._stage1 = self._stage1_run = None
             self._stage1_inputs = None
             batched_graph = self.graph
         if plan.kernel.precat_weights:
@@ -277,6 +326,9 @@ class ServingEngine:
                                    gather_attention=self.gather_attention,
                                    device=self.device)
         self.lazy_gather_inputs = self._stage2_ex.lazy_gather_inputs
+        # the port's _build_rowwise: one graph per (u_dim, bucket, route)
+        self._stage2_run = CompiledRun(self._stage2_body, device=self.device,
+                                       pool=self.graph_pool)
 
         # -- device-resident tier: persistent slot tables beside the LRU --
         self.device_resident = (plan.cache.device_resident
@@ -301,10 +353,32 @@ class ServingEngine:
         #                                       launches)
         self._inflight: list[_InFlight] = []  # launched, not yet collected
         self._batch_shapes: set[tuple[int, int]] = set()  # (U_dim, bucket)
+        # (U_dim, bucket, on device-tier slots): one stage-2 graph each
+        self._stage2_keys: set[tuple[int, int, bool]] = set()
         # first-seen candidate-feed signature {name: (dtype, row shape)}:
         # pack buffers are shaped from it, so drift must fail fast
         self._feed_sig: dict[str, tuple] | None = None
         self.profiler = StageProfiler()
+
+        # -- observability (plan.obs): histogram metrics here, the tracer
+        # after the fault injector it is handed to --
+        self.metrics: MetricsRegistry | None = None
+        self._group_wall_hist = None
+        if plan.obs.metrics:
+            self.metrics = MetricsRegistry()
+            for name, fn in (
+                    ("cache_hits", lambda: self.cache.hits),
+                    ("cache_misses", lambda: self.cache.misses),
+                    ("cache_evictions", lambda: self.cache.evictions),
+                    ("stage1_calls", lambda: self.stage1_calls),
+                    ("stage2_calls", lambda: self.stage2_calls),
+                    ("coalesced_calls", lambda: self.coalesced_calls),
+                    ("pipeline_forks", lambda: self.pipeline_forks)):
+                self.metrics.gauge(name, fn)
+            self._group_wall_hist = self.metrics.histogram("group_wall_ms")
+        self._group_seq = 0           # begin_coalesced calls (group ids)
+        self._group_slots: set[int] = set()  # outstanding trace tracks
+        self._trace_req_seq = 0       # engine-side request sampling seq
 
         # -- hedging: duplicate straggling dispatches (never with the
         # device tier, which the plan already resolves; enforced here too)
@@ -325,9 +399,19 @@ class ServingEngine:
             self.breaker = CircuitBreaker(
                 failures=ftp.breaker_failures,
                 cooldown_ms=ftp.breaker_cooldown_ms,
-                probes=ftp.breaker_probes)
+                probes=ftp.breaker_probes,
+                on_transition=self._on_breaker_transition)
         self.fallback_packs = 0       # packs the open breaker re-routed
         self.corruptions_detected = 0  # NaN scores caught at collect
+
+        # ring-buffer tracing: off keeps the hot path at a `tracer is None`
+        # check; the caches and the fault injector get the tracer for
+        # their instants
+        self.tracer: Tracer | None = None
+        if plan.obs.trace:
+            self.set_tracer(Tracer(
+                capacity=plan.obs.trace_capacity or DEFAULT_CAPACITY,
+                sample_every=plan.obs.sample_every))
 
     @property
     def device_store(self) -> DeviceRepStore | None:
@@ -354,49 +438,87 @@ class ServingEngine:
                         if self.breaker is not None else None),
         }
 
+    def set_tracer(self, tracer: Tracer | None) -> None:
+        """Attach a ``Tracer`` (or detach it with None): the engine, its
+        caches, its fault injector and any batcher over it record into it
+        from the next call on. ``plan.obs.trace`` attaches one at
+        construction."""
+        self.tracer = tracer
+        self.cache.set_tracer(tracer)
+        if self._device_store is not None:
+            self._device_store.set_tracer(tracer)
+        if self.fault_injector is not None:
+            self.fault_injector.set_tracer(tracer)
+
+    def _on_breaker_transition(self, old: str, new: str) -> None:
+        trc = self.tracer
+        if trc is not None:
+            trc.instant({"open": "breaker_open",
+                         "half_open": "breaker_half_open",
+                         "closed": "breaker_close"}[new], previous=old)
+
     def _poke(self, site: str, **ctx):
         """Fault-injection hook: no-op unless the plan armed an injector."""
         inj = self.fault_injector
         return None if inj is None else inj.poke(site, **ctx)
 
-    def _quarantine_device_tier(self) -> None:
+    def _quarantine_device_tier(self, reason: str) -> None:
         """A failed row write (or corruption detected on the slot path)
         poisons the current table generation: invalidate it wholesale so
-        a stale row is never served (tables rebuild lazily from the host
-        LRU). Counts as one device-tier failure toward the breaker."""
+        a stale row is never served (rows rebuild lazily from the host
+        LRU; the tables keep their allocation, so stage-2 graphs stay
+        valid). Counts as one device-tier failure toward the breaker."""
         if self._device_store is not None:
-            self._device_store.quarantine()
+            self._device_store.quarantine(reason=reason)
         if self.breaker is not None:
             self.breaker.record_failure()
 
     # -- stage 2 ---------------------------------------------------------
-    def _stage2(self, params: dict, table: Mapping[str, Tensor],
-                user_index: Tensor, cand: Mapping[str, Tensor]
-                ) -> dict[str, Tensor]:
-        """The row-wise batched stage: every rep-table entry is gathered per
-        candidate row (clamped), except the entries a kernel gathers itself
-        at load time (``lazy_gather_inputs``: the mari_matmul accumulator
-        init under ``kernel_gather``, the decomposed-attention tables under
+    def _stage2_body(self, params: dict, feeds: Mapping[str, Tensor]
+                     ) -> dict[str, Tensor]:
+        """The row-wise batched stage, as each stage-2 graph captures it:
+        every rep-table entry is gathered per candidate row (clamped),
+        except the entries a kernel gathers itself at load time
+        (``lazy_gather_inputs``: the mari_matmul accumulator init under
+        ``kernel_gather``, the decomposed-attention tables under
         ``gather_attention``), which are fed stacked with the row index."""
         lazy = self.lazy_gather_inputs
-        feeds = {k: (v if k in lazy else take_clip(v, user_index))
-                 for k, v in table.items()}
-        feeds.update(cand)
+        uidx = feeds[_UIDX]
+        run = {}
+        for k, v in feeds.items():
+            if k.startswith(_TABLE):
+                name = k[len(_TABLE):]
+                run[name] = v if name in lazy else take_clip(v, uidx)
+            elif k.startswith(_CAND):
+                run[k[len(_CAND):]] = v
         if lazy:
-            feeds[USER_INDEX_FEED] = user_index
-        with torch.inference_mode():
-            return self._stage2_ex.run(params, feeds)
+            run[USER_INDEX_FEED] = uidx
+        return self._stage2_ex.run(params, run)
 
-    def _dispatch(self, stream, params, table, uidx, cand):
+    def _stage2(self, params: dict, table: Mapping[str, object],
+                table_refs: Mapping[str, Tensor], user_index: Tensor,
+                cand: Mapping[str, Tensor]) -> dict[str, Tensor]:
+        """Stage 2 through its compiled graph: ``table`` entries (a rep
+        tensor, or the per-slot rows to stack) and ``cand`` / the user
+        index (host buffers) are copied into the graph's static inputs;
+        ``table_refs`` (the device tier's persistent tables) are read in
+        place."""
+        feeds = {_TABLE + k: v for k, v in table.items()}
+        feeds.update((_CAND + k, v) for k, v in cand.items())
+        feeds[_UIDX] = user_index
+        refs = {_TABLE + k: v for k, v in table_refs.items()}
+        return self._stage2_run(params, feeds, refs)
+
+    def _dispatch(self, stream, params, table, table_refs, uidx, cand):
         """Blocking stage 2 for the hedged runner: runs on a worker thread,
-        so it enters the caller's CUDA stream itself (``_stage2`` enters
-        inference mode), then waits for the device. Its arguments stay
+        so it enters the caller's CUDA stream itself (the compiled run
+        enters inference mode), then waits for the device. Its arguments stay
         referenced by this frame until the call returns, so an abandoned
         loser never reads freed memory."""
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
         with ctx:
-            out = self._stage2(params, table, uidx, cand)
+            out = self._stage2(params, table, table_refs, uidx, cand)
             self._sync()
         return out
 
@@ -441,6 +563,26 @@ class ServingEngine:
         """Distinct (rep-table rows, bucket) shapes stage 2 has run at."""
         return len(self._batch_shapes)
 
+    @property
+    def stage2_routes(self) -> int:
+        """Distinct (rep-table rows, bucket, table route) stage 2 has run
+        at: a device-tier pack reads its tables by address and a re-stacked
+        one copies them, so one shape served both ways is two graphs."""
+        return len(self._stage2_keys)
+
+    @property
+    def stage2_compilations(self) -> int:
+        """Number of compiled batched-stage graphs (the reference's name:
+        one per distinct (rep-table, bucket) shape and table route)."""
+        return self._stage2_run.compilations
+
+    @property
+    def stage1_compilations(self) -> int:
+        """Number of compiled stage-1 graphs (one per user-feed
+        signature; 0 for a single-stage engine)."""
+        return 0 if self._stage1_run is None else \
+            self._stage1_run.compilations
+
     # -- stage 1 ---------------------------------------------------------
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -466,15 +608,18 @@ class ServingEngine:
         if self.two_stage:
             self._poke("stage1", user=req.user_id)
             t0 = time.perf_counter()
-            feeds = {k: v for k, v in req.user_feeds.items()
-                     if k in self._stage1_inputs}
-            with torch.inference_mode():
-                reps = self._stage1.run(self.params, feeds)
+            # in the graph's input order: a feed order is part of a
+            # compiled signature
+            feeds = {k: req.user_feeds[k] for k in self._stage1_inputs
+                     if k in req.user_feeds}
+            reps = self._stage1_run(self.params, feeds)
             self._sync()
             self.stage1_calls += 1
             s = time.perf_counter() - t0
             self.profiler.add("stage1", s)
             ms = s * 1e3
+            if self.tracer is not None:
+                self.tracer.complete("stage1", t0, s, user=req.user_id)
         else:
             # single-stage: the "representation" is the raw user feed dict
             reps = {k: torch.as_tensor(_host_array(v), device=self.device)
@@ -500,9 +645,42 @@ class ServingEngine:
         device-table row write of the call, then enqueue every pack on the
         device stream without waiting."""
         t0 = time.perf_counter()
+        trc = self.tracer
+        self._group_seq += 1
+        gid = self._group_seq
+        g_slot, g_track = -1, None
+        if trc is not None:
+            # one synthetic trace track per OUTSTANDING group (the lowest
+            # free slot, released at collect): overlapped groups land on
+            # two tracks, so their concurrency shows in Perfetto
+            g_slot = 0
+            while g_slot in self._group_slots:
+                g_slot += 1
+            self._group_slots.add(g_slot)
+            g_track = f"group:{g_slot}"
+            trc.begin("group", track=g_track, group=gid, reqs=len(reqs))
+        try:
+            return self._begin_coalesced_body(reqs, t0, gid, g_track, g_slot)
+        except BaseException:
+            # close the group span on any failure after it opened, so
+            # traces stay B/E-balanced and the track slot is released
+            if trc is not None:
+                trc.end("group", track=g_track, group=gid, error=True)
+                self._group_slots.discard(g_slot)
+            raise
+
+    def _begin_coalesced_body(self, reqs: Sequence[ServeRequest], t0: float,
+                              gid: int, g_track: str | None, g_slot: int
+                              ) -> _InFlight:
+        trc = self.tracer
         infos: list[_ReqInfo] = []
         for ri, req in enumerate(reqs):
             reps, hit, s1ms = self._user_reps(req)
+            if trc is not None:
+                self._trace_req_seq += 1
+                if trc.sampled(self._trace_req_seq):
+                    trc.instant("cache_hit" if hit else "cache_miss",
+                                group=gid, user=req.user_id)
             infos.append(_ReqInfo(
                 reps=reps, hit=hit, stage1_ms=s1ms,
                 chunks=self._chunk(req.candidate_feeds),
@@ -551,6 +729,9 @@ class ServingEngine:
                 self.pipeline_forks += 1
                 store.fork_next_write()
                 forked = True
+                if trc is not None:
+                    trc.instant("fork_armed", group=gid,
+                                inflight=len(self._inflight))
 
         # write barrier: every row write of the call is enqueued before
         # any of its launches; timed as its own phase so ``pack`` stays
@@ -568,18 +749,35 @@ class ServingEngine:
         launched = []
         try:
             for (pack_items, slot_reps, _), ds in zip(packs, dslots):
+                t_pk = time.perf_counter()
                 with self.profiler.phase("pack"):
                     prep = self._prepare_pack(pack_items, slot_reps, ds)
+                t_ds = time.perf_counter()
                 launched.append(self._launch_pack(prep,
                                                   on_slots=ds is not None))
+                if trc is not None:
+                    total = sum(n for _, _, _, n in pack_items)
+                    bucket = int(prep.uidx.shape[0])
+                    trc.complete(
+                        "pack", t_pk, t_ds - t_pk, group=gid,
+                        bucket=bucket, rows=total, pad=bucket - total,
+                        users=len(slot_reps),
+                        path="slots" if ds is not None else "restack")
+                    trc.complete("dispatch", t_ds,
+                                 time.perf_counter() - t_ds, group=gid,
+                                 bucket=bucket)
         except BaseException:
             # leave no untracked launch behind
             self._sync()
             raise
         handle = _InFlight(reqs=reqs, infos=infos, packs=packs,
                            launched=launched, t0=t0,
-                           slots_mask=[ds is not None for ds in dslots])
+                           slots_mask=[ds is not None for ds in dslots],
+                           gid=gid, track=g_track, slot=g_slot)
         self._inflight.append(handle)
+        if trc is not None:
+            trc.complete("begin_coalesced", t0, time.perf_counter() - t0,
+                         group=gid, reqs=len(reqs), packs=len(packs))
         return handle
 
     def poll(self, handle: _InFlight) -> bool:
@@ -591,6 +789,8 @@ class ServingEngine:
     def collect(self, handle: _InFlight) -> list[ServeResult]:
         """Phase 2: wait on the handle's packs, copy scores to the host and
         slice per-request results. Each handle is collected exactly once."""
+        trc = self.tracer
+        t0c = time.perf_counter()
         try:
             self._inflight.remove(handle)
         except ValueError:
@@ -598,14 +798,20 @@ class ServingEngine:
                 "collect() on a handle that is not in flight (already "
                 "collected, or from another engine)") from None
         try:
-            return self._collect_body(handle)
+            return self._collect_body(handle, t0c)
         except BaseException:
             # a mid-sweep failure (injected fault, detected corruption)
-            # leaves no untracked launch behind
+            # leaves no untracked launch behind, and closes the group span
             self._sync()
+            if trc is not None and handle.track is not None:
+                trc.end("group", track=handle.track, group=handle.gid,
+                        error=True)
+                self._group_slots.discard(handle.slot)
             raise
 
-    def _collect_body(self, handle: _InFlight) -> list[ServeResult]:
+    def _collect_body(self, handle: _InFlight, t0c: float
+                      ) -> list[ServeResult]:
+        trc = self.tracer
         prof = self.profiler
         reqs, infos = handle.reqs, handle.infos
         slots_mask = handle.slots_mask or [False] * len(handle.packs)
@@ -619,7 +825,7 @@ class ServingEngine:
             if ev is not None:
                 with prof.phase("device"):
                     ev.synchronize()
-            act = self._poke("collect")
+            act = self._poke("collect", group=handle.gid)
             with prof.phase("unpack"):
                 scores = np.concatenate(
                     [out[o].cpu().numpy() for o in self.outputs],
@@ -630,10 +836,14 @@ class ServingEngine:
                 # detectable corruption: a NaN-poisoned payload is failed
                 # typed, never served
                 self.corruptions_detected += 1
+                if trc is not None:
+                    trc.instant("corruption_detected", group=handle.gid,
+                                path="slots" if on_slots else "restack")
                 if on_slots:
                     # the device tier may hold the poisoned row: wipe the
                     # generation so a retry rebuilds from the host LRU
-                    self._quarantine_device_tier()
+                    self._quarantine_device_tier(
+                        "corrupted scores detected at collect")
                 raise FaultInjected(
                     "corrupted stage-2 scores detected at collect",
                     site="collect")
@@ -647,6 +857,14 @@ class ServingEngine:
                 per_req_packs[ri] += 1
                 per_req_hedged[ri] += hedged
         wall_ms = (time.perf_counter() - handle.t0) * 1e3
+        if self._group_wall_hist is not None:
+            self._group_wall_hist.record(wall_ms)
+        if trc is not None:
+            trc.complete("collect", t0c, time.perf_counter() - t0c,
+                         group=handle.gid, packs=len(handle.packs))
+            if handle.track is not None:
+                trc.end("group", track=handle.track, group=handle.gid)
+                self._group_slots.discard(handle.slot)
         return [ServeResult(
             scores=np.concatenate(per_req_scores[ri], axis=0),
             latency_ms=wall_ms, n_batches=per_req_packs[ri],
@@ -670,6 +888,8 @@ class ServingEngine:
             # open: every pack re-stacks; after the cooldown allow() turns
             # half-open and lets probe traffic back onto the slot path
             self.fallback_packs += len(packs)
+            if self.tracer is not None:
+                self.tracer.instant("breaker_fallback", packs=len(packs))
             return [None] * len(packs)
         ver_of: dict = {}
         conflicted = set()
@@ -696,26 +916,29 @@ class ServingEngine:
                 continue
             try:
                 slots = store.ensure_rows(triples, protect=protect)
-            except Exception:
+            except Exception as e:
                 # a failed write leaves the generation suspect: quarantine
                 # it and re-stack EVERY pack of the call (the quarantine
                 # freed the slots earlier packs resolved) — the request
                 # still succeeds while the breaker counts the failure
-                self._quarantine_device_tier()
+                self._quarantine_device_tier(
+                    f"row write failed: {type(e).__name__}: {e}")
                 return [None] * len(packs)
             out.append(slots if all(s is not None for s in slots) else None)
         return out
 
     def _prepare_pack(self, pack_items: list, slot_reps: list,
-                      dslots: list[int] | None = None):
+                      dslots: list[int] | None = None) -> "_Pack":
         """Assemble one stage-2 call's arguments.
 
         ``pack_items`` is a list of (req idx, slot idx, cand chunk, n_valid);
         ``slot_reps`` maps slot idx -> that user's rep dict; ``dslots`` maps
-        slot idx -> persistent device-table slot, or None to re-stack one
-        row-block per slot, padded to a pow2 slot count. Candidate rows and
-        the user index are filled into host buffers PRIVATE to this pack
-        (pinned on CUDA) and copied ``non_blocking`` on the current stream;
+        slot idx -> persistent device-table slot (the tables are read in
+        place), or None to re-stack one row-block per slot, padded to a
+        pow2 slot count (the rows are stacked into the graph's static
+        table at dispatch). Candidate rows and the user index are filled
+        into host buffers PRIVATE to this pack (pinned on CUDA), copied
+        ``non_blocking`` into the graph's static inputs at dispatch;
         nothing may write them afterwards."""
         self._poke("pack")
         total = sum(n for _, _, _, n in pack_items)
@@ -724,27 +947,25 @@ class ServingEngine:
         if dslots is not None:
             # device-resident: the persistent (capacity, ...) tables; rows
             # address their user's live slot directly
-            table = self._device_store.tables
+            table, table_refs = {}, self._device_store.tables
             u_dim = self._device_store.capacity
             slot_ids = dslots
         else:
             u_dim = next_pow2(n_slots)
-            if u_dim == 1:
-                table = dict(slot_reps[0])
-            else:
-                padded = slot_reps + [slot_reps[0]] * (u_dim - n_slots)
-                table = {k: torch.cat([r[k] for r in padded], dim=0)
-                         for k in slot_reps[0]}
+            padded = slot_reps + [slot_reps[0]] * (u_dim - n_slots)
+            table = {k: [r[k] for r in padded] for k in sorted(slot_reps[0])}
+            table_refs = {}
             slot_ids = list(range(n_slots))
 
         pin = self.device.type == "cuda"
-        uidx_buf = torch.empty((bucket,), dtype=torch.int32, pin_memory=pin)
-        cand_bufs = {k: torch.empty((bucket,) + tuple(v.shape[1:]),
-                                    dtype=_torch_dtype(v.dtype),
-                                    pin_memory=pin)
-                     for k, v in pack_items[0][2].items()}
-        uidx_np = uidx_buf.numpy()
-        cand_np = {k: b.numpy() for k, b in cand_bufs.items()}
+        uidx = torch.empty((bucket,), dtype=torch.int32, pin_memory=pin)
+        # candidate feeds in the pinned signature's order, whatever order
+        # a request lists them in: one compiled signature per shape
+        cand = {k: torch.empty((bucket,) + row, dtype=_torch_dtype(dt),
+                               pin_memory=pin)
+                for k, (dt, row) in self._feed_sig.items()}
+        uidx_np = uidx.numpy()
+        cand_np = {k: b.numpy() for k, b in cand.items()}
         offset = 0
         for _, slot, chunk, n in pack_items:
             uidx_np[offset:offset + n] = slot_ids[slot]
@@ -763,28 +984,23 @@ class ServingEngine:
             for buf in cand_np.values():
                 if np.issubdtype(buf.dtype, np.floating):
                     buf.fill(np.nan)
-        uidx = uidx_buf.to(self.device, non_blocking=True)
-        cand = {k: b.to(self.device, non_blocking=True)
-                for k, b in cand_bufs.items()}
-        # the first call at a new (rep-table, bucket) shape is not a
-        # straggler (first launches build kernels, pick cuBLAS algorithms):
-        # it is never hedged
-        first_shape = (u_dim, bucket) not in self._batch_shapes
+        # the first call at a new graph signature is not a straggler (it
+        # warms up and captures the graph): it is never hedged
+        key = (u_dim, bucket, dslots is not None)
+        first_shape = key not in self._stage2_keys
+        self._stage2_keys.add(key)
         self._batch_shapes.add((u_dim, bucket))
-        host_bufs = (uidx_buf, cand_bufs)
-        return table, uidx, cand, n_slots, host_bufs, first_shape
+        return _Pack(table, table_refs, uidx, cand, n_slots, first_shape)
 
-    def _launch_pack(self, prep, on_slots: bool = False
+    def _launch_pack(self, prep: "_Pack", on_slots: bool = False
                      ) -> tuple[dict, object, tuple, int]:
         """Enqueue one prepared pack; returns (outputs, CUDA event recorded
-        after its launches — None on the CPU or when hedging already
-        waited for the result —, the pack's host buffers, held until
-        collect, and 1 if a duplicate was launched). ``on_slots`` marks
-        the device-slot path: a failed launch there counts toward the
-        breaker."""
-        table, uidx, cand, n_slots, host_bufs, first_shape = prep
+        after its replay — None on the CPU or when hedging already waited
+        for the result —, the pack's host buffers, held until collect, and
+        1 if a duplicate was launched). ``on_slots`` marks the device-slot
+        path: a failed launch there counts toward the breaker."""
         self.stage2_calls += 1
-        if n_slots > 1:
+        if prep.n_slots > 1:
             self.coalesced_calls += 1
         try:
             self._poke("stage2_dispatch")
@@ -793,15 +1009,17 @@ class ServingEngine:
                 self.breaker.record_failure()
             raise
         cuda = self.device.type == "cuda"
-        if self._hedged is not None and not first_shape:
+        host_bufs = (prep.uidx, prep.cand)
+        args = (self.params, prep.table, prep.table_refs, prep.uidx,
+                prep.cand)
+        if self._hedged is not None and not prep.first_shape:
             stream = torch.cuda.current_stream(self.device) if cuda else None
             with self.profiler.phase("dispatch"):
-                out, outcome = self._hedged.run(stream, self.params, table,
-                                                uidx, cand)
+                out, outcome = self._hedged.run(stream, *args)
             return out, None, host_bufs, int(outcome.hedged)
         with self.profiler.phase("dispatch"):
             try:
-                out = self._stage2(self.params, table, uidx, cand)
+                out = self._stage2(*args)
             except Exception:
                 if on_slots and self.breaker is not None:
                     self.breaker.record_failure()

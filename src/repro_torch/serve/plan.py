@@ -20,10 +20,14 @@ packages:
   (deterministic fault injection, ``repro_torch.ft.faults``), ``retries``
   / ``retry_backoff_ms`` / ``retry_jitter`` (the batcher's retries),
   ``breaker_failures`` / ``breaker_cooldown_ms`` / ``breaker_probes`` (the
-  circuit breaker on the device-resident stage-2 path).
+  circuit breaker on the device-resident stage-2 path);
+* ``ObsPlan``    — ``trace`` (the ring-buffer tracer,
+  ``repro_torch.obs``), ``trace_capacity``, ``sample_every``, ``metrics``
+  (the engine's histograms and counter snapshot). Tracing is off by
+  default, as in the reference.
 
-The reference's other sections (shard, obs, mem) are not ported yet:
-naming one is a ``PlanError``, never a silent no-op.
+The reference's other sections (shard, mem) are not ported yet: naming
+one is a ``PlanError``, never a silent no-op.
 
 Resolution table (the rows that touch these fields):
 
@@ -72,6 +76,9 @@ outside [0, 1]; ``ft.breaker_probes < 1``
 ``cache.device_resident``
 ``ft.breaker_cooldown_ms`` / ``ft.breaker_probes``    drop them + warn
 (non-default) without ``ft.breaker_failures > 0``
+``obs.trace_capacity < 1`` / ``obs.sample_every < 1``  reject
+``obs.trace_capacity`` / ``obs.sample_every``         drop them + warn
+(non-default) without ``obs.trace``
 ====================================================  =======================
 
 Round-trip: ``ServePlan.from_json(plan.to_json()) == plan``.
@@ -161,9 +168,20 @@ class FaultPlan:
     breaker_probes: int = 1            # half-open successes to close
 
 
+@dataclasses.dataclass(frozen=True)
+class ObsPlan:
+    """Observability: request/group tracing + histogram metrics
+    (``repro_torch.obs``)."""
+    trace: bool = False                # ring-buffer span/instant tracing
+    trace_capacity: int | None = None  # ring size; None = obs default
+    sample_every: int = 1              # trace every Nth request's events
+    metrics: bool = True               # latency histograms + unified
+    #                                    counter snapshot()
+
+
 _SECTIONS: dict[str, type] = {"graph": GraphPlan, "kernel": KernelPlan,
                               "batch": BatchPlan, "cache": CachePlan,
-                              "ft": FaultPlan}
+                              "ft": FaultPlan, "obs": ObsPlan}
 
 # per-field type contracts, checked before the range/combination rules. A
 # trailing "?" allows None; "int" excludes bool (True is not a row budget).
@@ -186,6 +204,8 @@ _FIELD_TYPES: dict[str, dict[str, str]] = {
            "retries": "int", "retry_backoff_ms": "num",
            "retry_jitter": "num", "breaker_failures": "int",
            "breaker_cooldown_ms": "num", "breaker_probes": "int"},
+    "obs": {"trace": "bool", "trace_capacity": "int?",
+            "sample_every": "int", "metrics": "bool"},
 }
 
 
@@ -225,6 +245,7 @@ class ServePlan:
     batch: BatchPlan = BatchPlan()
     cache: CachePlan = CachePlan()
     ft: FaultPlan = FaultPlan()
+    obs: ObsPlan = ObsPlan()
 
     def __post_init__(self):
         for name, cls in _SECTIONS.items():
@@ -255,8 +276,8 @@ class ServePlan:
                          f"{name}.{field} must be {kind.rstrip('?')}"
                          f"{' or None' if kind.endswith('?') else ''}, "
                          f"got {type(v).__name__} ({v!r})")
-        g, k, b, c, f = (self.graph, self.kernel, self.batch, self.cache,
-                         self.ft)
+        g, k, b, c, f, o = (self.graph, self.kernel, self.batch,
+                            self.cache, self.ft, self.obs)
 
         _require(g.mode in MODES,
                  f"unknown mode {g.mode!r}; known: {list(MODES)}")
@@ -310,6 +331,11 @@ class ServePlan:
                  f"{f.breaker_cooldown_ms}")
         _require(f.breaker_probes >= 1,
                  f"breaker_probes must be >= 1, got {f.breaker_probes}")
+        _require(o.trace_capacity is None or o.trace_capacity >= 1,
+                 f"trace_capacity must be >= 1 (or None for the obs "
+                 f"default), got {o.trace_capacity}")
+        _require(o.sample_every >= 1,
+                 f"sample_every must be >= 1, got {o.sample_every}")
         for spec in f.sites:
             try:
                 parse_fault_spec(spec)
@@ -447,6 +473,20 @@ class ServePlan:
                                dataclasses.replace(self.ft,
                                                    breaker_cooldown_ms=100.0,
                                                    breaker_probes=1))
+        trc_knobs = [n for n, v in
+                     (("trace_capacity", o.trace_capacity),
+                      ("sample_every",
+                       o.sample_every if o.sample_every != 1 else None))
+                     if v is not None]
+        if trc_knobs and not o.trace:
+            notes.append(
+                f"{'/'.join(trc_knobs)} without trace=True: they "
+                f"parameterize the ring-buffer tracer only — resolved to "
+                f"defaults (set trace=True to keep them)")
+            object.__setattr__(self, "obs",
+                               dataclasses.replace(self.obs,
+                                                   trace_capacity=None,
+                                                   sample_every=1))
         # silent normalization: the smallest bucket never exceeds the budget
         if b.min_bucket > b.max_batch:
             object.__setattr__(self, "batch",

@@ -109,20 +109,27 @@ def test_store_spec_validation_stats_fork_and_quarantine():
     s = st[0].stats()
     assert s["bytes"] == 2 * (4 + 2 * 3) * 4
     assert s["boundary_bytes"] == {"a": 2 * 4 * 4, "b": 2 * 6 * 4}
-    # copy-on-write: the armed write lands in a clone; the generation an
-    # in-flight launch holds keeps its rows
+    # the reference's copy-on-write fork: the armed write is counted as
+    # one ordered behind in-flight launches (stream order keeps them from
+    # seeing it); the port writes in place, so the tables keep their
+    # address, which captured stage-2 graphs read
     held = st[0].tables
+    ptrs = {k: t.data_ptr() for k, t in held.items()}
     for s in st:
         s.fork_next_write()
     _ensure(st, [(2, 0, 2), (3, 0, 3)])                # one fork, 2 writes
-    assert st[0].forks == 1 and st[0].tables is not held
-    np.testing.assert_array_equal(held["a"][:, 0].numpy(), [1.0, 0.0])
+    assert st[0].forks == 1 and st[0].tables is held
     _same_state(st)
     for s in st:
         s.quarantine()
-    assert st[0].tables is None and len(st[0]) == 0
+    # quarantine frees every slot and keeps the allocation
+    assert len(st[0]) == 0 and st[0].tables is held
+    assert {k: t.data_ptr() for k, t in held.items()} == ptrs
     assert _ensure(st, [(4, 0, 4)]) == [0]             # rebuilds lazily
-    _same_state(st)
+    assert st[0].stats() == st[1].stats()
+    for k in ("a", "b"):                               # the live row
+        np.testing.assert_array_equal(st[0].tables[k][0].numpy(),
+                                      np.asarray(st[1].tables[k][0]))
 
 
 def test_cache_removal_listeners_match_reference():
@@ -246,7 +253,7 @@ def test_dead_and_out_of_range_slots_clamp(paper):
     table = dev.device_store.tables
     cap = dev.device_store.capacity
     cand = {k: torch.as_tensor(v) for k, v in r2.candidate_feeds.items()}
-    run = lambda i: dev._stage2(dev.params, table,
+    run = lambda i: dev._stage2(dev.params, {}, table,
                                 torch.full((16,), i, dtype=torch.int32),
                                 cand)
     for a, b in ((cap + 3, cap - 1), (-5, 0)):

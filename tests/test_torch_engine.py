@@ -155,7 +155,8 @@ def test_bridge_copies(paper):
 
 @pytest.mark.parametrize("bad,match", [
     ({"shard": {"shard_candidates": True}}, "unknown plan sections"),
-    ({"obs": {}}, "unknown plan sections"),
+    ({"obs": {"trace": True, "trace_capacity": 0}},
+     "trace_capacity must be >= 1"),
     ({"mem": {"cold_tier": True}}, "unknown plan sections"),
     ({"shard": {"compress_scores": True}}, "unknown plan sections"),
     ({"graph": {"mode": "tiled"}}, "unknown mode"),

@@ -898,3 +898,226 @@ def test_hedged_dispatch_on_the_card(cuda):
             np.testing.assert_allclose(c.scores, ref.score(r).scores, **TOL)
     assert eng.ft_stats()["hedges_launched"] > 0
     eng.close()
+
+
+# -- compiled stages: captured CUDA graphs ------------------------------------
+
+def _eager_stage2(eng, table, uidx, cand):
+    """The stage-2 body run eagerly on the card (what each graph captures)."""
+    feeds = {"t:" + k: v for k, v in table.items()}
+    feeds.update(("c:" + k, v) for k, v in cand.items())
+    feeds["uidx"] = uidx
+    with torch.inference_mode():
+        return eng._stage2_body(eng.params, feeds)
+
+
+def _model(name, dev):
+    if name == "paper":
+        graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.1))
+    elif name == "din":
+        graph, _ = build_din(embed_dim=8, seq_len=12, attn_mlp=(16, 8),
+                             mlp=(24, 12), item_vocab=128)
+    else:
+        graph = get_config("dlrm-mlperf").smoke_build()()[0]
+    return graph, init_graph_params(graph, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("model", ["paper", "din", "dlrm"])
+def test_captured_stages_match_eager_at_every_bucket(cuda, model):
+    """Stage 1 replayed against its eager executor, and stage 2 at every
+    bucket (8 .. 64) and rep-table size (1, 2, 4 users) replayed against
+    the eager body on the same inputs; one graph per signature, and a
+    repeated pass captures nothing."""
+    graph, params = _model(model, cuda)
+    eng = ServingEngine(graph, params, ServePlan.preset("tpu").evolve(
+        batch__max_batch=64, batch__min_bucket=8, batch__hedging=False),
+        device=cuda)
+    reqs = _requests(graph, (5, 9, 17, 33), seed=3)
+    reps = []
+    for r in reqs:
+        feeds = {k: v for k, v in r.user_feeds.items()
+                 if k in eng._stage1_inputs}
+        got = eng._stage1_run(eng.params, feeds)
+        with torch.inference_mode():
+            want = eng._stage1.run(eng.params, feeds)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], **TOL)
+        reps.append(got)
+    assert eng.stage1_compilations == 1
+    rng = np.random.default_rng(4)
+    big = _requests(graph, (64,), seed=5)[0].candidate_feeds
+    for _ in range(2):
+        for users in (1, 2, 4):
+            table = {k: torch.cat([r[k] for r in reps[:users]])
+                     for k in reps[0]}
+            stack = {k: [r[k] for r in reps[:users]] for k in reps[0]}
+            for bucket in (8, 16, 32, 64):
+                uidx = torch.as_tensor(rng.integers(0, users, bucket),
+                                       dtype=torch.int32, device=cuda)
+                cand = {k: torch.as_tensor(v[:bucket], device=cuda)
+                        for k, v in big.items()}
+                got = eng._stage2(eng.params, stack, {}, uidx, cand)
+                want = _eager_stage2(eng, table, uidx, cand)
+                for o in eng.outputs:
+                    torch.testing.assert_close(got[o], want[o], **TOL)
+        if _ == 0:
+            built = eng.stage2_compilations
+    assert built == eng.stage2_compilations == 12
+    assert eng.graph_pool.captures == 13
+    eng.close()
+
+
+def test_compiled_packs_in_flight_at_one_bucket(cuda):
+    """Eight groups at one bucket launched before any is collected: each
+    replay's outputs are copied out behind it, so no group reads another
+    group's scores from the graph's static outputs."""
+    graph, params = _model("paper", cuda)
+    eng = ServingEngine(graph, params, ServePlan.preset("tpu").evolve(
+        batch__max_batch=256, batch__min_bucket=256, batch__hedging=False),
+        device=cuda)
+    groups = [_requests(graph, (120, 90), seed=20 + s) for s in range(8)]
+    for s, g in enumerate(groups):
+        for uid, r in enumerate(g):
+            r.user_id = 10 * s + uid
+    want = [[eng.score(r).scores for r in g] for g in groups]
+    n = eng.stage2_compilations
+    handles = [eng.begin_coalesced(g) for g in groups]
+    for h, w in zip(handles, want):
+        for r, expect in zip(eng.collect(h), w):
+            np.testing.assert_allclose(r.scores, expect, **TOL)
+    assert eng.stage2_compilations == n + 1       # the 2-user table
+    eng.close()
+
+
+def test_device_tier_tables_keep_their_address(cuda):
+    """With the clone fork gone and quarantine keeping the allocation, the
+    slot tables never move: a write armed under an in-flight launch, a
+    quarantine and the rebuild all replay the graphs captured before them
+    (no recapture), and every score stays the re-stacking twin's."""
+    graph, params = _multihot_problem(cuda)
+    plan = ServePlan.preset("tpu").evolve(
+        batch__max_batch=256, batch__min_bucket=256,
+        cache__device_resident=True, cache__device_slots=2)
+    eng = ServingEngine(graph, params, plan, device=cuda)
+    twin = ServingEngine(graph, params, plan.evolve(
+        cache__device_resident=False), device=cuda)
+    a, b, c = _requests(graph, (200, 150, 100), seed=6)
+    want = {r.user_id: twin.score(r).scores for r in (a, b, c)}
+    eng.score(a)
+    eng.score(b)
+    store = eng.device_store
+    ptrs = {k: t.data_ptr() for k, t in store.tables.items()}
+    n = eng.stage2_compilations
+    h_a = eng.begin_coalesced([a])
+    h_c = eng.begin_coalesced([c])                # steals a slot in flight
+    assert eng.pipeline_forks == 1 and store.forks == 1
+    for h, r in ((h_a, a), (h_c, c)):
+        np.testing.assert_allclose(eng.collect(h)[0].scores,
+                                   want[r.user_id], **TOL)
+    eng._quarantine_device_tier("test")
+    for r in (a, b, c):
+        np.testing.assert_allclose(eng.score(r).scores, want[r.user_id],
+                                   **TOL)
+    assert {k: t.data_ptr() for k, t in store.tables.items()} == ptrs
+    assert eng.stage2_compilations == n and store.quarantines == 1
+    eng.close()
+    twin.close()
+
+
+def test_hedged_replays_copy_their_own_outputs(cuda):
+    """Hedging on with a 0 ms floor: primary and duplicate each copy the
+    pack in, replay and copy out under the pool's lock; scores equal an
+    unhedged engine's and the hedges added no graph."""
+    from repro_torch.serve.hedging import HedgePolicy
+    graph, params = _model("paper", cuda)
+    plan = ServePlan.preset("paper").evolve(
+        kernel__use_pallas=True, batch__max_batch=64, batch__min_bucket=8)
+    eng = ServingEngine(graph, params, plan, device=cuda,
+                        hedge_policy=HedgePolicy(min_hedge_ms=0.0))
+    ref = ServingEngine(graph, params, plan.evolve(batch__hedging=False),
+                        device=cuda)
+    reqs = _requests(graph, (11, 70, 5), seed=1)
+    for _ in range(3):
+        for r, c in zip(reqs, eng.score_coalesced(reqs)):
+            np.testing.assert_allclose(c.scores, ref.score(r).scores, **TOL)
+    assert eng.ft_stats()["hedges_launched"] > 0
+    assert eng.stage2_compilations == eng.stage2_shapes
+    eng.close()
+    ref.close()
+
+
+def test_three_service_engines_capture_from_their_threads(cuda):
+    """A RankingService with three scenarios: each batcher thread captures
+    its engine's graphs while the others launch and synchronise; every
+    score equals its engine's own per-request score."""
+    from repro_torch.serve import RankingService
+    svc = RankingService(ServePlan.preset("tpu").evolve(
+        batch__hedging=False, batch__max_batch=256, batch__min_bucket=16),
+        device=cuda)
+    for sc in ("dlrm-mlperf", "deepfm", "fm"):
+        svc.register(sc)
+    items = []
+    for k, sc in enumerate(("dlrm-mlperf", "deepfm", "fm")):
+        for r in _requests(svc.source_graph(sc), (40, 300, 7), seed=30 + k):
+            items.append((sc, r))
+    items = [items[i] for j in range(3) for i in range(j, len(items), 3)]
+    for _ in range(2):
+        got = svc.score_many(items)
+    for (sc, r), g in zip(items, got):
+        np.testing.assert_allclose(g.scores, svc.engine(sc).score(r).scores,
+                                   **TOL)
+    for sc in ("dlrm-mlperf", "deepfm", "fm"):
+        eng = svc.engine(sc)
+        assert eng.graph_pool.captures > 0
+        assert eng.stage2_compilations == eng.stage2_routes
+    svc.close()
+
+
+def test_capture_failure_raises_and_runs_no_eager(cuda):
+    """A body that synchronises with the host cannot be captured: the call
+    raises ``GraphCaptureError``, caches no entry and never falls back to
+    running the body eagerly; the card keeps working afterwards."""
+    from repro_torch.graph.compiled import CompiledRun, GraphCaptureError
+    runs = []
+
+    def body(params, feeds):
+        runs.append(torch.cuda.is_current_stream_capturing())
+        return {"y": feeds["x"] * float(feeds["x"].sum().item())}
+
+    run = CompiledRun(body, device=cuda)
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(GraphCaptureError, match="no|not fall back"):
+        run({}, {"x": x})
+    assert run.compilations == 0
+    assert runs == [False, True]                  # warm-up, then capture
+    ok = CompiledRun(lambda p, f: {"y": f["x"] + 1}, device=cuda)
+    torch.testing.assert_close(ok({}, {"x": x})["y"], x + 1)
+
+
+def test_replays_count_launches_and_keep_tma_addresses(cuda):
+    """mari_matmul (x's TMA map encoded at capture) and dot_interaction (a
+    3-D map of x, its copy route from x's address) captured once and
+    replayed on new data: each replay matches the plain version, and each
+    counts one launch per kernel (the warm-up counts, the capture not)."""
+    from repro_torch.graph.compiled import CompiledRun
+    g = _gen(cuda, 7)
+    w = mm.prepare_mari_weight(_randn(g, 351, 64))
+    u = _randn(g, 1, 64)
+
+    def body(params, feeds):
+        return {"m": mm.mari_matmul(feeds["x"], w, u, None, "relu"),
+                "d": di.dot_interaction(feeds["z"])}
+
+    run = CompiledRun(body, device=cuda)
+    mm.reset_launches()
+    di.reset_launches()
+    for i in range(4):
+        x, z = _randn(g, 300, 351), _randn(g, 300, 27, 32)
+        got = run({}, {"x": x, "z": z})
+        torch.testing.assert_close(
+            got["m"], mm.mari_matmul_plain(x, w, u, None, "relu"), **TOL)
+        torch.testing.assert_close(got["d"], di.dot_interaction_plain(z),
+                                   **TOL)
+    torch.cuda.synchronize()
+    assert run.compilations == 1
+    assert mm.LAUNCHES["broadcast"] == 5 and di.LAUNCHES["triu"] == 5

@@ -621,7 +621,7 @@ def test_launcher_dump_plan_round_trips(tmp_path):
         launcher.main(["--plan", str(path), "--preset", "tpu"])
 
 
-@pytest.mark.parametrize("flag", [["--cold-tier"], ["--trace", "t.json"]])
+@pytest.mark.parametrize("flag", [["--cold-tier"], ["--no-cold-tier"]])
 def test_launcher_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
         launcher.main(flag + ["--requests", "0"])
