@@ -60,6 +60,23 @@
    failed slot write, a corrupted collect) recovered by quarantine and
    retries; (c) hedging on the ``paper`` preset with kernels; (d, inside
    phases 2 and 3) device-resident twins of the paper and DIN engines.
+7. The memory tier (``memtier``), the reference's ``benchmarks/memtier.py``
+   run through the port at the paper model's full width: a ``tpu`` engine
+   with the device tier (256 slots, a 4096-user hot LRU) and the host-RAM
+   cold arena (8 GiB, halved when the host has less than 16 GiB
+   available); per Zipf(1.1) universe of 10k, 100k and 1M users the head
+   warmed up to 0.92 of the mass (capped by the arena), then 3000
+   requests of 128 candidates: hit rate, per-class (hot / cold /
+   recompute) host-wall p50 / p99, warm rate, demotions, promotions and
+   promotion errors (must be 0), arena bytes, graphs (a repeated traced
+   pass captures nothing); 16 requests per class rescored on a cache-off
+   engine (bitwise equality printed, held to 2e-4) and 4 on a
+   ``use_pallas=False`` one. ``memtier_copies`` times the tier's copies
+   per user on the real path: 256 demotions through a 64-user hot LRU,
+   then 256 cold hits. Then DIN at ``configs/din.py`` width over the 10k
+   universe: the paper model's attention (``cross_attention``) is not
+   re-parameterized, so only DIN's decomposed attention runs
+   ``gather_einsum`` on this path.
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -80,8 +97,9 @@ just after it (a replay counts the launches its graph holds), the
 readings summed per path: the paper and DIN ``tpu``
 engines, their device-resident twins, the phase-4 service, that service
 under the preset's default hedging, train + convert, the paper's single
-call, and in phase 6 the device-tier service, its re-stacking twin, the
-fault run and the hedged engine, each its own path. Every kernel variant
+call, in phase 6 the device-tier service, its re-stacking twin, the
+fault run and the hedged engine, and phase 7's memory-tier engines, each
+its own path. Every kernel variant
 held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
@@ -100,6 +118,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -136,6 +155,15 @@ VARIANTS = {"gather_einsum": ("GATHER_EINSUM_NO_ROW_SORT",),
             "din_attention": ("DIN_ATTENTION_GUARDED_ONLY",),
             "dot_interaction": ("DOT_INTERACTION_RING_ONLY",)}
 AUC_TOL = 1e-3
+# phase 7, the memory tier (the reference's benchmarks/memtier.py setup):
+# Zipf(1.1) universes, the head warmed up to 0.92 of the mass, 3000
+# requests of 128 candidates over a pool of 64 user-feed dicts
+MT_UNIVERSES = (10_000, 100_000, 1_000_000)
+MT_ZIPF_S, MT_MASS, MT_REQUESTS, MT_CANDIDATES, MT_POOL = \
+    1.1, 0.92, 3000, 128, 64
+MT_COLD_BYTES = 8 << 30               # 114,471 full-width users
+MT_MIN_AVAILABLE = 16 << 30           # below this MemAvailable, halve it
+MT_IDENTITY = 16                      # requests per class rescored
 # MLPerf DLRM-DCNv2's Criteo multi-hot sizes (MLCommons training,
 # recommendation_v2/torchrec_dlrm, --multi_hot_sizes), one per sparse field
 MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1,
@@ -1538,6 +1566,212 @@ def main() -> int:
         b.output(h)
         return b.graph
 
+    def memtier_phase() -> None:
+        """Phase 7: the memory tier at full width (path ``memtier``): the
+        paper model over three universes, DIN (whose decomposed attention
+        runs ``gather_einsum``) over the smallest."""
+        avail = 0
+        with open("/proc/meminfo") as f:
+            for ln in f:
+                if ln.startswith("MemAvailable:"):
+                    avail = int(ln.split()[1]) * 1024
+        cold_bytes, reduced = MT_COLD_BYTES, []
+        if avail < MT_MIN_AVAILABLE:
+            cold_bytes //= 2
+            reduced.append(f"cold_bytes halved to {cold_bytes}: "
+                           f"MemAvailable {avail} < {MT_MIN_AVAILABLE}")
+        log("memtier_host", mem_available_bytes=avail,
+            cold_bytes=cold_bytes, reduced=reduced)
+        plan = tpu.evolve(batch__linger_ms=0.0,
+                          cache__device_resident=True,
+                          cache__device_slots=256,
+                          cache__max_cached_users=4096,
+                          mem__cold_tier=True, mem__cold_bytes=cold_bytes,
+                          mem__warm_batch=4096)
+
+        def ms_stats(a):
+            return (dict(n=len(a), p50_ms=float(np.percentile(a, 50)),
+                         p99_ms=float(np.percentile(a, 99))) if a
+                    else dict(n=0, p50_ms=None, p99_ms=None))
+
+        def held_to(eng, picks, tag, n_out):
+            """Rescore ``picks`` (request, scores, class) on ``eng``: max
+            |Δ| and bitwise equality, failing beyond TOL."""
+            d, same = 0.0, True
+            for r, got, cls in picks:
+                want = eng.score(r).scores
+                if got.shape != (MT_CANDIDATES, n_out) or not (
+                        np.isfinite(got).all() and close(got, want)):
+                    raise AssertionError(
+                        f"memtier {tag} ({cls}): "
+                        f"{np.abs(got - want).max():.3e}")
+                d = max(d, float(np.abs(got - want).max()))
+                same = same and bool(np.array_equal(got, want))
+            return dict(checked=len(picks), bitwise_equal=same,
+                        max_abs=d)
+
+        def stream(model, graph, params, n_out, universes, seed):
+            """Per universe: warm the Zipf head, serve the stream, check
+            identity, graphs and promotions; returns the request maker."""
+            # the same plan with the cache (and so the cold tier) off:
+            # every request recomputes stage 1 and re-stacks
+            ident = ServingEngine(graph, params, tpu.evolve(
+                batch__linger_ms=0.0, cache__cache_user_reps=False),
+                device=dev)
+            oracle = ServingEngine(graph, params, plain.evolve(
+                batch__linger_ms=0.0, cache__cache_user_reps=False),
+                device=dev)
+            pool = requests(graph, (MT_CANDIDATES,) * MT_POOL, seed=seed)
+            ufeeds = [r.user_feeds for r in pool]
+            cand = pool[0].candidate_feeds
+
+            def req(uid):
+                return ServeRequest(user_id=int(uid),
+                                    user_feeds=ufeeds[uid % MT_POOL],
+                                    candidate_feeds=cand)
+
+            for i, universe in enumerate(universes):
+                eng = ServingEngine(graph, params, plan, device=dev)
+                w = 1.0 / np.arange(1, universe + 1,
+                                    dtype=np.float64) ** MT_ZIPF_S
+                cdf = np.cumsum(w) / w.sum()
+                rng = np.random.default_rng(seed + 100 + i)
+                uids = np.searchsorted(cdf, rng.random(MT_REQUESTS),
+                                       side="left")
+                lat = {"hot": [], "cold": [], "recompute": []}
+                picks = {c: [] for c in lat}
+                before = dict(by_path.get("memtier", {}))
+                with counting("memtier"):
+                    t = time.perf_counter()
+                    eng.warm([(0, ufeeds[0])])
+                    capacity = eng.mem_stats()["cold"]["capacity"]
+                    k = min(universe, capacity, int(np.searchsorted(
+                        cdf, MT_MASS, side="left")) + 1)
+                    if k > 1:
+                        eng.warm([(u, ufeeds[u % MT_POOL])
+                                  for u in range(1, k)])
+                    warm_s = time.perf_counter() - t
+                    # each route's first capture, untimed: a recompute
+                    # (slot tables) and a cold hit (re-stacked)
+                    eng.score(req(universe + 1))
+                    eng.warm([(universe + 2,
+                               ufeeds[(universe + 2) % MT_POOL])])
+                    eng.score(req(universe + 2))
+                    for uid in uids:
+                        r = req(uid)
+                        t = time.perf_counter()
+                        res = eng.score(r)
+                        ms = (time.perf_counter() - t) * 1e3
+                        cls = ("hot" if res.user_cache_hit
+                               else "cold" if res.cold_hit else "recompute")
+                        lat[cls].append(ms)
+                        if len(picks[cls]) < MT_IDENTITY:
+                            picks[cls].append((r, res.scores, cls))
+                    eng.flush_promotions()
+                after = dict(by_path["memtier"])
+                built = graph_stats(eng)
+                check_graphs("memtier", eng)
+                more = np.searchsorted(cdf, rng.random(200), side="left")
+                with counting("memtier"):
+                    trace = traced(
+                        f"memtier_{model}_U{universe}", {model: eng},
+                        lambda: ([eng.score(req(u)) for u in more],
+                                 eng.warm([(universe + 3, ufeeds[
+                                     (universe + 3) % MT_POOL])]),
+                                 eng.flush_promotions()),
+                        need=("group", "pack", "dispatch", "collect",
+                              "warm", "cold_hit", "cold_miss"))
+                if graph_stats(eng) != built:
+                    raise AssertionError(
+                        f"memtier {model} U={universe}: a repeated pass "
+                        f"captured: {built} -> {graph_stats(eng)}")
+                mst = eng.mem_stats()
+                prof = eng.profiler.snapshot()
+                identity = {c: held_to(ident, p, "vs cache-off", n_out)
+                            for c, p in picks.items()}
+                four = [p[j] for j in range(2) for p in picks.values()
+                        if len(p) > j][:4]
+                vs_plain = held_to(oracle, four, "vs use_pallas=False",
+                                   n_out)
+                n_hit = len(lat["hot"]) + len(lat["cold"])
+                log("memtier", model=model, universe=universe,
+                    requests=MT_REQUESTS, hit_rate=n_hit / MT_REQUESTS,
+                    **{c: ms_stats(v) for c, v in lat.items()},
+                    warmed=k, warm_s=warm_s, warm_users_per_s=k / warm_s,
+                    demotions=mst["demotions"],
+                    promotions=mst["promote"]["promotions"],
+                    promote_errors=mst["promote"]["errors"],
+                    promote_last_error=mst["promote"]["last_error"],
+                    cold_hits=mst["cold_hits"],
+                    cold_misses=mst["cold_misses"],
+                    arena=mst["cold"], cold_read_us_mean=prof["cold_read"],
+                    demote_us_mean=prof["demote"],
+                    identity_vs_cache_off=identity,
+                    identity_vs_plain=vs_plain,
+                    graphs=built, device_store=eng.device_store.stats(),
+                    launches={k2: n - before.get(k2, 0)
+                              for k2, n in after.items() if n},
+                    trace=trace)
+                if mst["promote"]["errors"]:
+                    raise AssertionError(
+                        f"memtier {model} U={universe}: "
+                        f"{mst['promote']['errors']} promotions failed: "
+                        f"{mst['promote']['last_error']}")
+                missing = [c for c, v in lat.items() if not v]
+                if missing:
+                    raise AssertionError(f"memtier {model} U={universe}: "
+                                         f"no {missing} request")
+                eng.close()
+                del eng
+                gc.collect()                 # the arena's slabs go now
+            ident.close()
+            oracle.close()
+            return req
+
+        cfg = PaperRankingConfig()
+        graph, _ = build_paper_ranking_model(cfg)
+        params = init_graph_params(graph, seed=0, device=dev)
+        req = stream("paper", graph, params, cfg.n_tasks, MT_UNIVERSES,
+                     seed=70)
+
+        # the tier's copies per user on the real path: a 64-user hot LRU
+        # demotes 256 users, which are then served cold
+        eng = ServingEngine(graph, params, plan.evolve(
+            cache__max_cached_users=64), device=dev)
+        with counting("memtier"):
+            for u in range(320):
+                eng.score(req(u))
+            dem = eng.profiler.snapshot(reset=True)["demote"]
+            got = [eng.score(req(u)) for u in range(256)]
+            eng.flush_promotions()
+        read = eng.profiler.snapshot()["cold_read"]
+        mst = eng.mem_stats()
+        if not all(r.cold_hit for r in got) or eng.demotions != 256:
+            raise AssertionError(f"memtier copies: {eng.demotions} "
+                                 f"demotions, cold hits "
+                                 f"{sum(r.cold_hit for r in got)}")
+        if mst["promote"]["errors"]:
+            raise AssertionError("memtier copies: a promotion failed")
+        bpu = mst["cold"]["bytes_per_user"]
+        log("memtier_copies", model="paper", bytes_per_user=bpu,
+            boundaries=len(eng._cold._layout),
+            demote_ms_per_user=dem["mean_us"] / 1e3, demotions=dem["calls"],
+            cold_hit_read_ms_per_user=read["mean_us"] / 1e3,
+            cold_hits=read["calls"],
+            demote_gb_s=bpu / (dem["mean_us"] * 1e3),
+            cold_hit_gb_s=bpu / (read["mean_us"] * 1e3),
+            promote_errors=mst["promote"]["errors"])
+        eng.close()
+        del eng, params
+        gc.collect()
+
+        graph, _ = build_din(embed_dim=18, seq_len=100, attn_mlp=(80, 40),
+                             mlp=(200, 80), item_vocab=10_000_000)
+        params = init_graph_params(graph, seed=0, device=dev)
+        stream("din", graph, params, 1, MT_UNIVERSES[:1], seed=80)
+        del params
+        torch.cuda.empty_cache()
+
     def multihot_phase() -> None:
         """Phase 6 (a-c). Every ``score_many`` of the device-tier service
         counts as path ``multihot``; the re-stacking twin, the fault run and
@@ -1811,6 +2045,9 @@ def main() -> int:
 
     # ---- phase 6: multi-hot DLRM, device tier, faults, hedging -------------
     multihot_phase()
+
+    # ---- phase 7: the memory tier at full width ----------------------------
+    memtier_phase()
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the
@@ -1821,7 +2058,9 @@ def main() -> int:
     # multi-hot device-tier service (and its re-stacking twin, and its
     # fault run) to the pooled bags, the interaction and the gathered MaRI
     # init, the hedged paper-preset engine (no kernel gather) to the bags,
-    # the interaction and the row-wise MaRI init; table1 is only printed
+    # the interaction and the row-wise MaRI init, the memory tier's engines
+    # to the gathered MaRI init (paper, DIN) and DIN's gathered attention
+    # contractions; table1 is only printed
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
                           and k not in OFF_PATH]}
@@ -1837,6 +2076,8 @@ def main() -> int:
                                    "dot_interaction/triu"]
     held["multihot_hedging"] = ["embedding_bag/fixed", "mari_matmul/rowwise",
                                 "dot_interaction/triu"]
+    held["memtier"] = ["mari_matmul/gather", "gather_einsum/bd,uldh->blh",
+                       "gather_einsum/bl,uld->bd"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
     # every path hands mari_matmul prepared weights (engines at load, the

@@ -49,8 +49,19 @@ Traps, and what this module does about each:
   scenario; they keep launching, pinning host memory and synchronising
   while one engine captures. Capture runs with
   ``capture_error_mode="thread_local"`` on the pool's own capture stream,
-  so only the capturing thread's calls are checked and two engines
-  capturing at once never share a stream.
+  so only the capturing thread's calls are checked. ``torch.cuda.Stream()``
+  hands out 32 pool streams per priority round-robin, so after 32 pools
+  two engines' capture streams can be one CUDA stream, and one engine's
+  warm-up or capture would join the other's capture: a process-wide lock
+  (``_CAPTURE_LOCK``) serialises every warm-up and capture, which happen
+  once per signature.
+* **Garbage collection during a capture.** Engines hold reference cycles
+  (bound methods of their own), so a dropped engine's graphs are freed
+  by Python's cyclic collector, which runs at any allocation in any
+  thread. Freeing a graph calls ``cudaGraphExecDestroy``, which a capture
+  in progress in that thread forbids: the call fails and the capture is
+  invalidated. The automatic collector is paused for each capture
+  (``_gc_paused``), as ``torch.cuda.graph`` collects before its capture.
 * **Memory.** One graph memory pool per engine (``GraphPool``:
   ``torch.cuda.graph_pool_handle()``), shared by its stage-1 and stage-2
   graphs. Graphs of one pool reuse each other's intermediate memory, which
@@ -66,7 +77,9 @@ in place), and the entry keeps the object alive.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import threading
 from typing import Any, Callable, Mapping
 
@@ -78,6 +91,22 @@ from repro_torch.kernels import build
 
 Tensor = torch.Tensor
 Feed = Any          # Tensor | np.ndarray | sequence of Tensors (stacked)
+
+# taken inside a pool's lock, never the other way round
+_CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No automatic cyclic collection while a capture runs (captures are
+    serialised by ``_CAPTURE_LOCK``, so the pauses never nest)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class GraphCaptureError(RuntimeError):
@@ -221,7 +250,7 @@ class CompiledRun:
         if self.device.type != "cuda":
             return entry
         pool = self.pool
-        with pool.lock:
+        with pool.lock, _CAPTURE_LOCK:
             for k, v in feeds.items():
                 _copy_in(static[k], v)
             args = {**static, **refs}
@@ -236,7 +265,7 @@ class CompiledRun:
             # capture_begin / capture_end directly: torch.cuda.graph's
             # context manager synchronises the whole device and empties
             # the allocator's cache, under other engines' threads
-            with torch.cuda.stream(side), \
+            with torch.cuda.stream(side), _gc_paused(), \
                     build.recording_launches() as rec:
                 graph.capture_begin(pool=pool.handle,
                                     capture_error_mode="thread_local")

@@ -22,8 +22,13 @@ stages eagerly and the kernel wrappers take their plain PyTorch versions.
 ``--trace out.json`` turns on ``ObsPlan.trace`` for the run and writes a
 Chrome trace-event file (load it at https://ui.perfetto.dev): one process
 per scenario, the engine's group / stage1 / pack / dispatch / collect
-spans and the batcher's and caches' instants. The reference's
-``--cold-tier`` is not ported yet.
+spans and the batcher's and caches' instants.
+
+``--cold-tier`` arms the ``MemPlan`` host-RAM cold tier, bulk-warms the
+even user ids of the synthetic stream into the cold arena, and reports
+cold hits / async promotions after the stream (the ``[serve] mem`` line)
+— so a traced run emits the ``warm`` / ``cold_hit`` / ``promote``
+instants.
 """
 from __future__ import annotations
 
@@ -62,9 +67,33 @@ def build_plan(args) -> ServePlan:
         over["kernel__use_pallas"] = args.use_pallas
     if args.continuous is not None:
         over["batch__continuous"] = args.continuous
+    if args.cold_tier is not None:
+        over["mem__cold_tier"] = args.cold_tier
     if args.trace:
         over["obs__trace"] = True
     return plan.evolve(**over) if over else plan
+
+
+def _warm_half(warm, graph, split, candidates: int, n_uids: int = 8):
+    """Bulk-warm the EVEN user ids of the launcher's ``r % n_uids`` stream
+    into the cold arena. Odd ids stay unwarmed, so one interleaved stream
+    deterministically exercises every tier: even ids cold-hit (and, after
+    enough touches, promote); odd ids pay stage 1 once and then hot-hit."""
+    rng = np.random.default_rng(11)
+    items = []
+    for uid in range(0, n_uids, 2):
+        uf, _ = split(make_recsys_feeds(graph, candidates, rng))
+        items.append((uid, uf))
+    return warm(items)
+
+
+def _mem_line(tag: str, engine: ServingEngine) -> None:
+    engine.flush_promotions()
+    ms = engine.mem_stats()
+    print(f"[serve] {tag}mem cold_users={ms['cold']['users']} "
+          f"cold_hits={ms['cold_hits']} "
+          f"promotions={ms['promote']['promotions']} "
+          f"promote_errors={ms['promote']['errors']}")
 
 
 def _summary(tag: str, lats: list[float]) -> None:
@@ -89,6 +118,14 @@ def serve_single(args, plan: ServePlan) -> None:
               [r.dense for r in engine.conversion.rewrites])
     user_in = {n.name for n in graph.input_nodes()
                if n.attrs.get("domain") == "user"}
+
+    def split(feeds):
+        return ({k: v for k, v in feeds.items() if k in user_in},
+                {k: v for k, v in feeds.items() if k not in user_in})
+
+    if engine.cold_tier:
+        warmed = _warm_half(engine.warm, graph, split, args.candidates)
+        print(f"[serve] warmed {warmed} users into the cold tier")
     lats = []
     rng = np.random.default_rng(7)
     for r in range(args.requests):
@@ -101,6 +138,8 @@ def serve_single(args, plan: ServePlan) -> None:
         lats.append(engine.score(req).latency_ms)
     _summary(f"arch={args.arch} mode={engine.mode}",
              lats[min(2, len(lats) - 1):])   # drop the first, cold calls
+    if engine.cold_tier:
+        _mem_line("", engine)
     if args.trace and engine.tracer is not None:
         write_trace(args.trace, {args.arch: engine.tracer})
         print(f"[serve] wrote trace -> {args.trace} "
@@ -118,6 +157,15 @@ def serve_multi(args, plan: ServePlan, scenarios: list[str]) -> None:
             svc.register(sc)
         print(f"[serve] scenarios={','.join(svc.scenarios)} "
               f"(interleaved round-robin)")
+        for sc in scenarios:
+            if svc.engine(sc).cold_tier:
+                warmed = _warm_half(
+                    lambda items, sc=sc: svc.warm(sc, items),
+                    svc.source_graph(sc),
+                    lambda feeds, sc=sc: svc.split_feeds(sc, feeds),
+                    args.candidates)
+                print(f"[serve] scenario={sc} warmed {warmed} users into "
+                      f"the cold tier")
         rng = np.random.default_rng(7)
         items = []
         for r in range(args.requests):
@@ -138,6 +186,9 @@ def serve_multi(args, plan: ServePlan, scenarios: list[str]) -> None:
         print(f"[serve] shared_cache users={cache['users']} "
               f"hits={cache['hits']} misses={cache['misses']} "
               f"evictions={cache['evictions']}")
+        for sc in scenarios:
+            if svc.engine(sc).cold_tier:
+                _mem_line(f"scenario={sc} ", svc.engine(sc))
         if args.trace:
             tracers = {sc: svc.engine(sc).tracer for sc in svc.scenarios
                        if svc.engine(sc).tracer is not None}
@@ -191,6 +242,11 @@ def main(argv: list[str] | None = None) -> None:
                     action=argparse.BooleanOptionalAction, default=None,
                     help="continuous (two-phase overlapped) dispatch loop "
                          "in the scenario batchers")
+    ap.add_argument("--cold-tier",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="host-RAM cold rep tier (MemPlan): bulk-warm the "
+                         "even user ids of the stream, serve cold hits "
+                         "from the arena, promote repeat users async")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="trace the run (ObsPlan.trace) and write a "
                          "Perfetto-loadable Chrome trace-event JSON here")

@@ -1,8 +1,8 @@
 """Per-request orchestration for two-stage serving (port of
 ``repro.serve.engine``: graph, split, cache, bucketing, coalescing, the
 two-phase dispatch, compiled stages, the device-resident rep tier,
-hedging, fault injection, quarantine, the circuit breaker and request
-tracing; sharding and the memory tier are not ported yet).
+hedging, fault injection, quarantine, the circuit breaker, request
+tracing and the memory tier; sharding is not ported yet).
 
 ``ServingEngine`` rewrites a ranking graph per its ``ServePlan``, splits it
 into the two stages of ``repro_torch.core.split`` and scores candidate
@@ -70,6 +70,27 @@ enqueued after an in-flight launch cannot change what that launch reads.
 A call that writes while earlier calls are still in flight also arms the
 store's copy-on-write fork (``pipeline_forks``), as the reference does.
 
+Memory tier (``plan.mem.cold_tier``, ``repro_torch.mem``): a host-RAM
+``ColdRepStore`` under the hot LRU. The tier walk in ``_user_reps`` is hot
+LRU -> cold arena -> stage 1: a hot-LRU eviction demotes the user's reps
+into the arena (one synchronous device-to-host copy per boundary), a hot
+miss that finds the user there is served from the arena read copied back
+onto the card (``cold_hit``; no stage 1, no hot put), and a
+``PromotionWorker`` thread moves users touched often enough back into the
+hot LRU, as device tensors. ``warm`` fills the arena offline through the
+engine's own compiled stage 1 (``RepWarmer``). A pack carrying a
+cold-served user takes the re-stacking route, never a device slot. Every
+copy of the tier runs on a CUDA stream of the engine's own
+(``_mem_stream``, from the high-priority pool, which no capture stream
+comes from) and waits on that stream alone, whatever thread fires
+it (a batcher thread, or the promotion thread whose ``cache.put`` can
+evict): nothing of the tier synchronises the device or touches the legacy
+default stream while another engine captures. Tensors enter the hot cache
+only once complete (stage 1 is synchronised before its put, a promotion's
+copy is synchronous), so a demotion needs no wait on the stream that made
+them; and a tensor of the tier is released only with the request handle
+that read it, after its packs' events have been waited on.
+
 Fault tolerance (``plan.ft``): a seeded ``FaultInjector`` pokes the
 engine's sites (stage1, pack, transfer_copy, stage2_dispatch, collect;
 slot_write and table_fork in the store). A failed row write quarantines
@@ -108,8 +129,9 @@ from repro_torch.graph.executor import USER_INDEX_FEED, Executor
 from repro_torch.graph.ir import Graph
 from repro_torch.kernels.mari_matmul.ops import (prepare_mari_params,
                                                  stream_weight_blocks)
+from repro_torch.mem import ColdRepStore, PromotionWorker, RepWarmer
 from repro_torch.obs import DEFAULT_CAPACITY, MetricsRegistry, Tracer
-from repro_torch.serve.cache import DeviceRepStore, UserRepCache
+from repro_torch.serve.cache import EVICT, DeviceRepStore, UserRepCache
 from repro_torch.serve.errors import FaultInjected
 from repro_torch.serve.hedging import HedgedRunner, HedgePolicy
 from repro_torch.serve.plan import ServePlan
@@ -148,6 +170,8 @@ class ServeResult:
     stage1_ms: float = 0.0       # 0 when cached / single-stage
     coalesced: bool = False      # scored inside a cross-user batch
     degraded: bool = False       # candidate pool truncated under overload
+    cold_hit: bool = False       # served from the host-RAM cold tier (no
+    #                              stage-1 recompute, no hot/device slot)
 
 
 def _precat_mari_weights(graph: Graph, params: dict) -> dict:
@@ -178,6 +202,7 @@ class _ReqInfo:                   # per-request working state inside a batch
     stage1_ms: float
     chunks: list[tuple[dict, int]]
     slot_key: object
+    cold_hit: bool = False        # reps came from the cold arena read
 
 
 @dataclasses.dataclass(eq=False)
@@ -404,6 +429,50 @@ class ServingEngine:
         self.fallback_packs = 0       # packs the open breaker re-routed
         self.corruptions_detected = 0  # NaN scores caught at collect
 
+        # -- hierarchical memory tier (plan.mem): host-RAM cold store +
+        # async promotion + bulk warming. The cold tier only makes sense
+        # under a live hot cache (single-stage engines have none) --
+        self.cold_tier = plan.mem.cold_tier and self.cache_user_reps
+        self._cold: ColdRepStore | None = None
+        self._promoter: PromotionWorker | None = None
+        self._warmer: RepWarmer | None = None
+        self._mem_stream = None       # the tier's own CUDA stream
+        self.cold_hits = 0            # requests served from the arena read
+        self.cold_misses = 0          # full misses past an armed cold tier
+        self.demotions = 0            # hot-LRU evictions caught by the arena
+        if self.cold_tier:
+            if self.device.type == "cuda":
+                # from the high-priority pool: torch.cuda.Stream() hands
+                # out the 32 default-priority pool streams round-robin,
+                # and one of those is some engine's capture stream
+                # (GraphPool) — a tier copy there would join its capture
+                self._mem_stream = torch.cuda.Stream(self.device,
+                                                     priority=-1)
+            self._cold = ColdRepStore(plan.mem.cold_bytes)
+            # promotions enter the hot cache as device tensors: the device
+            # tier's row writes and the re-stacking cat both take them
+            self._promoter = PromotionWorker(
+                self._cold, self.cache,
+                touches=plan.mem.promote_touches,
+                window_s=plan.mem.promote_window_s, to_hot=self._to_device)
+            self._warmer = RepWarmer(self._warm_stage1, self._cold,
+                                     batch=plan.mem.warm_batch,
+                                     sync=self._sync, to_host=self._to_host)
+            # hot-LRU evictions DEMOTE into the arena instead of being
+            # discarded (fired outside the cache lock)
+            self.cache.subscribe_removal(self._on_cache_removal)
+            if self.metrics is not None:
+                for name, fn in (
+                        ("cold_hits", lambda: self.cold_hits),
+                        ("cold_misses", lambda: self.cold_misses),
+                        ("demotions", lambda: self.demotions),
+                        ("promotions", lambda: self._promoter.promotions),
+                        ("warmed_users", lambda: self._warmer.warmed),
+                        ("cold_users", lambda: len(self._cold)),
+                        ("cold_tier_bytes",
+                         lambda: self._cold.stats()["bytes"])):
+                    self.metrics.gauge(name, fn)
+
         # ring-buffer tracing: off keeps the hot path at a `tracer is None`
         # check; the caches and the fault injector get the tracer for
         # their instants
@@ -449,6 +518,92 @@ class ServingEngine:
             self._device_store.set_tracer(tracer)
         if self.fault_injector is not None:
             self.fault_injector.set_tracer(tracer)
+        if self._promoter is not None:
+            self._promoter.set_tracer(tracer)
+            self._warmer.set_tracer(tracer)
+
+    # -- hierarchical memory tier hooks --------------------------------------
+    def _mem_ctx(self):
+        """The tier's copies run on its own stream (CUDA) and each waits
+        for that stream alone."""
+        return (torch.cuda.stream(self._mem_stream)
+                if self._mem_stream is not None else contextlib.nullcontext())
+
+    def _to_device(self, rows: Mapping[str, np.ndarray]) -> dict[str, Tensor]:
+        """Arena rows (fresh host copies) -> tensors on the engine's
+        device: one synchronous copy per boundary, finished on return."""
+        with self._mem_ctx():
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in rows.items()}
+
+    def _to_host(self, reps: Mapping[str, Tensor]) -> dict[str, np.ndarray]:
+        """One warmed user's reps -> numpy (synchronous copies)."""
+        with self._mem_ctx():
+            return {k: v.cpu().numpy() for k, v in reps.items()}
+
+    def _warm_stage1(self, params, feeds):
+        """The warmer runs the engine's OWN compiled stage 1 at the live
+        path's (1, ...) feed shapes, in the graph's feed order — warmed
+        reps are bit-identical to what a request would have computed."""
+        return self._stage1_run(params, {k: feeds[k]
+                                         for k in self._stage1_inputs
+                                         if k in feeds})
+
+    def _on_cache_removal(self, user_id, version, reps, reason) -> None:
+        """Hot-cache removal listener: evictions demote into the cold
+        arena; supersede/invalidate/clear drop any cold copy too (a stale
+        version must never be re-promoted). Runs outside the cache lock,
+        on whichever thread evicted."""
+        if self._cache_scope is not None and not (
+                isinstance(user_id, tuple) and len(user_id) == 2
+                and user_id[0] == self._cache_scope):
+            return                    # another scenario's keys in a shared
+            #                           cache: not this arena's layout
+        if reason == EVICT:
+            with self.profiler.phase("demote"), self._mem_ctx():
+                self._cold.put((user_id, version), reps)
+            self.demotions += 1
+            if self.tracer is not None:
+                self.tracer.instant("demote", user=user_id)
+        else:
+            self._cold.drop(user_id)
+
+    def warm(self, items, feature_version: int = 0) -> int:
+        """Bulk-precompute stage-1 reps straight into the cold tier.
+
+        ``items`` is an iterable of ``(user_id, user_feeds)`` pairs (feeds
+        at leading dim 1, the dict a ``ServeRequest`` would carry); a
+        warmed user's first live request is a cold hit — one arena read,
+        no stage-1 recompute. Returns the number of users warmed."""
+        if not self.cold_tier:
+            raise RuntimeError(
+                "warm() requires plan.mem.cold_tier=True (and a two-stage "
+                "engine with cache_user_reps)")
+        triples = [(self._scoped_uid(uid), feature_version, feeds)
+                   for uid, feeds in items]
+        return self._warmer.warm(triples, self.params)
+
+    def flush_promotions(self, timeout: float | None = 10.0) -> None:
+        """Block until every cold-hit touch recorded so far has been
+        processed by the promotion worker (deterministic tests/benches)."""
+        if self._promoter is not None:
+            self._promoter.flush(timeout)
+
+    def mem_stats(self) -> dict:
+        """One snapshot of the memory hierarchy (all tiers); the
+        promotion worker's ``errors`` counts failed promotions."""
+        if not self.cold_tier:
+            return {"cold_tier": False}
+        return {
+            "cold_tier": True,
+            "cold_hits": self.cold_hits,
+            "cold_misses": self.cold_misses,
+            "demotions": self.demotions,
+            "cold": self._cold.stats(),
+            "promote": self._promoter.stats(),
+            "warm": {"warmed": self._warmer.warmed,
+                     "stage1_launches": self._warmer.stage1_launches},
+        }
 
     def _on_breaker_transition(self, old: str, new: str) -> None:
         trc = self.tracer
@@ -597,14 +752,34 @@ class ServingEngine:
         """Drop this engine's cached reps of ``user_id`` (scoped, so a
         shared cache keeps the other scenarios' entries)."""
         self.cache.invalidate_user(self._scoped_uid(user_id))
+        if self._cold is not None:
+            # a warmed-but-never-promoted user lives ONLY in the cold
+            # arena — the hot cache fires no removal listener for it
+            self._cold.drop(self._scoped_uid(user_id))
 
     def _user_reps(self, req: ServeRequest
-                   ) -> tuple[Mapping[str, Tensor], bool, float]:
+                   ) -> tuple[Mapping[str, Tensor], bool, float, bool]:
+        """The tier walk: hot LRU, then the cold arena, then stage 1.
+        Returns (reps, hot hit, stage-1 ms, cold hit)."""
         key = (self._scoped_uid(req.user_id), req.feature_version)
         if self.cache_user_reps:
             reps = self.cache.get(key)
             if reps is not None:
-                return reps, True, 0.0
+                return reps, True, 0.0, False
+            if self._cold is not None:
+                with self.profiler.phase("cold_read"):
+                    creps = self._cold.get(key)
+                    if creps is not None:
+                        creps = self._to_device(creps)
+                if creps is not None:
+                    # cold hit: served from the arena read — no stage-1
+                    # recompute, no hot put (the promotion worker decides
+                    # residency off the request path), no device slot
+                    # (cold-served packs re-stack: _resolve_device_slots)
+                    self.cold_hits += 1
+                    self._promoter.touch(key)
+                    return creps, False, 0.0, True
+                self.cold_misses += 1
         if self.two_stage:
             self._poke("stage1", user=req.user_id)
             t0 = time.perf_counter()
@@ -627,7 +802,7 @@ class ServingEngine:
             ms = 0.0
         if self.cache_user_reps:
             self.cache.put(key, reps)
-        return reps, False, ms
+        return reps, False, ms, False
 
     # -- scoring -----------------------------------------------------------
     def score(self, req: ServeRequest) -> ServeResult:
@@ -675,14 +850,18 @@ class ServingEngine:
         trc = self.tracer
         infos: list[_ReqInfo] = []
         for ri, req in enumerate(reqs):
-            reps, hit, s1ms = self._user_reps(req)
+            reps, hit, s1ms, chit = self._user_reps(req)
             if trc is not None:
                 self._trace_req_seq += 1
                 if trc.sampled(self._trace_req_seq):
-                    trc.instant("cache_hit" if hit else "cache_miss",
+                    trc.instant("cache_hit" if hit
+                                else "cold_hit" if chit else "cache_miss",
                                 group=gid, user=req.user_id)
+                    if not hit and not chit and self._cold is not None:
+                        trc.instant("cold_miss", group=gid,
+                                    user=req.user_id)
             infos.append(_ReqInfo(
-                reps=reps, hit=hit, stage1_ms=s1ms,
+                reps=reps, hit=hit, stage1_ms=s1ms, cold_hit=chit,
                 chunks=self._chunk(req.candidate_feeds),
                 # with the cache on, one (user, version) key resolves to the
                 # same cached reps, so such requests share a rep-table slot
@@ -719,11 +898,13 @@ class ServingEngine:
 
         # a row write while earlier calls are in flight forks the tables
         # (copy-on-write, as the reference does); all-resident calls read
-        # the current generation freely
+        # the current generation freely. Cold-served keys never get a row
+        # write (their packs re-stack), so they cannot trigger the fork
+        cold_keys = {info.slot_key for info in infos if info.cold_hit}
         forked = False
         store = self._device_store
         if store is not None and self._inflight:
-            keys = {info.slot_key for info in infos}
+            keys = {info.slot_key for info in infos} - cold_keys
             if any(not store.is_live(self._scoped_uid(u), v)
                    for u, v in keys):
                 self.pipeline_forks += 1
@@ -740,7 +921,7 @@ class ServingEngine:
             dslots = [None] * len(packs)
         else:
             with self.profiler.phase("slots"):
-                dslots = self._resolve_device_slots(packs)
+                dslots = self._resolve_device_slots(packs, cold_keys)
         if forked:
             store.clear_fork_mark()
 
@@ -869,20 +1050,27 @@ class ServingEngine:
             scores=np.concatenate(per_req_scores[ri], axis=0),
             latency_ms=wall_ms, n_batches=per_req_packs[ri],
             user_cache_hit=infos[ri].hit, hedged=per_req_hedged[ri],
-            stage1_ms=infos[ri].stage1_ms, coalesced=len(reqs) > 1)
+            stage1_ms=infos[ri].stage1_ms, coalesced=len(reqs) > 1,
+            cold_hit=infos[ri].cold_hit)
             for ri in range(len(reqs))]
 
     # -- pack preparation ----------------------------------------------------
-    def _resolve_device_slots(self, packs: list) -> list[list[int] | None]:
+    def _resolve_device_slots(self, packs: list,
+                              cold_keys: set = frozenset()
+                              ) -> list[list[int] | None]:
         """Map every pack's slot keys to device-table slots (one row write
         per user not already resident); called only with the device tier
         on. ``None`` per pack when that pack falls back to re-stacking: it
-        overflowed capacity, the breaker is open, or it carries a user that
+        overflowed capacity, the breaker is open, it carries a user that
         appears under two feature versions in this call (the store keeps
         one slot per user, so resolving the second version would rewrite
-        the row the first version's rows read). Every device-resolved user
-        of the call is protected while resolving: a later pack's write may
-        never steal a slot an earlier pack references."""
+        the row the first version's rows read), or it carries a key of
+        ``cold_keys``, served from the cold tier this call (a cold-served,
+        by policy tail, user must not cost a row write or steal a hot
+        user's slot, and with no hot-cache entry no eviction listener
+        would ever free the slot). Every device-resolved user of the call
+        is protected while resolving: a later pack's write may never steal
+        a slot an earlier pack references."""
         store = self._device_store
         if self.breaker is not None and not self.breaker.allow():
             # open: every pack re-stacks; after the cooldown allow() turns
@@ -902,7 +1090,9 @@ class ServingEngine:
         per_pack = []
         protect: list = []
         for _, slot_reps, slot_keys in packs:
-            if any(uid in conflicted for uid, _ in slot_keys):
+            if (any(uid in conflicted for uid, _ in slot_keys)
+                    or (cold_keys
+                        and any(k in cold_keys for k in slot_keys))):
                 per_pack.append(None)
                 continue
             triples = [(self._scoped_uid(uid), ver, reps)
@@ -1031,8 +1221,11 @@ class ServingEngine:
         return out, ev, host_bufs, 0
 
     def close(self) -> None:
-        """Wait for uncollected launches and stop the hedging pool."""
+        """Wait for uncollected launches and stop the promotion worker and
+        the hedging pool."""
         self._sync()
         self._inflight.clear()
+        if self._promoter is not None:
+            self._promoter.stop()
         if self._hedged is not None:
             self._hedged.close()

@@ -24,10 +24,15 @@ packages:
 * ``ObsPlan``    — ``trace`` (the ring-buffer tracer,
   ``repro_torch.obs``), ``trace_capacity``, ``sample_every``, ``metrics``
   (the engine's histograms and counter snapshot). Tracing is off by
-  default, as in the reference.
+  default, as in the reference;
+* ``MemPlan``    — ``cold_tier`` (the host-RAM cold rep arena under the
+  hot LRU, ``repro_torch.mem``; off by default), ``cold_bytes`` (its byte
+  budget), ``promote_touches`` / ``promote_window_s`` (the async
+  promotion gate: k cold hits within a sliding window), ``warm_batch``
+  (the bulk ``warm()`` feed's chunk size between device syncs).
 
-The reference's other sections (shard, mem) are not ported yet: naming
-one is a ``PlanError``, never a silent no-op.
+The reference's other section (shard) is not ported yet: naming it is a
+``PlanError``, never a silent no-op.
 
 Resolution table (the rows that touch these fields):
 
@@ -79,6 +84,14 @@ outside [0, 1]; ``ft.breaker_probes < 1``
 ``obs.trace_capacity < 1`` / ``obs.sample_every < 1``  reject
 ``obs.trace_capacity`` / ``obs.sample_every``         drop them + warn
 (non-default) without ``obs.trace``
+non-positive ``mem.cold_bytes`` /                     reject
+``mem.promote_touches`` / ``mem.promote_window_s``
+/ ``mem.warm_batch``
+``mem.cold_tier`` without ``cache.cache_user_reps``   drop ``cold_tier`` +
+                                                      warn
+``mem.cold_bytes`` / ``promote_touches`` /            drop them + warn
+``promote_window_s`` / ``warm_batch``
+(non-default) without ``mem.cold_tier``
 ====================================================  =======================
 
 Round-trip: ``ServePlan.from_json(plan.to_json()) == plan``.
@@ -179,9 +192,21 @@ class ObsPlan:
     #                                    counter snapshot()
 
 
+@dataclasses.dataclass(frozen=True)
+class MemPlan:
+    """Hierarchical memory tier: host-RAM cold store + async promotion +
+    bulk warming (``repro_torch.mem``)."""
+    cold_tier: bool = False            # arm the host-RAM cold rep arena
+    cold_bytes: int = 1 << 28          # arena byte budget (256 MiB)
+    promote_touches: int = 2           # cold hits needed to promote ...
+    promote_window_s: float = 60.0     # ... within this sliding window
+    warm_batch: int = 256              # bulk-warm chunk between dev syncs
+
+
 _SECTIONS: dict[str, type] = {"graph": GraphPlan, "kernel": KernelPlan,
                               "batch": BatchPlan, "cache": CachePlan,
-                              "ft": FaultPlan, "obs": ObsPlan}
+                              "ft": FaultPlan, "obs": ObsPlan,
+                              "mem": MemPlan}
 
 # per-field type contracts, checked before the range/combination rules. A
 # trailing "?" allows None; "int" excludes bool (True is not a row budget).
@@ -206,6 +231,9 @@ _FIELD_TYPES: dict[str, dict[str, str]] = {
            "breaker_cooldown_ms": "num", "breaker_probes": "int"},
     "obs": {"trace": "bool", "trace_capacity": "int?",
             "sample_every": "int", "metrics": "bool"},
+    "mem": {"cold_tier": "bool", "cold_bytes": "int",
+            "promote_touches": "int", "promote_window_s": "num",
+            "warm_batch": "int"},
 }
 
 
@@ -246,6 +274,7 @@ class ServePlan:
     cache: CachePlan = CachePlan()
     ft: FaultPlan = FaultPlan()
     obs: ObsPlan = ObsPlan()
+    mem: MemPlan = MemPlan()
 
     def __post_init__(self):
         for name, cls in _SECTIONS.items():
@@ -276,8 +305,8 @@ class ServePlan:
                          f"{name}.{field} must be {kind.rstrip('?')}"
                          f"{' or None' if kind.endswith('?') else ''}, "
                          f"got {type(v).__name__} ({v!r})")
-        g, k, b, c, f, o = (self.graph, self.kernel, self.batch,
-                            self.cache, self.ft, self.obs)
+        g, k, b, c, f, o, m = (self.graph, self.kernel, self.batch,
+                               self.cache, self.ft, self.obs, self.mem)
 
         _require(g.mode in MODES,
                  f"unknown mode {g.mode!r}; known: {list(MODES)}")
@@ -336,6 +365,16 @@ class ServePlan:
                  f"default), got {o.trace_capacity}")
         _require(o.sample_every >= 1,
                  f"sample_every must be >= 1, got {o.sample_every}")
+        _require(m.cold_bytes >= 1,
+                 f"mem.cold_bytes must be >= 1, got {m.cold_bytes}")
+        _require(m.promote_touches >= 1,
+                 f"mem.promote_touches must be >= 1, got "
+                 f"{m.promote_touches}")
+        _require(m.promote_window_s > 0,
+                 f"mem.promote_window_s must be > 0, got "
+                 f"{m.promote_window_s}")
+        _require(m.warm_batch >= 1,
+                 f"mem.warm_batch must be >= 1, got {m.warm_batch}")
         for spec in f.sites:
             try:
                 parse_fault_spec(spec)
@@ -419,6 +458,38 @@ class ServePlan:
                                dataclasses.replace(self.cache,
                                                    device_slots=None))
             c = self.cache
+        if m.cold_tier and not c.cache_user_reps:
+            notes.append(
+                "mem.cold_tier without cache.cache_user_reps: the cold tier "
+                "catches hot-LRU evictions and feeds promotions back into "
+                "the hot cache — with no hot cache there is nothing to "
+                "demote from or promote into; resolved to cold_tier=False")
+            object.__setattr__(self, "mem",
+                               dataclasses.replace(self.mem,
+                                                   cold_tier=False))
+            m = self.mem
+        mem_knobs = [n for n, v in
+                     (("cold_bytes",
+                       None if m.cold_bytes == 1 << 28 else m.cold_bytes),
+                      ("promote_touches",
+                       None if m.promote_touches == 2 else m.promote_touches),
+                      ("promote_window_s",
+                       None if m.promote_window_s == 60.0 else
+                       m.promote_window_s),
+                      ("warm_batch",
+                       None if m.warm_batch == 256 else m.warm_batch))
+                     if v is not None]
+        if mem_knobs and not m.cold_tier:
+            notes.append(
+                f"mem.{'/'.join(mem_knobs)} without mem.cold_tier=True: "
+                f"they parameterize the cold tier only — resolved to "
+                f"defaults (set cold_tier=True to keep them)")
+            object.__setattr__(self, "mem",
+                               dataclasses.replace(self.mem,
+                                                   cold_bytes=1 << 28,
+                                                   promote_touches=2,
+                                                   promote_window_s=60.0,
+                                                   warm_batch=256))
         inj_knobs = [n for n, v in (("sites", f.sites or None),
                                     ("seed", f.seed or None))
                      if v is not None]

@@ -2,6 +2,10 @@
 ``repro.serve.profile``, with the phases this engine records).
 
 * ``stage1``   — user-tower compute on cache miss (waits for the device);
+* ``cold_read`` — with the cold tier armed, a hot miss's arena lookup and,
+  on a cold hit, the copy of its rows onto the card (once per such miss);
+* ``demote``   — one hot-LRU eviction copied from the card into the cold
+  arena (fired on whichever thread evicted);
 * ``pack``     — host-side bucket assembly: pinned transfer-buffer fills,
   rep-table stacking, the host->device copies being enqueued (one entry
   per pack);
@@ -28,8 +32,8 @@ import time
 from contextlib import contextmanager
 from typing import Iterator
 
-PHASES = ("stage1", "pack", "slots", "dispatch", "device", "unpack",
-          "queue_idle", "overlap")
+PHASES = ("stage1", "cold_read", "demote", "pack", "slots", "dispatch",
+          "device", "unpack", "queue_idle", "overlap")
 
 
 class StageProfiler:

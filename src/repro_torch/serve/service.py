@@ -185,11 +185,19 @@ class RankingService:
         futs = [self.submit(scenario, req) for scenario, req in items]
         return [f.result() for f in futs]
 
+    # -- memory hierarchy ---------------------------------------------------
+    def warm(self, scenario: str, items, feature_version: int = 0) -> int:
+        """Bulk-precompute stage-1 reps into a scenario's cold tier (see
+        ``ServingEngine.warm``); requires ``plan.mem.cold_tier=True`` for
+        that scenario. ``items``: ``(user_id, user_feeds)`` pairs."""
+        return self._get(scenario).engine.warm(
+            items, feature_version=feature_version)
+
     # -- observability ------------------------------------------------------
     def stats(self) -> dict:
         """Per-scenario serving counters (including the stage-boundary
-        profile, the device rep tier, hedging and the fault counters) +
-        the shared cache's state with byte accounting."""
+        profile, the device rep tier, hedging, the fault counters and the
+        memory tier) + the shared cache's state with byte accounting."""
         return {
             "scenarios": {
                 s.name: {
@@ -221,6 +229,9 @@ class RankingService:
                         "queue_wait_ms": s.batcher.queue_wait.snapshot(),
                     },
                     "profile": s.engine.profiler.snapshot(),
+                    # memory hierarchy (plan.mem): cold arena occupancy,
+                    # promotion-policy counters, warm-feed totals
+                    "mem": s.engine.mem_stats(),
                 } for s in self._scenarios.values()},
             # users/max_users/hits/misses/evictions plus byte accounting
             "shared_cache": self.shared_cache.stats(),

@@ -157,7 +157,7 @@ def test_bridge_copies(paper):
     ({"shard": {"shard_candidates": True}}, "unknown plan sections"),
     ({"obs": {"trace": True, "trace_capacity": 0}},
      "trace_capacity must be >= 1"),
-    ({"mem": {"cold_tier": True}}, "unknown plan sections"),
+    ({"dist": {"cold_tier": True}}, "unknown plan sections"),
     ({"shard": {"compress_scores": True}}, "unknown plan sections"),
     ({"graph": {"mode": "tiled"}}, "unknown mode"),
     ({"graph": {"mode": "vani", "two_stage": True}}, "no user-only stage"),

@@ -289,7 +289,8 @@ def test_plan_json_round_trip_with_ft():
 def test_presets_equal_the_reference_on_every_ported_section(name):
     ours = tserve.ServePlan.preset(name).to_dict()
     ref = jserve.ServePlan.preset(name).to_dict()
-    assert set(ours) == {"graph", "kernel", "batch", "cache", "ft", "obs"}
+    assert set(ours) == {"graph", "kernel", "batch", "cache", "ft", "obs",
+                         "mem"}
     for section in ours:
         assert ours[section] == ref[section], section
     assert ours["batch"]["hedging"] is True

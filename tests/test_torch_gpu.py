@@ -1121,3 +1121,247 @@ def test_replays_count_launches_and_keep_tma_addresses(cuda):
     torch.cuda.synchronize()
     assert run.compilations == 1
     assert mm.LAUNCHES["broadcast"] == 5 and di.LAUNCHES["triu"] == 5
+
+
+# -- the memory tier on the card ----------------------------------------------
+
+def _cold_engine(graph, params, dev, **over):
+    plan = ServePlan.preset("tpu").evolve(**{
+        "batch__hedging": False, "batch__max_batch": 256,
+        "batch__min_bucket": 16, "cache__max_cached_users": 2,
+        "mem__cold_tier": True, "mem__cold_bytes": 1 << 26, **over})
+    return ServingEngine(graph, params, plan, device=dev)
+
+
+def test_mem_tier_copies_from_two_threads_while_a_third_captures(cuda):
+    """The request thread demotes, the promotion thread promotes (and its
+    puts demote), while a third thread builds 40 engines that capture
+    their graphs: no capture fails, no promotion fails, and every
+    cold-served or promoted score stays the cache-off engine's."""
+    import threading
+    graph, params = _model("paper", cuda)
+    eng = _cold_engine(graph, params, cuda, mem__promote_touches=1)
+    off = ServingEngine(graph, params, ServePlan.preset("tpu").evolve(
+        batch__hedging=False, batch__max_batch=256, batch__min_bucket=16,
+        cache__cache_user_reps=False), device=cuda)
+    reqs = _requests(graph, (40, 90, 17, 130, 60, 7), seed=40)
+    want = [off.score(r).scores for r in reqs]
+    stop, captured, errors, streams = threading.Event(), [], [], set()
+
+    def capture():
+        g2, p2 = _model("din", cuda)
+        rs = _requests(g2, (9, 33, 120), seed=41)
+        try:
+            while not stop.is_set():
+                e2 = ServingEngine(g2, p2, ServePlan.preset("tpu").evolve(
+                    batch__hedging=False, batch__max_batch=256,
+                    batch__min_bucket=8), device=cuda)
+                for r in rs:
+                    e2.score(r)
+                captured.append(e2.graph_pool.captures)
+                streams.add(e2.graph_pool.capture_stream.cuda_stream)
+                e2.close()
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=capture)
+    th.start()
+    try:
+        i = 0
+        while len(captured) < 40 and not errors and i < 20000:
+            k = (i * 5) % len(reqs)
+            np.testing.assert_allclose(eng.score(reqs[k]).scores, want[k],
+                                       **TOL)
+            i += 1
+    finally:
+        stop.set()
+        th.join()
+    eng.flush_promotions()
+    assert errors == [] and captured and min(captured) > 0
+    # pool streams are handed out round-robin (32 per priority): past 32
+    # engines every default-priority stream has been a capture stream,
+    # and the tier's is none of them
+    assert len(streams) == 32
+    assert eng._mem_stream.cuda_stream not in streams
+    ms = eng.mem_stats()
+    assert ms["promote"]["errors"] == 0, ms["promote"]["last_error"]
+    assert ms["demotions"] > 0 and ms["promote"]["promotions"] > 0
+    assert ms["cold_hits"] > 0
+    eng.close()
+    off.close()
+
+
+def test_mem_tier_arena_rows_and_promoted_reps(cuda):
+    """A demoted user's arena rows equal the device tensors they came from
+    bit for bit; a promoted user's reps are tensors on the card again,
+    equal to those rows."""
+    graph, params = _model("paper", cuda)
+    eng = _cold_engine(graph, params, cuda)
+    a, b, c = _requests(graph, (20, 30, 40), seed=42)
+    eng.score(a)
+    hot = {k: v.cpu().numpy() for k, v in eng.cache.get((0, 0)).items()}
+    eng.score(b)
+    eng.score(c)                              # evicts user 0: demoted
+    assert eng.demotions == 1
+    rows = eng._cold.peek((0, 0))
+    assert set(rows) == set(hot)
+    for k in hot:
+        assert rows[k].tobytes() == hot[k].tobytes(), k
+    for _ in range(2):                        # two touches: promoted
+        assert eng.score(a).cold_hit
+    eng.flush_promotions()
+    reps = eng.cache.get((0, 0))
+    assert reps is not None and eng._promoter.promotions == 1
+    for k, v in reps.items():
+        assert v.device == cuda and v.is_cuda
+        assert v.cpu().numpy().tobytes() == hot[k].tobytes(), k
+    assert eng.score(a).user_cache_hit
+    eng.close()
+
+
+def test_mem_tier_cold_served_scores_match_cache_off(cuda):
+    """With the device tier on, warmed and demoted users served cold (the
+    re-stacking route) score as a cache-off engine does; a pack carrying
+    a cold-served user takes no device slot."""
+    graph, params = _model("paper", cuda)
+    eng = _cold_engine(graph, params, cuda, cache__device_resident=True,
+                       cache__device_slots=4, mem__promote_touches=3)
+    off = ServingEngine(graph, params, ServePlan.preset("tpu").evolve(
+        batch__hedging=False, batch__max_batch=256, batch__min_bucket=16,
+        cache__cache_user_reps=False), device=cuda)
+    reqs = _requests(graph, (50, 80, 120, 33, 200), seed=43)
+    eng.warm([(r.user_id, r.user_feeds) for r in reqs[3:]])
+    for r in reqs[:3]:
+        eng.score(r)                          # user 0 demoted
+    writes = eng.device_store.stats()["writes"]
+    for r in (reqs[0], reqs[3], reqs[4]):
+        res = eng.score(r)
+        assert res.cold_hit
+        np.testing.assert_allclose(res.scores, off.score(r).scores, **TOL)
+    co = eng.score_coalesced([reqs[2], reqs[4], reqs[1]])
+    assert [x.cold_hit for x in co] == [False, True, False]
+    for r, x in zip((reqs[2], reqs[4], reqs[1]), co):
+        np.testing.assert_allclose(x.scores, off.score(r).scores, **TOL)
+    assert eng.device_store.stats()["writes"] == writes
+    assert eng.stage2_compilations == eng.stage2_routes
+    eng.close()
+    off.close()
+
+
+def test_mem_tier_warm_pass_captures_no_new_graph(cuda):
+    """A pass of hot, cold and recompute requests builds every graph the
+    traffic needs (with the device tier: slot-route graphs for hot and
+    recompute, re-stacking graphs for cold); the same traffic again, and
+    a second warm, capture nothing."""
+    graph, params = _model("paper", cuda)
+    eng = _cold_engine(graph, params, cuda, cache__device_resident=True,
+                       cache__device_slots=4, cache__max_cached_users=3)
+    reqs = _requests(graph, (40, 40, 120, 120, 40, 120, 40, 40), seed=44)
+    eng.warm([(r.user_id, r.user_feeds) for r in reqs[4:]])
+    order = [0, 1, 2, 3, 4, 5, 0, 6, 7, 1, 2]
+    classes = []
+    for k in order:
+        res = eng.score(reqs[k])
+        classes.append("hot" if res.user_cache_hit
+                       else "cold" if res.cold_hit else "recompute")
+    assert {"hot", "cold", "recompute"} <= set(classes)
+    built = (eng.graph_pool.captures, eng.stage2_compilations,
+             eng.stage1_compilations)
+    assert eng.stage2_compilations == eng.stage2_routes
+    eng.warm([(r.user_id, r.user_feeds) for r in reqs[4:]])
+    for k in order:
+        eng.score(reqs[k])
+    assert (eng.graph_pool.captures, eng.stage2_compilations,
+            eng.stage1_compilations) == built
+    eng.close()
+
+
+def test_engines_on_one_capture_stream_capture_from_two_threads(cuda):
+    """Two engines whose pools drew the same pool stream (torch hands out
+    32 per priority, round-robin) capture from two threads at once: the
+    process-wide capture lock keeps each warm-up and capture out of the
+    other's, so every graph builds and scores as an engine capturing
+    alone does."""
+    import threading
+    graph, params = _model("paper", cuda)
+    plan = ServePlan.preset("tpu").evolve(batch__hedging=False,
+                                          batch__max_batch=256,
+                                          batch__min_bucket=8)
+    a = ServingEngine(graph, params, plan, device=cuda)
+    # draw pool streams until the round-robin comes back to a's; 31 more
+    # bring the next draw, b's capture stream, onto it again
+    for _ in range(32):
+        if torch.cuda.Stream(cuda).cuda_stream == \
+                a.graph_pool.capture_stream.cuda_stream:
+            break
+    for _ in range(31):
+        torch.cuda.Stream(cuda)
+    b = ServingEngine(graph, params, plan, device=cuda)
+    assert (a.graph_pool.capture_stream.cuda_stream
+            == b.graph_pool.capture_stream.cuda_stream)
+    reqs = _requests(graph, (5, 9, 17, 33, 65, 129, 250), seed=45)
+    got, errors = {}, []
+
+    def serve(name, eng):
+        try:
+            got[name] = [eng.score(r).scores for r in reqs]
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(n, e))
+               for n, e in (("a", a), ("b", b))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert a.graph_pool.captures > 5 and b.graph_pool.captures > 5
+    ref = ServingEngine(graph, params, plan, device=cuda)   # alone
+    for r, x, y in zip(reqs, got["a"], got["b"]):
+        want = ref.score(r).scores
+        np.testing.assert_allclose(x, want, **TOL)
+        np.testing.assert_allclose(y, want, **TOL)
+    for eng in (a, b, ref):
+        eng.close()
+
+
+def test_capture_survives_a_collection_of_dead_graphs(cuda):
+    """Engines are reference cycles: a dropped engine's graphs are freed by
+    the cyclic collector, whenever it runs, in whatever thread allocates
+    at that moment — here inside another capture, where the engine's last
+    holder lets go of it and the collector would run (it runs
+    automatically only while enabled). Freeing a graph inside a capture
+    calls ``cudaGraphExecDestroy``, which ends the capture; the collector
+    is paused for a capture, so the capture completes and the engine goes
+    at the next collection."""
+    import gc
+    import weakref
+    from repro_torch.graph.compiled import CompiledRun
+    graph, params = _model("din", cuda)
+    dead = ServingEngine(graph, params, ServePlan.preset("tpu").evolve(
+        batch__hedging=False), device=cuda)
+    for r in _requests(graph, (9, 300), seed=46):
+        dead.score(r)
+    assert dead.graph_pool.captures == 3
+    dead.close()
+    holder, alive = [dead], weakref.ref(dead)
+    del dead
+
+    in_capture = []
+
+    def body(p, feeds):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()            # the engine's cycle is garbage now
+            if gc.isenabled():        # what the collector would do here
+                gc.collect()
+            in_capture.append(alive() is not None)
+        return {"y": feeds["x"] * 2.0}
+
+    run = CompiledRun(body, device=cuda)
+    out = run({}, {"x": torch.ones(8, device=cuda)})
+    torch.testing.assert_close(out["y"], torch.full((8,), 2.0,
+                                                    device=cuda))
+    assert run.pool.captures == 1 and holder == []
+    assert in_capture == [True]       # not collected inside the capture
+    gc.collect()                      # the dead engine goes now
+    assert alive() is None

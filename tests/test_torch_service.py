@@ -622,9 +622,16 @@ def test_launcher_dump_plan_round_trips(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--cold-tier"], ["--no-cold-tier"]])
-def test_launcher_refuses_unported_flags(flag):
+def test_launcher_refuses_unported_flags(flag, tmp_path):
+    """``--cold-tier`` is ported (the memory tier): it maps onto
+    ``mem.cold_tier`` as the reference's does. The shard section's knobs
+    stay unported, and a flag for them is refused."""
+    path = tmp_path / "plan.json"
+    launcher.main(flag + ["--dump-plan", str(path), "--requests", "0"])
+    assert tserve.ServePlan.load(str(path)).mem.cold_tier is (
+        flag[0] == "--cold-tier")
     with pytest.raises(SystemExit):
-        launcher.main(flag + ["--requests", "0"])
+        launcher.main(flag + ["--shard-candidates", "--requests", "0"])
 
 
 def test_launcher_defaults_to_cuda():
