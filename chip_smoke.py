@@ -77,6 +77,22 @@
    universe: the paper model's attention (``cross_attention``) is not
    re-parameterized, so only DIN's decomposed attention runs
    ``gather_einsum`` on this path.
+8. Distributed serving (``dist``): ``python -m repro_torch.dist.runner``
+   as subprocesses, the paper model at full width with the ``tpu`` graph
+   and kernel sections, ``shard_candidates`` on and hedging off, 4 users
+   over ~6000 candidates (4096-row packs, 2048 rows per shard), in VanI /
+   UOI / MaRI: (a) two gloo ranks time-slicing the one card, (b) a
+   one-rank NCCL group, (c) the int8 score gather on two ranks, MaRI.
+   Each run is verified, timed over 300 passes and traced (the merged
+   trace reloaded: one pid per rank). Per record: processes, shards,
+   backend, max |Δ| against the rank's local unsharded engine (2e-4, or
+   the int8 bound) with the bitwise flag, max |Δ| of the kernels against
+   ``use_pallas=False``, each rank's ``mari_matmul`` gather launches (> 0
+   in MaRI), and ``qps``, ``rows_per_s`` (median pass, with p10 / p50 /
+   p90) and the ``StageProfiler`` breakdown (mean µs a call, ms a pass at
+   p10 / p50 / p90) of (a), (b) and (c) side by side per mode
+   (``dist_bench``). Two ranks share one card, so (a) against (b) is the
+   cost of the split and the gather, not scaling.
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -98,9 +114,10 @@ readings summed per path: the paper and DIN ``tpu``
 engines, their device-resident twins, the phase-4 service, that service
 under the preset's default hedging, train + convert, the paper's single
 call, in phase 6 the device-tier service, its re-stacking twin, the
-fault run and the hedged engine, and phase 7's memory-tier engines, each
-its own path. Every kernel variant
-held to a path must have launched on it; runs made only to compare (the
+fault run and the hedged engine, phase 7's memory-tier engines, and
+phase 8's runner workers (each worker zeroes and reads its own counts
+around its sharded engine's work and reports them), each its own path.
+Every kernel variant held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
 a call (``PREPARES``) must be 0 on each path, and x copies to a padded
@@ -166,6 +183,9 @@ MT_MIN_AVAILABLE = 16 << 30           # below this MemAvailable, halve it
 MT_IDENTITY = 16                      # requests per class rescored
 # MLPerf DLRM-DCNv2's Criteo multi-hot sizes (MLCommons training,
 # recommendation_v2/torchrec_dlrm, --multi_hot_sizes), one per sparse field
+# phase 8, distributed serving: 4 users of ~1500 candidates each, so
+# coalesced packs fill 4096-row buckets, 2048 rows per shard on two ranks
+DIST_POOL, DIST_USERS, DIST_PASSES, DIST_TIMEOUT = 6000, 4, 300, 300
 MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1,
              6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
 
@@ -175,6 +195,7 @@ def log(tag: str, **kv) -> None:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: {SRC}/repro_torch not found — run from a checkout "
               f"of the repository", file=sys.stderr)
@@ -195,7 +216,7 @@ def main() -> int:
     from repro_torch.core.mari import apply_mari
     from repro_torch.data.features import make_recsys_feeds
     from repro_torch.examples.train_then_convert import teacher_batches
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, read_launches, reset_launches
     from repro_torch.kernels import din_attention as da
     from repro_torch.kernels import dot_interaction as di
     from repro_torch.kernels import embedding_bag as eb
@@ -941,19 +962,6 @@ def main() -> int:
             profile={k: v for k, v in twin.profiler.snapshot().items()
                      if v["calls"]})
         twin.close()
-
-    def reset_launches():
-        for mod in (mm, ge, di, da, eb):
-            mod.reset_launches()
-
-    def read_launches():
-        out = {f"mari_matmul/{m}": n for m, n in mm.LAUNCHES.items()}
-        out.update({f"gather_einsum/{s}": n for s, n in ge.LAUNCHES.items()})
-        out.update({f"dot_interaction/{v}": n
-                    for v, n in di.LAUNCHES.items()})
-        out.update({f"din_attention/{v}": n for v, n in da.LAUNCHES.items()})
-        out.update({f"embedding_bag/{v}": n for v, n in eb.LAUNCHES.items()})
-        return out
 
     by_path: dict[str, dict[str, int]] = {}
     # mari_matmul's weights prepared inside a call (a raw w) and x operands
@@ -1991,6 +1999,106 @@ def main() -> int:
         del heng, ref, oracle, params
         torch.cuda.empty_cache()
 
+    def dist_phase() -> None:
+        """Phase 8: candidate-axis sharded serving through the runner
+        (path ``dist``), as a user runs it: the paper model at full width,
+        the ``tpu`` graph and kernel sections with ``shard_candidates`` on
+        and hedging off, 4 users over ~6000 candidates (4096-row packs in
+        2048-row shards): (a) two gloo ranks on the one card, (b) a
+        one-rank NCCL group, (c) the int8 score gather on two ranks; each
+        verified, then timed over ``DIST_PASSES`` passes and traced. Each
+        worker counts its own launches around its sharded engine's work
+        (the runner's ``per_rank``)."""
+        t_phase = time.perf_counter()
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        plan_path = os.path.join(ROOT, "build", "dist_plan.json")
+        ServePlan.preset("tpu").evolve(shard__shard_candidates=True,
+                                       batch__hedging=False).save(plan_path)
+        common = ["--scale", "1.0", "--pool", str(DIST_POOL), "--users",
+                  str(DIST_USERS), "--plan", plan_path, "--timeout",
+                  str(DIST_TIMEOUT), "--verify", "--bench", "--passes",
+                  str(DIST_PASSES)]
+        runs = {"a_gloo_2": ["--spawn", "2"],
+                "b_nccl_1": ["--spawn", "1"],
+                "c_int8_2": ["--spawn", "2", "--compress-scores",
+                             "--modes", "mari"]}
+        env = dict(os.environ, PYTHONPATH=SRC)
+        bench = {}
+        for tag, extra in runs.items():
+            # every run traced alike, so the instrumentation is no
+            # difference between them
+            trace_path = os.path.join(ROOT, "build", f"dist_{tag}.json")
+            cmd = [sys.executable, "-m", "repro_torch.dist.runner",
+                   *common, *extra, "--trace", trace_path]
+            t = time.perf_counter()
+            out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=DIST_TIMEOUT + 60)
+            secs = time.perf_counter() - t
+            recs = [json.loads(ln) for ln in out.stdout.splitlines()
+                    if ln.startswith("{")]
+            if out.returncode != 0 or not recs or not recs[-1].get("ok"):
+                raise AssertionError(
+                    f"dist {tag}: runner exited {out.returncode}\n"
+                    f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+            for rec in recs[:-1]:
+                ranks = rec["per_rank"]
+                tot = by_path.setdefault("dist", {})
+                for r in ranks:
+                    for k, n in r["launches"].items():
+                        tot[k] = tot.get(k, 0) + n
+                gather_launches = [r["launches"].get("mari_matmul/gather", 0)
+                                   for r in ranks]
+                within = rec.get("within_int8_bound",
+                                 rec.get("within_2e-4"))
+                log("dist", run=tag, mode=rec["mode"],
+                    processes=rec["processes"], shards=rec["shards"],
+                    backend=rec["backend"], device=rec["device"],
+                    max_abs_vs_local=rec["max_abs_vs_local"],
+                    bitwise=rec["bit_identical"], within=within,
+                    bound=("int8" if rec["compress_scores"] else "2e-4"),
+                    int8_bound=[r.get("int8_bound") for r in ranks],
+                    max_abs_vs_plain=rec.get("max_abs_vs_plain"),
+                    mari_matmul_gather_launches_per_rank=gather_launches,
+                    launches_per_rank=[r["launches"] for r in ranks],
+                    graphs_per_rank=[r["stage2_compilations"]
+                                     for r in ranks],
+                    qps=rec.get("qps"), rows_per_s=rec.get("rows_per_s"),
+                    rows_per_s_pcts=rec.get("rows_per_s_pcts"),
+                    pass_ms_pcts=rec.get("pass_ms_pcts"), seconds=secs)
+                # each rank held its scores to its local engine and to a
+                # use_pallas=False one (2e-4, or the int8 bound)
+                if not (within and all(r["ok"] for r in ranks)
+                        and rec.get("max_abs_vs_plain") is not None):
+                    raise AssertionError(
+                        f"dist {tag} {rec['mode']}: outside the bound: "
+                        f"{[(r['max_abs_vs_local'], r['max_abs_vs_plain'])
+                            for r in ranks]}")
+                if rec["mode"] == "mari" and not all(gather_launches):
+                    raise AssertionError(
+                        f"dist {tag}: a rank launched no mari_matmul gather "
+                        f"{gather_launches}")
+                bench.setdefault(rec["mode"], {})[tag] = dict(
+                    qps=rec["qps"], rows_per_s=rec["rows_per_s"],
+                    rows_per_s_pcts=rec["rows_per_s_pcts"],
+                    breakdown=rec["breakdown"])
+            # the merged trace: one pid per rank, every rank's spans
+            with open(trace_path) as f:
+                evs = json.load(f)["traceEvents"]
+            pids = sorted({e["pid"] for e in evs})
+            per_pid = {p: sorted({e["name"] for e in evs
+                                  if e["pid"] == p and e.get("ph") != "M"})
+                       for p in pids}
+            log("dist_trace", run=tag, path=trace_path, events=len(evs),
+                pids=pids, names_per_pid=per_pid)
+            if pids != list(range(recs[0]["processes"])) or not all(
+                    {"pack", "dispatch", "gather", "collect"} <= set(n)
+                    for n in per_pid.values()):
+                raise AssertionError(f"dist {tag} trace: pids {pids}, "
+                                     f"{per_pid}")
+        for mode, cells in bench.items():
+            log("dist_bench", mode=mode, passes=DIST_PASSES, **cells)
+        log("dist_phase", seconds=time.perf_counter() - t_phase)
+
     # hedging is the preset's default, as in the reference; phases 2-5
     # keep it off so their dispatch stays non-blocking and their numbers
     # stay comparable across runs, and phase 6c measures it
@@ -2048,6 +2156,11 @@ def main() -> int:
 
     # ---- phase 7: the memory tier at full width ----------------------------
     memtier_phase()
+
+    # ---- phase 8: distributed serving through the runner -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_phase()
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the
@@ -2060,7 +2173,8 @@ def main() -> int:
     # init, the hedged paper-preset engine (no kernel gather) to the bags,
     # the interaction and the row-wise MaRI init, the memory tier's engines
     # to the gathered MaRI init (paper, DIN) and DIN's gathered attention
-    # contractions; table1 is only printed
+    # contractions, the runner's sharded engines to the gathered MaRI init
+    # (every rank, checked in dist_phase); table1 is only printed
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
                           and k not in OFF_PATH]}
@@ -2078,6 +2192,7 @@ def main() -> int:
                                 "dot_interaction/triu"]
     held["memtier"] = ["mari_matmul/gather", "gather_einsum/bd,uldh->blh",
                        "gather_einsum/bl,uld->bd"]
+    held["dist"] = ["mari_matmul/gather"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
     # every path hands mari_matmul prepared weights (engines at load, the
@@ -2103,6 +2218,7 @@ def main() -> int:
                                      for p, c in by_path.items()},
                 "on_path": name not in OFF_PATH, "card": card,
                 **e} for name, e in entries.items()]
+    log("timing", total_seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

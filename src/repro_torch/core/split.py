@@ -41,7 +41,8 @@ every candidate in the batch. ``split_two_stage`` cuts a graph into:
   Stage-2 gathers clamp their indices, and row results are independent of
   table size and of the contents of unreferenced rows.
 
-A copy of ``repro.core.split`` without the sharding helpers.
+A copy of ``repro.core.split``; ``rep_table_pspecs`` states the rep
+tables' placement under candidate-axis sharding.
 
 Both stages share ONE params dict: partial nodes reference their source
 node's params via ``attrs["param_of"]`` indirection, so no weight is copied
@@ -56,6 +57,21 @@ import dataclasses
 
 from repro_torch.core.gca import Color, GCAResult, run_gca
 from repro_torch.graph.ir import Graph, Node, infer_shapes
+
+
+def rep_table_pspecs(boundary_specs: dict) -> dict:
+    """Per-entry placements of the stacked ``(U, ...)`` stage-2 rep tables
+    on the 1-D candidate shard axis: ``(Replicate(),)`` for every entry,
+    every tensor dim unsharded. THE single source of the rep-table
+    sharding contract (``repro_torch.dist.sharding`` serves the rest).
+
+    User representations replicate across candidate shards because every
+    shard scores rows of every user; with the gather-at-load options each
+    shard indexes its replicated table by its own slice of ``user_index``
+    inside the kernel, so no (B, ...)-sized gathered block is ever formed,
+    let alone gathered across ranks."""
+    from torch.distributed.tensor import Replicate
+    return {name: (Replicate(),) for name in boundary_specs}
 
 
 @dataclasses.dataclass

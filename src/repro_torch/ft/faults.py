@@ -46,8 +46,8 @@ import zlib
 # The injection sites wired through the serve stack.  Specs naming any
 # other site are rejected at plan construction.  All nine of the
 # reference's sites are kept, so a spec valid in one package is valid in
-# the other; the port's serve stack pokes every one but spmd_heartbeat
-# (distributed serving is not ported).
+# the other; the serve stack pokes every one but spmd_heartbeat, which the
+# distributed runner pokes once per step.
 SITES = (
     "stage1",           # engine: user-rep compute (after a cache miss)
     "pack",             # engine: greedy pack formation / write barrier

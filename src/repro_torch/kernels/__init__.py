@@ -7,3 +7,27 @@ CUDA tensor -> the kernel, or an error), the plain version, and a
 ``LAUNCHES`` count of kernel launches. No kernel has a backward: on a CUDA
 tensor each wrapper raises when grad mode is on and an input requires
 grad."""
+
+_KERNELS = ("mari_matmul", "gather_einsum", "dot_interaction",
+            "din_attention", "embedding_bag")
+
+
+def _modules():
+    import importlib
+    return {name: importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in _KERNELS}
+
+
+def read_launches() -> dict[str, int]:
+    """Every wrapper's launch counts in this process, keyed
+    ``"<kernel>/<entry>"`` (counts are per process: a worker reports its
+    own)."""
+    return {f"{name}/{k}": n for name, mod in _modules().items()
+            for k, n in mod.LAUNCHES.items()}
+
+
+def reset_launches() -> None:
+    """Zero every wrapper's counts (``mari_matmul``'s ``PREPARES`` and
+    ``STRIDE_COPIES`` too)."""
+    for mod in _modules().values():
+        mod.reset_launches()

@@ -158,6 +158,17 @@ class CoalescingBatcher:
                  retry_backoff_ms: float = 1.0,
                  retry_jitter: float = 0.5,
                  retry_seed: int = 0):
+        if getattr(engine, "_multiproc", False):
+            # same hazard class as hedging under SPMD: each process's
+            # batcher thread would form groups from its own wall-clock
+            # linger/scheduling, so dispatch sequences (and collective
+            # schedules) diverge across workers and the fleet deadlocks.
+            # Multi-process serving drives score_coalesced directly in
+            # lockstep (repro_torch.dist.runner).
+            raise ValueError(
+                "CoalescingBatcher cannot wrap a multi-process sharded "
+                "engine: group formation is timing-dependent and would "
+                "desynchronize the SPMD collective schedule")
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         self.engine = engine

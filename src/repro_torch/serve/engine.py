@@ -2,7 +2,7 @@
 ``repro.serve.engine``: graph, split, cache, bucketing, coalescing, the
 two-phase dispatch, compiled stages, the device-resident rep tier,
 hedging, fault injection, quarantine, the circuit breaker, request
-tracing and the memory tier; sharding is not ported yet).
+tracing, the memory tier and candidate-axis sharding).
 
 ``ServingEngine`` rewrites a ranking graph per its ``ServePlan``, splits it
 into the two stages of ``repro_torch.core.split`` and scores candidate
@@ -51,9 +51,10 @@ before its pending copy has read it.
 Tracing (``plan.obs.trace``): a ``Tracer`` records the reference's events
 at the same places — a ``group`` begin/end per call on its own track,
 ``stage1``, ``pack``, ``dispatch``, ``begin_coalesced`` and ``collect``
-spans, ``cache_hit`` / ``cache_miss``, ``fork_armed``,
-``corruption_detected``, ``breaker_*`` and ``breaker_fallback`` instants;
-the caches, the fault injector and the batcher add theirs.
+spans (and a sharded engine's ``gather``), ``cache_hit`` /
+``cache_miss``, ``fork_armed``, ``corruption_detected``, ``breaker_*``
+and ``breaker_fallback`` instants; the caches, the fault injector and the
+batcher add theirs.
 
 Device-resident tier (``plan.cache.device_resident``): cached stage-1 reps
 also live in a ``DeviceRepStore`` — ONE persistent ``(capacity, ...)``
@@ -91,6 +92,28 @@ copy is synchronous), so a demotion needs no wait on the stream that made
 them; and a tensor of the tier is released only with the request handle
 that read it, after its packs' events have been waited on.
 
+Candidate-axis sharding (``plan.shard``, ``repro_torch.dist``): with
+``shard_candidates`` and a ``torch.distributed`` process group, stage 2
+splits every pack's rows over the ranks, one shard per rank (the largest
+power of two <= the world size, clamped by an integer ``shard_candidates``
+and by ``max_batch``). Every rank runs the same program in lockstep (SPMD):
+stage 1 for every user (replicated reps), the same packs with the same
+layout and padding (buckets stay multiples of the shard count), and then
+fills, copies and replays only its own ``bucket / shards`` rows. The
+closing all-gather runs after the replay, outside any captured graph:
+``all_gather_into_tensor`` on the card under NCCL, ``all_gather`` under
+gloo (which stages a card's block through the host itself and blocks
+until the other ranks' blocks are in). The pack's event is recorded after
+the gather. With
+``compress_scores`` the gather moves int8 codes and one fp32 scale per
+shard and output (``dist.compress.compressed_all_gather``). Ranks past the
+shard count serve no rows and send zeros, but receive the scores. A
+multi-process engine turns hedging off and keeps the device tier off (a
+per-process duplicate or an asynchronous table write would desynchronize
+the collective schedule); the cold tier stays on, as in the reference: a
+promotion moves reps between this process's tiers and changes no pack,
+so no collective depends on it.
+
 Fault tolerance (``plan.ft``): a seeded ``FaultInjector`` pokes the
 engine's sites (stage1, pack, transfer_copy, stage2_dispatch, collect;
 slot_write and table_fork in the store). A failed row write quarantines
@@ -119,14 +142,19 @@ from typing import Hashable, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.common import next_pow2, resolve_device, take_clip, tree_map
+from repro_torch.common import (next_pow2, prev_pow2, resolve_device,
+                                take_clip, tree_map)
 from repro_torch.core.mari import convert_params, mari_rewrite
 from repro_torch.core.split import split_two_stage
+from repro_torch.dist.compress import compressed_all_gather
+from repro_torch.dist.sharding import gather_rows, group_ready, world
+from repro_torch.dist.topology import bucket_for as _bucket_for
+from repro_torch.dist.topology import candidate_shards
 from repro_torch.ft.faults import CORRUPT, FaultInjector
 from repro_torch.ft.recovery import CircuitBreaker
 from repro_torch.graph.compiled import CompiledRun, GraphPool
 from repro_torch.graph.executor import USER_INDEX_FEED, Executor
-from repro_torch.graph.ir import Graph
+from repro_torch.graph.ir import Graph, infer_shapes
 from repro_torch.kernels.mari_matmul.ops import (prepare_mari_params,
                                                  stream_weight_blocks)
 from repro_torch.mem import ColdRepStore, PromotionWorker, RepWarmer
@@ -146,10 +174,9 @@ _TABLE, _CAND, _UIDX = "t:", "c:", "uidx"
 
 def bucket_for(n: int, *, min_bucket: int = 128, max_batch: int = 4096) -> int:
     """Smallest power-of-two bucket holding ``n`` rows, at least
-    ``min_bucket`` and at most ``max_batch`` (``repro.dist.topology.
-    bucket_for`` with one shard: a cap-sized bucket needs no alignment)."""
-    lo = min(min_bucket, max_batch)
-    return min(max_batch, next_pow2(max(n, lo)))
+    ``min_bucket`` and at most ``max_batch``: ``dist.topology.bucket_for``
+    with one shard (a cap-sized bucket needs no alignment)."""
+    return _bucket_for(n, 1, min_bucket=min_bucket, max_batch=max_batch)
 
 
 @dataclasses.dataclass
@@ -210,10 +237,12 @@ class _Pack:
     """One prepared stage-2 call."""
     table: dict                   # name -> rep tensor / per-slot rows
     table_refs: dict              # name -> persistent table (device tier)
-    uidx: Tensor                  # (bucket,) int32, host (pinned on CUDA)
-    cand: dict                    # name -> (bucket, ...) host buffer
+    uidx: Tensor | None           # (rows,) int32, host (pinned on CUDA);
+    #                               None on a rank that serves no rows
+    cand: dict                    # name -> (rows, ...) host buffer
     n_slots: int
     first_shape: bool             # first call at its graph signature
+    bucket: int                   # the pack's rows over all shards
 
 
 @dataclasses.dataclass(eq=False)
@@ -326,6 +355,33 @@ class ServingEngine:
             self._stage1 = self._stage1_run = None
             self._stage1_inputs = None
             batched_graph = self.graph
+        # -- candidate-axis sharding (stage 2): this rank's block of every
+        # pack's rows; the layout is the same on every rank --
+        self.shard_candidates = bool(plan.shard.shard_candidates)
+        self.compress_scores = plan.shard.compress_scores
+        self._n_shards, self._shard_rank, n_ranks = 1, 0, 1
+        self._collective = False      # a process group gathers the scores
+        if self.shard_candidates:
+            n_ranks, rank = world()
+            sc = plan.shard.shard_candidates
+            # never shard wider than the row budget: every shard gets >= 1
+            # row of a max_batch dispatch
+            cap = prev_pow2(self.max_batch)
+            self._n_shards = candidate_shards(
+                n_ranks, cap if sc is True else min(int(sc), cap))
+            self._shard_rank = rank if rank < self._n_shards else None
+            self._collective = group_ready()
+            # buckets stay multiples of the shard count, and so does the
+            # cap: a non-pow2 max_batch rounds DOWN to a power of two
+            if self._n_shards > 1:
+                self.max_batch = prev_pow2(self.max_batch)
+            self.min_bucket = min(max(self.min_bucket, self._n_shards),
+                                  self.max_batch)
+            shapes = infer_shapes(self.graph)
+            self._out_shapes = {o: shapes[o] for o in self.outputs}
+        # several processes in lockstep: no hedging, no device tier
+        self._multiproc = n_ranks > 1
+
         if plan.kernel.precat_weights:
             self.params = _precat_mari_weights(batched_graph, self.params)
         self.use_pallas = plan.kernel.use_pallas
@@ -357,7 +413,8 @@ class ServingEngine:
 
         # -- device-resident tier: persistent slot tables beside the LRU --
         self.device_resident = (plan.cache.device_resident
-                                and self.cache_user_reps)
+                                and self.cache_user_reps
+                                and not self._multiproc)
         self._device_store: DeviceRepStore | None = None
         if self.device_resident:
             capacity = (plan.cache.device_slots
@@ -408,7 +465,8 @@ class ServingEngine:
         # -- hedging: duplicate straggling dispatches (never with the
         # device tier, which the plan already resolves; enforced here too)
         self.hedge_policy = hedge_policy or HedgePolicy()
-        self.hedging = plan.batch.hedging and not self.device_resident
+        self.hedging = (plan.batch.hedging and not self.device_resident
+                        and not self._multiproc)
         self._hedged = (HedgedRunner(self._dispatch, self.hedge_policy)
                         if self.hedging else None)
 
@@ -680,10 +738,11 @@ class ServingEngine:
     # -- candidate mini-batching -----------------------------------------
     def _bucket(self, n: int) -> int:
         """Smallest power-of-two bucket >= n, clamped to
-        [min_bucket, max_batch]: every pool size maps onto a small, fixed
-        set of stage-2 shapes."""
-        return bucket_for(n, min_bucket=self.min_bucket,
-                          max_batch=self.max_batch)
+        [min_bucket, max_batch] and kept a multiple of the shard count:
+        every pool size maps onto a small, fixed set of stage-2 shapes and
+        no shard receives a ragged tail."""
+        return _bucket_for(n, self._n_shards, min_bucket=self.min_bucket,
+                           max_batch=self.max_batch)
 
     def _chunk(self, feeds: Mapping[str, np.ndarray]
                ) -> list[tuple[dict, int]]:
@@ -938,7 +997,7 @@ class ServingEngine:
                                                   on_slots=ds is not None))
                 if trc is not None:
                     total = sum(n for _, _, _, n in pack_items)
-                    bucket = int(prep.uidx.shape[0])
+                    bucket = prep.bucket
                     trc.complete(
                         "pack", t_pk, t_ds - t_pk, group=gid,
                         bucket=bucket, rows=total, pad=bucket - total,
@@ -1129,11 +1188,18 @@ class ServingEngine:
         table at dispatch). Candidate rows and the user index are filled
         into host buffers PRIVATE to this pack (pinned on CUDA), copied
         ``non_blocking`` into the graph's static inputs at dispatch;
-        nothing may write them afterwards."""
+        nothing may write them afterwards. A sharded engine fills only this
+        rank's ``bucket / shards`` rows."""
         self._poke("pack")
         total = sum(n for _, _, _, n in pack_items)
         bucket = self._bucket(total)
         n_slots = len(slot_reps)
+        rows = bucket // self._n_shards
+        if self._shard_rank is None:
+            # past the shard count: no rows to fill, only the injector's
+            # pokes, which every rank makes in the same order
+            self._poke("transfer_copy")
+            return _Pack({}, {}, None, {}, n_slots, False, bucket)
         if dslots is not None:
             # device-resident: the persistent (capacity, ...) tables; rows
             # address their user's live slot directly
@@ -1147,27 +1213,35 @@ class ServingEngine:
             table_refs = {}
             slot_ids = list(range(n_slots))
 
+        # this rank fills rows [lo, hi) of the pack's layout (all of it
+        # unsharded); the layout and its padding are the same on every rank
+        lo = self._shard_rank * rows
+        hi = lo + rows
         pin = self.device.type == "cuda"
-        uidx = torch.empty((bucket,), dtype=torch.int32, pin_memory=pin)
+        uidx = torch.empty((rows,), dtype=torch.int32, pin_memory=pin)
         # candidate feeds in the pinned signature's order, whatever order
         # a request lists them in: one compiled signature per shape
-        cand = {k: torch.empty((bucket,) + row, dtype=_torch_dtype(dt),
+        cand = {k: torch.empty((rows,) + row, dtype=_torch_dtype(dt),
                                pin_memory=pin)
                 for k, (dt, row) in self._feed_sig.items()}
         uidx_np = uidx.numpy()
         cand_np = {k: b.numpy() for k, b in cand.items()}
         offset = 0
         for _, slot, chunk, n in pack_items:
-            uidx_np[offset:offset + n] = slot_ids[slot]
-            for k, buf in cand_np.items():
-                buf[offset:offset + n] = chunk[k]
+            a, b = max(offset, lo), min(offset + n, hi)
+            if a < b:
+                uidx_np[a - lo:b - lo] = slot_ids[slot]
+                for k, buf in cand_np.items():
+                    buf[a - lo:b - lo] = chunk[k][a - offset:b - offset]
             offset += n
-        if offset < bucket:
+        if total < hi:
             # padding rows repeat the LAST real row (user slot and candidate
             # row), so pad scores are copies of a real score
-            uidx_np[offset:] = uidx_np[offset - 1]
-            for buf in cand_np.values():
-                buf[offset:] = buf[offset - 1]
+            a = max(total, lo) - lo
+            _, slot, chunk, n = pack_items[-1]
+            uidx_np[a:] = slot_ids[slot]
+            for k, buf in cand_np.items():
+                buf[a:] = chunk[k][n - 1]
         if self._poke("transfer_copy") is CORRUPT:
             # detectable corruption: NaN-poison the float candidate rows;
             # NaN reaches the scores and is caught at collect
@@ -1180,7 +1254,8 @@ class ServingEngine:
         first_shape = key not in self._stage2_keys
         self._stage2_keys.add(key)
         self._batch_shapes.add((u_dim, bucket))
-        return _Pack(table, table_refs, uidx, cand, n_slots, first_shape)
+        return _Pack(table, table_refs, uidx, cand, n_slots, first_shape,
+                     bucket)
 
     def _launch_pack(self, prep: "_Pack", on_slots: bool = False
                      ) -> tuple[dict, object, tuple, int]:
@@ -1202,23 +1277,56 @@ class ServingEngine:
         host_bufs = (prep.uidx, prep.cand)
         args = (self.params, prep.table, prep.table_refs, prep.uidx,
                 prep.cand)
-        if self._hedged is not None and not prep.first_shape:
+        out, hedged, blocked = None, 0, False
+        if prep.uidx is None:
+            pass                          # this rank serves no rows
+        elif self._hedged is not None and not prep.first_shape:
             stream = torch.cuda.current_stream(self.device) if cuda else None
             with self.profiler.phase("dispatch"):
                 out, outcome = self._hedged.run(stream, *args)
-            return out, None, host_bufs, int(outcome.hedged)
-        with self.profiler.phase("dispatch"):
-            try:
-                out = self._stage2(*args)
-            except Exception:
-                if on_slots and self.breaker is not None:
-                    self.breaker.record_failure()
-                raise
-            ev = None
-            if cuda:
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(self.device))
-        return out, ev, host_bufs, 0
+            hedged, blocked = int(outcome.hedged), True
+        else:
+            with self.profiler.phase("dispatch"):
+                try:
+                    out = self._stage2(*args)
+                except Exception:
+                    if on_slots and self.breaker is not None:
+                        self.breaker.record_failure()
+                    raise
+        gathered = self._collective or self.compress_scores
+        if gathered:
+            t_g = time.perf_counter()
+            with self.profiler.phase("gather"):
+                out = self._gather(out, prep.bucket)
+            if self.tracer is not None:
+                self.tracer.complete("gather", t_g,
+                                     time.perf_counter() - t_g,
+                                     bucket=prep.bucket)
+        ev = None
+        if cuda and (gathered or not blocked):
+            # recorded after the gather: collect waits for both
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        return out, ev, host_bufs, hedged
+
+    def _gather(self, out: dict | None, bucket: int) -> dict[str, Tensor]:
+        """The closing all-gather of a sharded pack, outside any captured
+        graph: every rank's block of scores to every rank (int8 codes and
+        one fp32 scale per shard and output with ``compress_scores``). A
+        rank past the shard count sends zeros; every rank keeps the first
+        ``bucket`` rows, the serving ranks' blocks."""
+        rows = bucket // self._n_shards
+        if out is None:
+            out = {o: torch.zeros((rows,) + self._out_shapes[o],
+                                  device=self.device) for o in self.outputs}
+        if self.compress_scores:
+            return {o: compressed_all_gather(out[o], n_ranks=self._n_shards)
+                    for o in self.outputs}
+        flat = [out[o].reshape(rows, -1) for o in self.outputs]
+        parts = gather_rows(torch.cat(flat, dim=1))[:bucket].split(
+            [f.shape[1] for f in flat], dim=1)
+        return {o: p.reshape((bucket,) + tuple(out[o].shape[1:]))
+                for o, p in zip(self.outputs, parts)}
 
     def close(self) -> None:
         """Wait for uncollected launches and stop the promotion worker and

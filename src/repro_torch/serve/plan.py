@@ -1,5 +1,5 @@
 """``ServePlan`` — the frozen, validated, JSON-serializable serving config
-(port of ``repro.serve.plan``, limited to the sections this port serves).
+(port of ``repro.serve.plan``).
 
 Sections, with the reference's field names so a plan means the same in both
 packages:
@@ -13,6 +13,9 @@ packages:
   ``deadline_linger_frac``, ``continuous``, ``max_inflight``,
   ``admission``, ``shed_queue_depth``, ``degrade_queue_depth``,
   ``degrade_frac``, ``deadline_headroom_ms``;
+* ``ShardPlan``  — candidate-axis sharding over ``torch.distributed``
+  (``repro_torch.dist``): ``shard_candidates`` (False / True / shard
+  count), ``compress_scores`` (the int8 cross-shard score gather);
 * ``CachePlan``  — ``cache_user_reps``, ``max_cached_users``,
   ``device_resident`` (persistent slot-allocated CUDA rep tables),
   ``device_slots``;
@@ -31,9 +34,6 @@ packages:
   promotion gate: k cold hits within a sliding window), ``warm_batch``
   (the bulk ``warm()`` feed's chunk size between device syncs).
 
-The reference's other section (shard) is not ported yet: naming it is a
-``PlanError``, never a silent no-op.
-
 Resolution table (the rows that touch these fields):
 
 ====================================================  =======================
@@ -41,13 +41,16 @@ combination                                           resolution
 ====================================================  =======================
 unknown section or field, wrong-typed value           reject (``PlanError``)
 ``mode`` outside vani/uoi/mari                        reject
+``compress_scores`` without ``shard_candidates``      reject — the int8 wire
+                                                      IS the cross-shard
+                                                      score gather
 ``two_stage=True`` with ``mode="vani"``               reject
 non-positive ``max_batch`` / ``min_bucket`` /         reject
 ``max_users_per_batch`` / ``max_cached_users`` /
 ``device_slots`` / ``max_coalesce`` / ``max_inflight`` /
 ``shed_queue_depth`` / ``degrade_queue_depth``;
-negative ``linger_ms`` / ``deadline_headroom_ms``;
-``deadline_linger_frac`` outside [0, 1];
+negative ``linger_ms`` / ``deadline_headroom_ms`` /
+shard count; ``deadline_linger_frac`` outside [0, 1];
 ``degrade_frac`` outside (0, 1]
 ``degrade_queue_depth > shed_queue_depth``            reject
 admission thresholds (``shed_queue_depth`` /          drop them + warn
@@ -95,6 +98,13 @@ non-positive ``mem.cold_bytes`` /                     reject
 ====================================================  =======================
 
 Round-trip: ``ServePlan.from_json(plan.to_json()) == plan``.
+
+Runtime-dependent interactions stay in the engine: a multi-process engine
+forces ``hedging`` off and keeps the device tier off (per-process
+duplicates or asynchronous table writes would desynchronize the SPMD
+collective schedule), and a sharded engine rounds ``max_batch`` down to a
+shard-divisible power of two — both depend on the process group at
+construction time, which a serialized plan cannot know.
 """
 from __future__ import annotations
 
@@ -156,6 +166,14 @@ class BatchPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """Candidate-axis sharding over the ``torch.distributed`` ranks
+    (``repro_torch.dist``)."""
+    shard_candidates: bool | int = False   # False | True (all) | shard count
+    compress_scores: bool = False          # int8 cross-shard score gather
+
+
+@dataclasses.dataclass(frozen=True)
 class CachePlan:
     """Bounded LRU user-representation store + optional device tier."""
     cache_user_reps: bool = True
@@ -204,9 +222,9 @@ class MemPlan:
 
 
 _SECTIONS: dict[str, type] = {"graph": GraphPlan, "kernel": KernelPlan,
-                              "batch": BatchPlan, "cache": CachePlan,
-                              "ft": FaultPlan, "obs": ObsPlan,
-                              "mem": MemPlan}
+                              "batch": BatchPlan, "shard": ShardPlan,
+                              "cache": CachePlan, "ft": FaultPlan,
+                              "obs": ObsPlan, "mem": MemPlan}
 
 # per-field type contracts, checked before the range/combination rules. A
 # trailing "?" allows None; "int" excludes bool (True is not a row budget).
@@ -223,6 +241,7 @@ _FIELD_TYPES: dict[str, dict[str, str]] = {
               "max_inflight": "int", "admission": "bool",
               "shed_queue_depth": "int?", "degrade_queue_depth": "int?",
               "degrade_frac": "num", "deadline_headroom_ms": "num"},
+    "shard": {"shard_candidates": "bool_or_int", "compress_scores": "bool"},
     "cache": {"cache_user_reps": "bool", "max_cached_users": "int?",
               "device_resident": "bool", "device_slots": "int?"},
     "ft": {"inject": "bool", "seed": "int", "sites": "strs",
@@ -253,6 +272,8 @@ def _type_ok(kind: str, v: Any) -> bool:
         return isinstance(v, bool)
     if kind == "num":
         return isinstance(v, (int, float)) and not isinstance(v, bool)
+    if kind == "bool_or_int":
+        return isinstance(v, int)          # bool is a subtype of int
     if kind == "strs":                     # tuple of str (lists were
         return (isinstance(v, tuple)       # normalized before this check)
                 and all(isinstance(x, str) for x in v))
@@ -271,6 +292,7 @@ class ServePlan:
     graph: GraphPlan = GraphPlan()
     kernel: KernelPlan = KernelPlan()
     batch: BatchPlan = BatchPlan()
+    shard: ShardPlan = ShardPlan()
     cache: CachePlan = CachePlan()
     ft: FaultPlan = FaultPlan()
     obs: ObsPlan = ObsPlan()
@@ -284,8 +306,7 @@ class ServePlan:
                 unknown = set(v) - set(known)
                 _require(not unknown,
                          f"unknown {name}-plan fields {sorted(unknown)}; "
-                         f"known: {known} (the port does not serve the "
-                         f"reference's other fields yet)")
+                         f"known: {known}")
                 object.__setattr__(self, name, cls(**v))
             elif not isinstance(v, cls):
                 raise PlanError(
@@ -305,8 +326,9 @@ class ServePlan:
                          f"{name}.{field} must be {kind.rstrip('?')}"
                          f"{' or None' if kind.endswith('?') else ''}, "
                          f"got {type(v).__name__} ({v!r})")
-        g, k, b, c, f, o, m = (self.graph, self.kernel, self.batch,
-                               self.cache, self.ft, self.obs, self.mem)
+        g, k, b, s, c, f, o, m = (self.graph, self.kernel, self.batch,
+                                  self.shard, self.cache, self.ft, self.obs,
+                                  self.mem)
 
         _require(g.mode in MODES,
                  f"unknown mode {g.mode!r}; known: {list(MODES)}")
@@ -341,6 +363,14 @@ class ServePlan:
                  f"shed_queue_depth ({b.shed_queue_depth}): requests would "
                  f"be shed outright before the cheaper degrade tier ever "
                  f"engaged — order the thresholds degrade <= shed")
+        _require(not (isinstance(s.shard_candidates, int)
+                      and not isinstance(s.shard_candidates, bool)
+                      and s.shard_candidates < 0),
+                 f"shard_candidates count must be >= 0, got "
+                 f"{s.shard_candidates}")
+        _require(not (s.compress_scores and not s.shard_candidates),
+                 "compress_scores is the int8 cross-shard score gather — it "
+                 "requires shard_candidates")
         _require(c.max_cached_users is None or c.max_cached_users >= 1,
                  f"max_cached_users must be >= 1 (or None for unbounded), "
                  f"got {c.max_cached_users}")
@@ -600,8 +630,7 @@ class ServePlan:
         unknown = set(d) - set(_SECTIONS)
         _require(not unknown,
                  f"unknown plan sections {sorted(unknown)}; known: "
-                 f"{sorted(_SECTIONS)} (the port does not serve the "
-                 f"reference's other sections yet)")
+                 f"{sorted(_SECTIONS)}")
         return cls(**{name: d[name] for name in _SECTIONS if name in d})
 
     @classmethod
@@ -621,7 +650,8 @@ class ServePlan:
 
     @classmethod
     def preset(cls, name: str) -> "ServePlan":
-        """Named serving shapes: 'paper', 'vanilla', 'uoi', 'tpu'."""
+        """Named serving shapes: 'paper', 'vanilla', 'uoi', 'tpu',
+        'distributed' (see ``PRESETS``)."""
         if name not in PRESETS:
             raise PlanError(
                 f"unknown preset {name!r}; known: {sorted(PRESETS)}")
@@ -647,4 +677,8 @@ PRESETS: dict[str, ServePlan] = {
     "tpu": ServePlan(graph=GraphPlan(mode="mari", reparam_attention=True),
                      kernel=KernelPlan(use_pallas=True, kernel_gather=True,
                                        gather_attention=True)),
+    # candidate-axis sharding over the ranks; hedging off because the
+    # multi-process SPMD schedule cannot tolerate per-process duplicates
+    "distributed": ServePlan(shard=ShardPlan(shard_candidates=True),
+                             batch=BatchPlan(hedging=False)),
 }

@@ -14,6 +14,9 @@
   before any launch (absent without the tier);
 * ``dispatch`` — enqueueing stage 2 on the device stream (host time only:
   eager PyTorch returns before the device finishes);
+* ``gather``   — a sharded engine's closing all-gather of a pack's scores
+  (enqueued under NCCL; under gloo it blocks until every rank's block is
+  in, so on a card it includes the wait for this rank's replay);
 * ``device``   — waiting on stage-2 results (the pack's CUDA event);
 * ``unpack``   — copying scores to the host and slicing per-request views;
 * ``queue_idle`` — continuous batcher loop time with nothing in flight
@@ -33,7 +36,7 @@ from contextlib import contextmanager
 from typing import Iterator
 
 PHASES = ("stage1", "cold_read", "demote", "pack", "slots", "dispatch",
-          "device", "unpack", "queue_idle", "overlap")
+          "gather", "device", "unpack", "queue_idle", "overlap")
 
 
 class StageProfiler:

@@ -154,11 +154,11 @@ def test_bridge_copies(paper):
 # -- plan -------------------------------------------------------------------
 
 @pytest.mark.parametrize("bad,match", [
-    ({"shard": {"shard_candidates": True}}, "unknown plan sections"),
+    ({"shard": {"shard_candidates": -1}}, "count must be >= 0"),
     ({"obs": {"trace": True, "trace_capacity": 0}},
      "trace_capacity must be >= 1"),
     ({"dist": {"cold_tier": True}}, "unknown plan sections"),
-    ({"shard": {"compress_scores": True}}, "unknown plan sections"),
+    ({"shard": {"compress_scores": True}}, "requires shard_candidates"),
     ({"graph": {"mode": "tiled"}}, "unknown mode"),
     ({"graph": {"mode": "vani", "two_stage": True}}, "no user-only stage"),
     ({"batch": {"max_batch": 0}}, "max_batch must be >= 1"),
@@ -195,8 +195,8 @@ def test_plan_min_bucket_clamp_and_evolve():
     assert plan.batch.min_bucket == 32
     with pytest.raises(TypeError, match="section__field|<section>__<field>"):
         ServePlan().evolve(max_batch=3)
-    with pytest.raises(PlanError):
-        ServePlan.preset("distributed")
+    plan = ServePlan.preset("distributed")
+    assert plan.shard.shard_candidates is True and not plan.batch.hedging
 
 
 @pytest.mark.parametrize("name", sorted(PRESETS))
@@ -217,7 +217,7 @@ def test_presets_round_trip_and_mean_what_reference_means(name, tmp_path):
 
 def test_plan_sections_are_a_subset_of_the_reference():
     ref = REF_PRESETS["paper"]
-    for section in ("graph", "kernel", "batch", "cache"):
+    for section in ("graph", "kernel", "batch", "shard", "cache"):
         ours = {f.name for f in dataclasses.fields(getattr(ServePlan(),
                                                            section))}
         theirs = {f.name for f in dataclasses.fields(getattr(ref, section))}
@@ -263,7 +263,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.train_then_convert, "
             "repro_torch.nn.embedding, repro_torch.kernels.embedding_bag, "
             "repro_torch.ft, repro_torch.ft.faults, "
-            "repro_torch.serve.hedging, repro_torch.serve.cache; "
+            "repro_torch.serve.hedging, repro_torch.serve.cache, "
+            "repro_torch.dist, repro_torch.dist.runner, "
+            "repro_torch.ft.failures; "
             "[repro_torch.configs.get_config(a) for a in "
             "('din', 'deepfm', 'fm', 'dlrm-mlperf', 'paper-ranking')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

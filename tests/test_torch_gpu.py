@@ -1365,3 +1365,157 @@ def test_capture_survives_a_collection_of_dead_graphs(cuda):
     assert in_capture == [True]       # not collected inside the capture
     gc.collect()                      # the dead engine goes now
     assert alive() is None
+
+
+# -- distributed serving: a one-rank NCCL group ------------------------------
+
+@pytest.fixture
+def one_rank_nccl(cuda):
+    """A one-rank NCCL group in this process (no coordinator), left at the
+    end of the test."""
+    from repro_torch.dist.topology import Topology
+    topo = Topology()
+    assert topo.backend(cuda) == "nccl"
+    topo.initialize(cuda, timeout_s=120)
+    yield cuda
+    Topology.shutdown()
+
+
+def test_one_rank_nccl_engine_matches_local(one_rank_nccl):
+    dev = one_rank_nccl
+    graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.25))
+    params = init_graph_params(graph, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for u, n in enumerate((300, 1700, 2900)):
+        feeds = make_recsys_feeds(graph, n, rng)
+        user = {k: v for k, v in feeds.items() if v.shape[0] == 1}
+        reqs.append(ServeRequest(u, user, {k: v for k, v in feeds.items()
+                                           if k not in user}))
+    tpu = ServePlan.preset("tpu").evolve(batch__hedging=False)
+    local = ServingEngine(graph, params, tpu, device=dev)
+    want = [r.scores for r in local.score_coalesced(reqs)]
+    sharded = ServingEngine(graph, params,
+                            tpu.evolve(shard__shard_candidates=True),
+                            device=dev)
+    assert sharded._collective and sharded._n_shards == 1
+    mm.reset_launches()
+    got = sharded.score_coalesced(reqs)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["gather"] > 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.scores, w, **TOL)
+    prof = sharded.profiler.snapshot()
+    assert prof["gather"]["calls"] == sharded.stage2_calls > 0
+    # a second pass replays: no new graph, the gather stays outside it
+    graphs = sharded.stage2_compilations
+    again = sharded.score_coalesced(reqs)
+    assert sharded.stage2_compilations == graphs
+    for g, w in zip(again, want):
+        np.testing.assert_allclose(g.scores, w, **TOL)
+    int8 = ServingEngine(graph, params, tpu.evolve(
+        shard__shard_candidates=True, shard__compress_scores=True),
+        device=dev)
+    tol = max(float(np.abs(w).max()) for w in want) / 127.0 / 2.0 + 1e-6
+    for g, w in zip(int8.score_coalesced(reqs), want):
+        np.testing.assert_allclose(g.scores, w, atol=tol)
+    for eng in (local, sharded, int8):
+        eng.close()
+
+
+def test_int8_gather_bound_on_cuda_tensors(one_rank_nccl):
+    from repro_torch.dist.compress import (compressed_all_gather,
+                                           compressed_psum, dequantize_int8,
+                                           quantize_int8)
+    from repro_torch.dist.sharding import gather_rows
+    dev = one_rank_nccl
+    g = _gen(dev, 3)
+    x = _randn(g, 4096, 2) * 3
+    q, s = quantize_int8(x)
+    qc, sc = quantize_int8(x.cpu())
+    assert q.is_cuda and torch.equal(q.cpu(), qc)
+    assert abs(s.item() - sc.item()) <= np.spacing(np.float32(sc.item()))
+    got = compressed_all_gather(x)
+    assert got.is_cuda and got.shape == x.shape
+    assert float((got - x).abs().max()) <= s.item() / 2 + 1e-6
+    torch.testing.assert_close(got, dequantize_int8(q, s))
+    assert torch.equal(gather_rows(x), x)
+    mean, err = compressed_psum({"x": x})
+    torch.testing.assert_close(mean["x"] + err["x"], x, rtol=0, atol=1e-6)
+    torch.testing.assert_close(mean["x"], dequantize_int8(q, s))
+
+
+# -- distributed serving: two gloo ranks on one card -------------------------
+
+GLOO_CUDA_WORKER = r'''
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.dist.compress import compressed_all_gather, compressed_psum
+from repro_torch.dist.sharding import gather_rows
+from repro_torch.dist.topology import Topology
+
+topo = Topology.from_env()
+dev = topo.device("cuda")
+topo.initialize(dev, timeout_s=120)
+assert dist.get_backend() == "gloo", dist.get_backend()
+rank = topo.process_id
+x = torch.full((3, 2), float(rank + 1), device=dev)
+r = x.clone()
+dist.all_reduce(r)
+b = x.clone()
+dist.broadcast(b, src=0)
+parts = [torch.empty_like(x) for _ in range(2)]
+dist.all_gather(parts, x)
+flat = torch.empty((6, 2), device=dev)
+dist.all_gather_into_tensor(flat, x)
+rows = gather_rows(x)
+q = compressed_all_gather(x)
+mean, err = compressed_psum({"x": x})
+torch.cuda.synchronize(dev)
+want = torch.cat([torch.full((3, 2), 1.0), torch.full((3, 2), 2.0)])
+assert torch.equal(r.cpu(), torch.full((3, 2), 3.0))
+assert torch.equal(b.cpu(), torch.ones(3, 2))
+assert torch.equal(torch.cat(parts).cpu(), want)
+assert torch.equal(flat.cpu(), want)
+assert rows.is_cuda and torch.equal(rows.cpu(), want)
+assert q.is_cuda and torch.allclose(q.cpu(), want)
+# one scale, 2 / 127: codes 64 (63.5 rounded half to even) and 127
+assert mean["x"].is_cuda and torch.allclose(mean["x"].cpu(),
+                                            torch.full((3, 2), 191 / 127))
+Topology.shutdown()
+print("ok", rank)
+'''
+
+
+def test_gloo_takes_cuda_tensors_in_the_gathers(cuda, tmp_path):
+    """Two gloo ranks on the one card: every collective the serving path
+    calls (and broadcast) takes CUDA tensors, so ``gather_rows`` and the
+    int8 collectives hand their results back on the card."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    script = tmp_path / "worker.py"
+    script.write_text(GLOO_CUDA_WORKER)
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=src + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(rank),
+                   REPRO_COORDINATOR=f"file://{tmp_path}/rendezvous")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script)], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=150)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"ok {rank}" in out, out[-3000:]
