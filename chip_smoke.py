@@ -93,6 +93,23 @@
    p10 / p50 / p90) of (a), (b) and (c) side by side per mode
    (``dist_bench``). Two ranks share one card, so (a) against (b) is the
    cost of the split and the gather, not scaling.
+9. The paper's Tables 2 and 3 and the §2.4 reorganization. ``table2``:
+   the reference's ``bench_table2`` points at scale 1.0 (17), each timed
+   four ways: ``torch.addmm`` on the tiled input, the plain
+   ``matmul_mari``, and the ``mari_matmul`` broadcast entry on the tiled
+   input (zero init row) and on x_rest (init row u = x_u W_u, the GEMV
+   timed with it); both time ratios beside ``WeightPartition``'s FLOPs
+   and bytes ratios and each column's bound. ``table3``: ``bench_table3``
+   at scale 1.0, the original matmul, neat MaRI and MaRI over the
+   interleaved layout at chunks 50 .. 800, compiled (``CompiledRun``) and
+   eager. ``reorg``: Table 3's setting as a graph (the chunks of width 100
+   as inputs, one concat, dense(256, relu), dense(1)) served by three
+   ``tpu`` engines: fragment=True, group_by_domain=True, and its
+   ``reorganize`` -> ``convert_params_reorg`` form, each against a plain
+   VanI engine; then the three graphs as single calls
+   (``table3_single_call``). ``examples``: ``repro_torch.examples.
+   gca_demo`` and ``serve_ranking --use-pallas --scale 1.0`` as
+   subprocesses.
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -114,9 +131,10 @@ readings summed per path: the paper and DIN ``tpu``
 engines, their device-resident twins, the phase-4 service, that service
 under the preset's default hedging, train + convert, the paper's single
 call, in phase 6 the device-tier service, its re-stacking twin, the
-fault run and the hedged engine, phase 7's memory-tier engines, and
+fault run and the hedged engine, phase 7's memory-tier engines,
 phase 8's runner workers (each worker zeroes and reads its own counts
-around its sharded engine's work and reports them), each its own path.
+around its sharded engine's work and reports them), and phase 9's three
+``reorg`` engines and its single calls (``table3``), each its own path.
 Every kernel variant held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
@@ -188,6 +206,26 @@ MT_IDENTITY = 16                      # requests per class rescored
 DIST_POOL, DIST_USERS, DIST_PASSES, DIST_TIMEOUT = 6000, 4, 300, 300
 MULTI_HOT = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1,
              6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
+# phase 9, the paper's Tables 2 and 3: the reference's bench_table2 /
+# bench_table3 points (benchmarks/run.py) at scale 1.0. Table 2: (point,
+# B, WeightPartition(D_user, D_item, D_cross, D_hidden)); Table 3: B,
+# D_user, D_item, D_hidden and the chunk widths of the interleaved layout
+T2_POINTS = (
+    [(f"varyB/B={b}", b, (4000, 1000, 1000, 512)) for b in (100, 500, 1000,
+                                                           2000)]
+    + [(f"varyDu/Du={u}", 2000, (u, 1000, 0, 512))
+       for u in (500, 1000, 2000, 4000, 8000)]
+    + [(f"varyDrest/Drest={r}", 2000, (4000, r, 0, 512))
+       for r in (500, 1000, 2000, 5000)]
+    + [(f"varyDhid/Dhid={h}", 2000, (4000, 1000, 0, h))
+       for h in (128, 512, 1024, 2048)])
+T3_B, T3_DU, T3_DI, T3_D = 2000, 4000, 1000, 256
+T3_CHUNKS = (50, 100, 200, 400, 800)
+# the §2.4 path: Table 3's setting as a graph, its inputs the chunks of
+# width 100 that the reference's loop forms; warm passes per engine, the
+# three engines taking turns in each round
+REORG_CHUNK, REORG_WARM_PASSES = 100, 300
+EXAMPLES_TIMEOUT = 400
 
 
 def log(tag: str, **kv) -> None:
@@ -208,13 +246,18 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import numpy as np
 
-    from repro_torch.core.mari import convert_params, mari_rewrite
+    from repro_torch.core import (WeightPartition, convert_params_reorg,
+                                  reorganize)
+    from repro_torch.core.mari import (convert_params, mari_rewrite,
+                                       matmul_mari, matmul_mari_fragmented,
+                                       matmul_vanilla)
     from repro_torch.graph.executor import Executor, init_graph_params
     from repro_torch.configs import get_config
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.common import timeit
     from repro_torch.core.mari import apply_mari
-    from repro_torch.data.features import make_recsys_feeds
+    from repro_torch.data.features import (interleaved_spans,
+                                           make_recsys_feeds)
     from repro_torch.examples.train_then_convert import teacher_batches
     from repro_torch.kernels import build, read_launches, reset_launches
     from repro_torch.kernels import din_attention as da
@@ -2099,6 +2142,273 @@ def main() -> int:
             log("dist_bench", mode=mode, passes=DIST_PASSES, **cells)
         log("dist_phase", seconds=time.perf_counter() - t_phase)
 
+    def table2_phase() -> None:
+        """Phase 9, ``table2``: the reference's bench_table2 points at scale
+        1.0, four columns each (CUDA events, 20 calls behind a device
+        sleep): ``torch.addmm`` on the tiled input (library vanilla), the
+        port's plain ``matmul_mari`` (Eq. 7), the ``mari_matmul``
+        broadcast entry on the tiled input with a zero init row (kernel
+        vanilla) and on x_rest with u = x_u W_u as the init row, the GEMV
+        timed with it (kernel MaRI). The two time ratios stand beside
+        ``WeightPartition``'s FLOPs and bytes ratios and each column's
+        bound; the kernel columns are held to their plain versions."""
+        for label, B, dims in T2_POINTS:
+            part = WeightPartition(*dims)
+            Du, Dr, d = part.d_user, part.d_rest, part.d_out
+            scale = part.d_in ** -0.5
+            xu, xr = randn(1, Du), randn(B, Dr)
+            wu, wr = randn(Du, d) * scale, randn(Dr, d) * scale
+            x_tiled = torch.cat([xu.expand(B, Du), xr], -1)
+            w = torch.cat([wu, wr], 0)
+            zero = torch.zeros(1, d, device=dev)
+            pw, pw_rest = mm.prepare_mari_weight(w), mm.prepare_mari_weight(wr)
+            calls = {
+                "library_vanilla": lambda: torch.addmm(zero, x_tiled, w),
+                "plain_mari": lambda: matmul_mari(xu, xr, wu, wr),
+                "kernel_vanilla": lambda: mm.mari_matmul(x_tiled, pw, zero),
+                "kernel_mari": lambda: mm.mari_matmul(xr, pw_rest, xu @ wu),
+            }
+            errs = {
+                "kernel_vanilla": max_err(calls["kernel_vanilla"](),
+                                          calls["library_vanilla"]()),
+                "kernel_mari": max_err(calls["kernel_mari"](),
+                                       calls["plain_mari"]())}
+            ms = {k: time_ms(f) for k, f in calls.items()}
+            # each column's function moves WeightPartition's bytes (each
+            # weight once; kernel vanilla also reads its zero row); the
+            # kernel does the stream as 3xTF32, kernel MaRI's GEMV at fp32
+            # (its operations given in seconds, at each type's peak)
+            km_s = (2 * Du * d / PEAK_FP32_FLOPS
+                    + 3 * 2 * B * Dr * d / PEAK_TF32_FLOPS)
+            bounds = {
+                "library_vanilla": bound(part.bytes_vanilla(B),
+                                         part.flops_vanilla(B)),
+                "plain_mari": bound(part.bytes_mari(B), part.flops_mari(B)),
+                "kernel_vanilla": bound(part.bytes_vanilla(B) + 4 * d,
+                                        3 * 2 * B * part.d_in * d,
+                                        PEAK_TF32_FLOPS),
+                "kernel_mari": bound(part.bytes_mari(B), km_s, 1.0)}
+            log("table2", point=label, B=B, D_user=Du, D_item=part.d_item,
+                D_cross=part.d_cross, D_hidden=d, ms=ms,
+                time_ratio=dict(
+                    library_vanilla_over_plain_mari=(
+                        ms["library_vanilla"] / ms["plain_mari"]),
+                    kernel_vanilla_over_kernel_mari=(
+                        ms["kernel_vanilla"] / ms["kernel_mari"])),
+                flops_ratio=part.flops_speedup(B),
+                bytes_ratio=part.bytes_vanilla(B) / part.bytes_mari(B),
+                bound_ms={k: v[0] for k, v in bounds.items()},
+                bound_by={k: v[1] for k, v in bounds.items()},
+                bound_ratio=dict(
+                    library=(bounds["library_vanilla"][0]
+                             / bounds["plain_mari"][0]),
+                    kernel=(bounds["kernel_vanilla"][0]
+                            / bounds["kernel_mari"][0])),
+                max_abs_err=errs, tol=TOL)
+            del xu, xr, wu, wr, x_tiled, w, pw, pw_rest, calls
+
+    def table3_phase() -> None:
+        """Phase 9, ``table3``: the reference's bench_table3 at scale 1.0
+        (B 2000, D_user 4000, D_item 1000, D_hidden 256): the original
+        (vanilla) matmul, neat MaRI and MaRI over the interleaved layout at
+        each chunk width, each compiled (``CompiledRun``: the reference
+        times them under ``jax.jit``; inputs read by reference, so a call
+        is one replay) and eager; device ms (CUDA events behind a sleep)
+        and host-wall p50 ms each, and ``vs_original`` % as the
+        reference prints it."""
+        B, Du, Di, d = T3_B, T3_DU, T3_DI, T3_D
+        scale = (Du + Di) ** -0.5
+        xu, xi = randn(1, Du), randn(B, Di)
+        params = {"wu": randn(Du, d) * scale, "wi": randn(Di, d) * scale}
+        params["w"] = torch.cat([params["wu"], params["wi"]], 0)
+        refs = {"xu": xu, "xi": xi,
+                "x_tiled": torch.cat([xu.expand(B, Du), xi], -1)}
+
+        def fragmented(chunk):
+            spans = interleaved_spans(Du, Di, chunk)
+
+            def fn(p, f):
+                segs = [(f["xu"][:, o:o + w], p["wu"][o:o + w])
+                        if dom == "user" else
+                        (f["xi"][:, o:o + w], p["wi"][o:o + w])
+                        for dom, o, w in spans]
+                return {"y": matmul_mari_fragmented(segs)}
+            return fn, len(spans)
+
+        variants = {
+            "original": (lambda p, f: {"y": matmul_vanilla(f["x_tiled"],
+                                                           p["w"])}, 1),
+            "neat_mari": (lambda p, f: {"y": matmul_mari(
+                f["xu"], f["xi"], p["wu"], p["wi"])}, 2)}
+        for c in T3_CHUNKS:
+            variants[f"fragmented/chunk={c}"] = fragmented(c)
+        want = variants["original"][0](params, refs)["y"]
+        rows = {}
+        for name, (fn, n_mm) in variants.items():
+            comp = CompiledRun(fn, device=dev)
+
+            def compiled(comp=comp):
+                return comp(params, {}, refs)
+
+            def eager(fn=fn):
+                with torch.inference_mode():
+                    return fn(params, refs)
+            err = max(max_err(f()["y"], want) for f in (compiled, eager))
+            rows[name] = dict(matmuls=n_mm, max_abs_vs_original=err)
+            for lab, f in (("compiled", compiled), ("eager", eager)):
+                t = timeit(f, warmup=3, iters=20)
+                rows[name][lab] = dict(ms=time_ms(f),
+                                       p50_ms=t["p50_us"] / 1e3,
+                                       mean_ms=t["mean_us"] / 1e3)
+        for name, r in rows.items():
+            r["vs_original_pct"] = {
+                lab: {k: 100 * (r[lab][k] - rows["original"][lab][k])
+                      / rows["original"][lab][k] for k in ("ms", "p50_ms")}
+                for lab in ("compiled", "eager")}
+            log("table3", variant=name, B=B, D_user=Du, D_item=Di,
+                D_hidden=d, **r)
+
+    def reorg_graph():
+        """Table 3's setting as a ranking graph: the user and item chunks
+        of width REORG_CHUNK that the reference's loop forms, one concat,
+        dense(256, relu), dense(1)."""
+        b = GraphBuilder()
+        names = [b.input(f"{dom}_{k}", (w,), dom) for k, (dom, _, w)
+                 in enumerate(interleaved_spans(T3_DU, T3_DI, REORG_CHUNK))]
+        h = b.dense("fc", b.concat("fusion", names), T3_D, activation="relu")
+        b.output(b.dense("logit", h, 1))
+        return b.graph
+
+    def reorg_phase() -> None:
+        """Phase 9, ``reorg`` (path ``reorg``): three ``tpu`` engines over
+        the interleaved graph (fragment=True, the §2.4 regime;
+        group_by_domain=True) and over its reorganization (``reorganize``
+        -> ``convert_params_reorg`` -> the engine's own rewrite), each held
+        to a use_pallas=False VanI engine on the original graph and params;
+        warm ``score`` p50 per pool, ``pack`` / ``dispatch`` ms per pack,
+        graphs built. Then (path ``table3``) the same three graphs as
+        single calls of B = T3_B through the kernels, compiled and eager,
+        beside the plain VanI call."""
+        graph = reorg_graph()
+        params = init_graph_params(graph, seed=0, device=dev)
+        g3, plans = reorganize(graph)
+        p3 = convert_params_reorg(plans, params)
+        oracle = ServingEngine(graph, params,
+                               plain.evolve(graph__mode="vani"), device=dev)
+        reqs = requests(graph, POOLS, seed=20)
+        ref = [oracle.score(r).scores for r in reqs]
+        oracle.close()
+        engines = {
+            "fragment": (graph, params, tpu.evolve(graph__fragment=True)),
+            "group_by_domain": (graph, params,
+                                tpu.evolve(graph__group_by_domain=True)),
+            "reorganized": (g3, p3, tpu)}
+        engs, built, diffs = {}, {}, {}
+        for name, (g, p, plan) in engines.items():
+            eng = engs[name] = ServingEngine(g, p, plan, device=dev)
+            with counting("reorg"):
+                per = [eng.score(r) for r in reqs]       # cold: stage 1 runs
+                co = eng.score_coalesced(reqs)
+            built[name] = graph_stats(eng)
+            d = 0.0
+            for r, p_, c, o in zip(reqs, per, co, ref):
+                n = next(iter(r.candidate_feeds.values())).shape[0]
+                for s_ in (p_.scores, c.scores):
+                    if s_.shape != (n, 1) or not (np.isfinite(s_).all()
+                                                  and close(s_, o)):
+                        raise AssertionError(
+                            f"reorg/{name}: outside {TOL} of the plain VanI "
+                            f"engine: {np.abs(s_ - o).max():.3e}")
+                    d = max(d, float(np.abs(s_ - o).max()))
+            diffs[name] = d
+            check_graphs(f"reorg/{name}", eng)
+            eng.profiler.snapshot(reset=True)
+        # warm passes: round k starts at engine k mod 3, so drift on the
+        # host falls on the three engines alike
+        names = list(engs)
+        warm = {name: [] for name in names}
+        with counting("reorg"):
+            for k in range(REORG_WARM_PASSES):
+                for name in names[k % 3:] + names[:k % 3]:
+                    warm[name].append([engs[name].score(r).latency_ms
+                                       for r in reqs])
+        for name, eng in engs.items():
+            prof = eng.profiler.snapshot(reset=True)
+            if graph_stats(eng) != built[name]:
+                raise AssertionError(f"reorg/{name}: a warm pass captured")
+            conv = eng.conversion
+            log("reorg", engine=name, pools=list(POOLS),
+                segments=len(graph.input_nodes()),
+                reorg_plans=[dict(concat=pl.concat, perm_moves=sum(
+                    i != j for i, j in enumerate(pl.perm)),
+                    remapped=pl.remapped_denses,
+                    restored=pl.restored_consumers) for pl in plans]
+                if name == "reorganized" else None,
+                rewrites=[dict(dense=r.dense, fragment=r.fragment,
+                               groups=[(lab, len(ix)) for lab, ix in r.groups])
+                          for r in conv.rewrites],
+                max_abs_vs_vani_plain=diffs[name],
+                warm_passes=REORG_WARM_PASSES,
+                warm_score_ms={f"p{q}": [float(np.percentile(col, q))
+                                         for col in zip(*warm[name])]
+                               for q in (10, 50, 90)},
+                pack_ms_per_pack=prof["pack"]["mean_us"] / 1e3,
+                dispatch_ms_per_pack=prof["dispatch"]["mean_us"] / 1e3,
+                packs=prof["dispatch"]["calls"], graphs=graph_stats(eng))
+            eng.close()
+        del engs, eng
+
+        # the single calls: one request of T3_B candidates
+        one = requests(graph, (T3_B,), seed=21)[0]
+        feeds = {k: torch.as_tensor(v, device=dev) for k, v in
+                 {**one.user_feeds, **one.candidate_feeds}.items()}
+        runs = [("vani_plain", graph, params, "vani", False)]
+        for name, g, p, kw in (("fragment", graph, params,
+                                dict(fragment=True)),
+                               ("group_by_domain", graph, params,
+                                dict(group_by_domain=True)),
+                               ("reorganized", g3, p3, {})):
+            mg, mp, _ = apply_mari(g, p, **kw)
+            runs.append((name, mg, mm.prepare_mari_params(mg, mp), "uoi",
+                         True))
+        outputs = list(graph.outputs)
+        with counting("table3"):
+            calls = make_calls(runs)
+            scores = single_call(outputs, calls, feeds)
+            d_eager = compiled_vs_eager(outputs, calls, feeds, scores)
+            times = time_calls(calls, feeds)
+        want = scores["vani_plain"].cpu().numpy()
+        for k, v in scores.items():
+            a = v.cpu().numpy()
+            if a.shape != (T3_B, 1) or not (np.isfinite(a).all()
+                                            and close(a, want)):
+                raise AssertionError(f"table3 single call {k} vs VanI: "
+                                     f"{np.abs(a - want).max():.3e}")
+        log("table3_single_call", candidates=T3_B,
+            max_abs_vs_vani={k: float((v - scores["vani_plain"]).abs().max())
+                             for k, v in scores.items()},
+            max_abs_compiled_vs_eager=d_eager, times=times,
+            graph_reserved_mb={k: c[1].pool.reserved_bytes / 1e6
+                               for k, c in calls.items()})
+
+    def examples_phase() -> None:
+        """Phase 9, ``examples``: the two ported examples as a user runs
+        them, on the card; each must exit 0 (its asserts held)."""
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for argv in (["repro_torch.examples.gca_demo"],
+                     ["repro_torch.examples.serve_ranking", "--use-pallas",
+                      "--scale", "1.0"]):
+            t = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=EXAMPLES_TIMEOUT)
+            log("examples", cmd=" ".join(argv), rc=out.returncode,
+                seconds=time.perf_counter() - t,
+                stdout=out.stdout.strip().splitlines(),
+                stderr=out.stderr.strip().splitlines()[-10:])
+            if out.returncode != 0:
+                raise AssertionError(f"{argv[0]} exited {out.returncode}")
+
     # hedging is the preset's default, as in the reference; phases 2-5
     # keep it off so their dispatch stays non-blocking and their numbers
     # stay comparable across runs, and phase 6c measures it
@@ -2161,6 +2471,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dist_phase()
+
+    # ---- phase 9: the paper's Tables 2-3, the reorg path, the examples -----
+    t_phase = time.perf_counter()
+    table2_phase()
+    table3_phase()
+    reorg_phase()
+    examples_phase()
+    log("paper_tables_phase", seconds=time.perf_counter() - t_phase)
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the
@@ -2174,7 +2492,9 @@ def main() -> int:
     # the interaction and the row-wise MaRI init, the memory tier's engines
     # to the gathered MaRI init (paper, DIN) and DIN's gathered attention
     # contractions, the runner's sharded engines to the gathered MaRI init
-    # (every rank, checked in dist_phase); table1 is only printed
+    # (every rank, checked in dist_phase), the three engines of the reorg
+    # path to the gathered MaRI init and its single calls (table3) to the
+    # broadcast init; table1 is only printed
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
                           and k not in OFF_PATH]}
@@ -2193,6 +2513,8 @@ def main() -> int:
     held["memtier"] = ["mari_matmul/gather", "gather_einsum/bd,uldh->blh",
                        "gather_einsum/bl,uld->bd"]
     held["dist"] = ["mari_matmul/gather"]
+    held["reorg"] = ["mari_matmul/gather"]
+    held["table3"] = ["mari_matmul/broadcast"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
     # every path hands mari_matmul prepared weights (engines at load, the

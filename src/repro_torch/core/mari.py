@@ -3,7 +3,7 @@
 Port of ``repro.core.mari``. Two layers of API:
 
 * Functional ops (``matmul_mari``, ``matmul_mari_fragmented``) — Eq. 7 as
-  plain tensor functions.
+  plain tensor functions — and the FLOPs of Eq. 8 / Eq. 9.
 * Graph rewrite (``mari_rewrite`` + ``convert_params``) — step (3) of the
   MaRI workflow (§2.5): replaces GCA-detected ``dense`` nodes with
   ``mari_dense`` nodes and physically re-partitions the trained weight
@@ -61,6 +61,16 @@ def matmul_mari_fragmented(segments: list[tuple[Tensor, Tensor]],
         y = x @ w
         acc = y if acc is None else acc + y
     return acc if b is None else acc + b
+
+
+def vanilla_flops(batch: int, d_in: int, d_out: int) -> int:
+    """Eq. 8."""
+    return 2 * batch * d_in * d_out
+
+
+def mari_flops(batch: int, d_user: int, d_rest: int, d_out: int) -> int:
+    """Eq. 9: 2 d [D_u + B (D_i + D_c)]."""
+    return 2 * d_out * (d_user + batch * d_rest)
 
 
 # ---------------------------------------------------------------------------

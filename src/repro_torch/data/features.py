@@ -1,6 +1,7 @@
 """Synthetic feature pipeline for the recsys graphs (port of
-``repro.data.features``: ``feed_specs``, ``make_recsys_feeds`` and
-``make_labels``).
+``repro.data.features``: ``feed_specs``, ``make_recsys_feeds``,
+``make_labels`` and ``fragment_layout``; ``interleaved_spans`` is the
+layout loop of the reference's ``benchmarks/run.py`` Table 3).
 
 Generates feeds matching a graph's input nodes: user-side inputs at batch
 1, item/cross-side at batch B — the serving contract of Fig. 1. Vocab
@@ -75,3 +76,42 @@ def make_labels(batch: int, rng: np.random.Generator, n_tasks: int = 1
                 ) -> np.ndarray:
     """(batch, n_tasks) float32 labels, each 1 with probability 0.2."""
     return (rng.random((batch, n_tasks)) < 0.2).astype(np.float32)
+
+
+def fragment_layout(d_total: int, chunk: int,
+                    rng: np.random.Generator | None
+                    ) -> list[tuple[str, int]]:
+    """Split a D-wide feature span into interleaved user/item chunks of size
+    ``chunk`` (last chunk may be smaller) — the §2.4 fragmented layout.
+    ``rng=None`` alternates user and item; a ``Generator`` draws each
+    chunk's domain with ``rng.choice``."""
+    out = []
+    doms = ["user", "item"]
+    i = 0
+    off = 0
+    while off < d_total:
+        w = min(chunk, d_total - off)
+        out.append((doms[i % 2] if rng is None else rng.choice(doms), w))
+        off += w
+        i += 1
+    return out
+
+
+def interleaved_spans(d_user: int, d_item: int, chunk: int
+                      ) -> list[tuple[str, int, int]]:
+    """(domain, offset, width) of each chunk of the industrial interleaved
+    layout, as the reference's Table 3 benchmark forms them: user and item
+    chunks of width ``chunk`` alternate until one side runs out, the other
+    side's rest follows."""
+    spans, off_u, off_i, turn = [], 0, 0, 0
+    while off_u < d_user or off_i < d_item:
+        if (turn % 2 == 0 and off_u < d_user) or off_i >= d_item:
+            w = min(chunk, d_user - off_u)
+            spans.append(("user", off_u, w))
+            off_u += w
+        else:
+            w = min(chunk, d_item - off_i)
+            spans.append(("item", off_i, w))
+            off_i += w
+        turn += 1
+    return spans

@@ -39,6 +39,7 @@ from repro_torch.kernels.dot_interaction import (dot_interaction,
 from repro_torch.kernels.embedding_bag import embedding_bag_fixed
 from repro_torch.kernels.gather_einsum import gather_einsum, gather_einsum_plain
 from repro_torch.kernels.mari_matmul import (aligned_ld, empty_stream,
+                                             fragment_stream_idx,
                                              mari_matmul_fused_groups)
 from repro_torch.nn.attention import NEG_INF, cross_attention, target_attention
 from repro_torch.nn.layers import ACTIVATIONS, dense_apply
@@ -167,14 +168,25 @@ def _mari_dense_operands(node: Node, params: dict, vals: dict,
     parts: list[tuple[Tensor, Tensor]] = []
     acc0 = vals[node.inputs[0]] if attrs.get("precomputed_user") else None
     if attrs.get("fragment", False):
-        if acc0 is not None:
-            x = _concat_xs([seg(nm) for nm in node.inputs[1:]],
-                           aligned=kernel)
-            parts.append((x, _stream_weight(p, kernel, lambda: [
-                p[f"w_seg{i}"] for i in attrs["seg_param_idx"]])))
-        else:
+        if acc0 is None and not kernel:
             for i, name in enumerate(node.inputs):
                 parts.append((seg(name), p[f"w_seg{i}"]))
+        else:
+            # the kernel path (or a precomputed user partial): one product
+            # per user segment, the batched segments as one stream
+            idx = fragment_stream_idx(attrs)
+            if acc0 is not None:
+                xs = [seg(nm) for nm in node.inputs[1:]]
+            else:
+                streamed = set(idx)
+                parts.extend((seg(nm), p[f"w_seg{i}"])
+                             for i, nm in enumerate(node.inputs)
+                             if i not in streamed)
+                xs = [seg(node.inputs[i]) for i in idx]
+            if xs:
+                parts.append((_concat_xs(xs, aligned=kernel),
+                              _stream_weight(p, kernel, lambda: [
+                                  p[f"w_seg{i}"] for i in idx])))
     else:
         rest_xs: list[Tensor] = []
         rest_ws: list[Tensor] = []

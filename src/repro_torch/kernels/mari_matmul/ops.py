@@ -157,22 +157,27 @@ def prepare_mari_weight(w: Tensor | MariWeight) -> MariWeight:
     return mw
 
 
+def fragment_stream_idx(attrs: dict) -> list[int]:
+    """The ``w_seg`` indices, in stream order, of a fragment ``mari_dense``'s
+    batched stream: its rest segments when stage 1 precomputed the user
+    partial, else every non-user segment."""
+    if attrs.get("precomputed_user"):
+        return list(attrs["seg_param_idx"])
+    return [i for i, g in enumerate(attrs["seg_groups"]) if g != "user"]
+
+
 def stream_weight_blocks(graph, params: dict) -> dict[str, list[Tensor]]:
     """Each ``mari_dense`` node's batched-group weight blocks, in the order
-    the executor streams them (one ``x @ w`` per node): the node set that
-    ``serve.engine._precat_mari_weights`` concatenates over and
-    ``prepare_mari_params`` prepares. A fragment node without a
-    precomputed user partial streams its segments separately and is left
-    out."""
+    the executor's kernel path streams them (one ``x @ w`` per node): the
+    node set that ``serve.engine._precat_mari_weights`` concatenates over
+    and ``prepare_mari_params`` prepares."""
     out = {}
     for n in graph.nodes.values():
         if n.op != "mari_dense":
             continue
         p = params[n.name]
         if n.attrs.get("fragment"):
-            if not n.attrs.get("precomputed_user"):
-                continue
-            ws = [p[f"w_seg{i}"] for i in n.attrs["seg_param_idx"]]
+            ws = [p[f"w_seg{i}"] for i in fragment_stream_idx(n.attrs)]
         else:
             ws = [p[f"w_{lab}"] for lab, _ in n.attrs["groups"]
                   if lab != "user"]
@@ -361,7 +366,9 @@ def mari_matmul_fused_groups(parts, b=None, *, acc0=None, user_index=None,
 
     Each x is (1, D_g) (user side — folded into the accumulator-init row)
     or (B, D_g) (batched side — one concatenated stream through the
-    kernel; its w may be a ``MariWeight`` when it is the only one).
+    kernel). A prepared ``MariWeight`` is the stream on its own: the other
+    batched parts (a single-stage pack's row-wise user features) seed a
+    row-wise init block.
     ``acc0`` is an optional precomputed partial: a (1, d) row, a row-wise
     (B, d) block, or — with ``user_index`` (B,) — the stacked (U, d)
     per-user table the kernel gathers at accumulator-init load.
@@ -387,16 +394,22 @@ def mari_matmul_fused_groups(parts, b=None, *, acc0=None, user_index=None,
         return out.to(parts[0][0].dtype)
 
     B = max(x.shape[0] for x, _ in rest)
+    gather = user_index if (user_index is not None and acc0 is not None) \
+        else None
+    prepared = [(x, w) for x, w in rest if isinstance(w, MariWeight)]
     if len(rest) == 1:
         # single pre-concatenated stream: no per-call operand copies
         x_rest, w_rest = rest[0]
+    elif prepared:
+        if len(prepared) > 1 or gather is not None:
+            raise ValueError("a prepared weight among several batched "
+                             "streams: at most one, and no gathered init")
+        x_rest, w_rest = prepared[0]
+        for x, w in rest:
+            if w is not w_rest:
+                u = u + x.float() @ w.float()
     else:
-        if any(isinstance(w, MariWeight) for _, w in rest):
-            raise ValueError("a prepared weight must be the only batched "
-                             "stream of its node")
         x_rest = torch.cat([x.expand((B,) + tuple(x.shape[1:]))
                             for x, _ in rest], dim=-1)
         w_rest = torch.cat([w for _, w in rest], dim=0)
-    gather = user_index if (user_index is not None and acc0 is not None) \
-        else None
     return mari_matmul(x_rest, w_rest, u, gather, activation)

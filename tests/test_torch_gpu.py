@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.mari import apply_mari
-from repro_torch.data.features import make_recsys_feeds
+from repro_torch.data.features import interleaved_spans, make_recsys_feeds
 from repro_torch.graph.executor import Executor, init_graph_params
 from repro_torch.kernels import din_attention as da
 from repro_torch.kernels import dot_interaction as di
@@ -1519,3 +1519,133 @@ def test_gloo_takes_cuda_tensors_in_the_gathers(cuda, tmp_path):
                 p.wait()
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"ok {rank}" in out, out[-3000:]
+
+
+# -- slice 11: the reorganized path, Table 2's columns, fx-GCA on CUDA ---------
+
+def _interleaved_graph(d_user=400, d_item=100, chunk=50):
+    """User / item chunks alternating (bench_table3's layout), one concat
+    that also feeds a non-matmul consumer, dense(64, relu), dense(1)."""
+    b = GraphBuilder()
+    names = [b.input(f"{dom}_{k}", (w,), dom) for k, (dom, _, w)
+             in enumerate(interleaved_spans(d_user, d_item, chunk))]
+    c = b.concat("fusion", names)
+    h = b.dense("fc", c, 64, activation="relu")
+    side = b.dense("side_out", b.act("side", c, "relu"), 1)
+    b.output(b.dense("logit", h, 1), side)
+    return b.graph
+
+
+def test_reorganized_tpu_engine_matches_plain_twin(cuda):
+    from repro_torch.core import convert_params_reorg, reorganize
+    graph = _interleaved_graph()
+    params = init_graph_params(graph, seed=0, device=cuda)
+    g2, plans = reorganize(graph)
+    assert plans[0].restored_consumers == ("side",)
+    p2 = convert_params_reorg(plans, params)
+    tpu = ServePlan.preset("tpu").evolve(batch__hedging=False,
+                                         batch__max_batch=512)
+    eng = ServingEngine(g2, p2, tpu, device=cuda)
+    twin = ServingEngine(g2, p2, tpu.evolve(kernel__use_pallas=False,
+                                            kernel__kernel_gather=False),
+                         device=cuda)
+    rng = np.random.default_rng(3)
+    reqs = []
+    for uid, n in enumerate((37, 700, 1200)):
+        f = make_recsys_feeds(graph, n, rng)
+        reqs.append(ServeRequest(
+            user_id=uid,
+            user_feeds={k: v for k, v in f.items() if k.startswith("user")},
+            candidate_feeds={k: v for k, v in f.items()
+                             if k.startswith("item")}))
+    mm.reset_launches()
+    per = [eng.score(r) for r in reqs]
+    co = eng.score_coalesced(reqs)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["gather"] > 0 and sum(mm.PREPARES.values()) == 0
+    for r, p, c in zip(reqs, per, co):
+        want = twin.score(r).scores
+        assert p.scores.shape == want.shape == (want.shape[0], 2)
+        np.testing.assert_allclose(p.scores, want, **TOL)
+        np.testing.assert_allclose(c.scores, want, **TOL)
+    eng.close()
+    twin.close()
+
+
+@pytest.mark.parametrize("kw", [dict(graph__fragment=True), {}],
+                         ids=["fragment", "neat"])
+def test_single_stage_tpu_engine_matches_plain_twin(cuda, kw):
+    """A single-stage ``tpu`` engine (user features row-wise in each pack)
+    over the interleaved layout: its prepared stream goes through the
+    kernel with the row-wise user products as the init block, and the
+    scores match the use_pallas=False twin."""
+    graph = _interleaved_graph()
+    params = init_graph_params(graph, seed=1, device=cuda)
+    tpu = ServePlan.preset("tpu").evolve(
+        batch__hedging=False, batch__max_batch=512, graph__two_stage=False,
+        **kw)
+    eng = ServingEngine(graph, params, tpu, device=cuda)
+    twin = ServingEngine(graph, params, tpu.evolve(
+        kernel__use_pallas=False, kernel__kernel_gather=False), device=cuda)
+    assert not eng.two_stage and "w_prep" in eng.params["fc"]
+    rng = np.random.default_rng(4)
+    reqs = []
+    for uid, n in enumerate((37, 700)):
+        f = make_recsys_feeds(graph, n, rng)
+        reqs.append(ServeRequest(
+            user_id=uid,
+            user_feeds={k: v for k, v in f.items() if k.startswith("user")},
+            candidate_feeds={k: v for k, v in f.items()
+                             if k.startswith("item")}))
+    mm.reset_launches()
+    got = [eng.score(r).scores for r in reqs]
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["rowwise"] > 0 and sum(mm.PREPARES.values()) == 0
+    for r, g in zip(reqs, got):
+        np.testing.assert_allclose(g, twin.score(r).scores, **TOL)
+    eng.close()
+    twin.close()
+
+
+@pytest.mark.parametrize("B,Du,Dr,d", [(100, 4000, 2000, 512),
+                                       (300, 400, 150, 64),
+                                       (2000, 500, 1000, 128)])
+def test_table2_kernel_columns_match_their_plain_versions(cuda, B, Du, Dr,
+                                                          d):
+    """Table 2's kernel columns: the broadcast entry on the tiled input with
+    a zero init row (kernel vanilla) against ``torch.addmm``, and on x_rest
+    with u = x_u W_u (kernel MaRI) against the plain ``matmul_mari``."""
+    from repro_torch.core.mari import matmul_mari
+    g = _gen(cuda, B + Du)
+    xu, xr = _randn(g, 1, Du), _randn(g, B, Dr)
+    wu, wr = _randn(g, Du, d), _randn(g, Dr, d)
+    x_tiled = torch.cat([xu.expand(B, Du), xr], -1)
+    w = torch.cat([wu, wr], 0)
+    zero = torch.zeros(1, d, device=cuda)
+    got = mm.mari_matmul(x_tiled, mm.prepare_mari_weight(w), zero)
+    torch.testing.assert_close(got, torch.addmm(zero, x_tiled, w), **TOL)
+    got = mm.mari_matmul(xr, mm.prepare_mari_weight(wr), xu @ wu)
+    torch.testing.assert_close(got, matmul_mari(xu, xr, wu, wr), **TOL)
+
+
+def test_detect_in_fx_same_report_on_cuda_and_cpu(cuda):
+    from repro_torch.core import detect_in_fx
+    from repro_torch.examples.gca_demo import my_model
+    shapes = {"wu": (32, 16), "w1": (48, 64), "w2": (64, 1)}
+    doms = {"user_vec": "user", "item_vec": "item"}
+    reports = []
+    for dev in (torch.device("cpu"), cuda):
+        params = {k: torch.zeros(s, device=dev) for k, s in shapes.items()}
+        feeds = {"user_vec": torch.zeros(1, 32, device=dev),
+                 "item_vec": torch.zeros(100, 32, device=dev)}
+        reports.append(detect_in_fx(my_model, doms, params, feeds))
+    graph, _ = build_paper_ranking_model(PaperRankingConfig().scaled(0.05))
+    pdoms = {f"['{n.name}']": n.attrs["domain"] for n in graph.input_nodes()}
+    feeds = make_recsys_feeds(graph, 16, np.random.default_rng(0))
+    for dev in (torch.device("cpu"), cuda):
+        params = init_graph_params(graph, seed=0, device=dev)
+        reports.append(detect_in_fx(
+            Executor(graph, "vani", device=dev).run, pdoms, params,
+            {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}))
+    assert reports[0] == reports[1] and len(reports[0].eligible) == 1
+    assert reports[2] == reports[3] and len(reports[2].eligible) == 9

@@ -310,10 +310,33 @@ def test_single_call_executor_with_prepared_params_matches_reference(
     assert calls and len({id(w) for w, _ in calls}) == len(calls) // 2
 
 
-def test_fused_groups_refuses_a_prepared_weight_among_several_streams():
+@pytest.mark.parametrize("second", ["prepared", "gathered_init"])
+def test_fused_groups_refuses_a_prepared_weight_among_several_streams(
+        second):
     x, w = torch.randn(5, 3), torch.randn(3, 2)
-    with pytest.raises(ValueError, match="only batched stream"):
-        mm.mari_matmul_fused_groups([(x, mm.prepare_mari_weight(w)), (x, w)])
+    pw = mm.prepare_mari_weight(w)
+    if second == "prepared":
+        parts, kw = [(x, pw), (x, mm.prepare_mari_weight(w))], {}
+    else:
+        parts = [(x, pw), (x, w)]
+        kw = dict(acc0=torch.randn(3, 2),
+                  user_index=torch.tensor([0, 1, 2, 1, 0]))
+    with pytest.raises(ValueError, match="prepared weight among several"):
+        mm.mari_matmul_fused_groups(parts, **kw)
+
+
+def test_fused_groups_folds_row_wise_parts_beside_a_prepared_weight():
+    """A single-stage pack: row-wise user parts beside the prepared stream
+    seed a row-wise init; the sum is the plain one."""
+    g = torch.Generator().manual_seed(3)
+    xu, xs, xi = (torch.randn(5, k, generator=g) for k in (3, 4, 1))
+    wu, ws, wi = (torch.randn(k, 2, generator=g) for k in (3, 4, 1))
+    b = torch.randn(2, generator=g)
+    got = mm.mari_matmul_fused_groups(
+        [(xu, wu), (xs, mm.prepare_mari_weight(ws)), (xi[:1], wi)], b,
+        activation="relu")
+    want = torch.relu(xu @ wu + xs @ ws + xi[:1] @ wi + b)
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
 
 
 # -- the stride rule for the x stream -----------------------------------------
