@@ -110,6 +110,24 @@
    (``table3_single_call``). ``examples``: ``repro_torch.examples.
    gca_demo`` and ``serve_ranking --use-pallas --scale 1.0`` as
    subprocesses.
+10. The LM family's serving path (``lm``), in bf16 from random weights:
+   ``flash_attention`` at granite's and Mixtral's head shapes (S 4096)
+   against ``naive_attention`` and ``moe_ffn`` at granite's width (4096
+   tokens, capacity drops) against ``moe_loop_oracle``, each within
+   2e-2; granite-moe-3b-a800m at its full size, ``prefill_32k`` (32,768
+   tokens, batch 1 of the shape's 32, eager) and ``decode_32k`` (batch 16
+   of 128 over a 32,768-slot cache drawn from a seed, 32 steps at the
+   cache's end) through ``build_cell(...).compiled()``, then the same
+   steps eager from the same cache; Mixtral-8x7B at full width and 4 of
+   its 32 layers, ``long_500k``'s 64 captured steps at positions
+   524224 .. 524287 over a W = 4096 ring, then one step at position 5119
+   through the ring against a 5120-slot cache, held in fp32 (bf16 printed
+   beside a chunking control). Captured against eager within 2e-2, one
+   graph per model; prefill ms and
+   tokens/s, decode ms per step captured and eager, each beside its
+   bound (decode: bytes a step over 3.35 TB/s; prefill: the reference
+   algorithm's FLOPs, masked blocks included, over the bf16 peak), and
+   peak memory per model. No kernel of the six runs on this path.
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -133,8 +151,9 @@ under the preset's default hedging, train + convert, the paper's single
 call, in phase 6 the device-tier service, its re-stacking twin, the
 fault run and the hedged engine, phase 7's memory-tier engines,
 phase 8's runner workers (each worker zeroes and reads its own counts
-around its sharded engine's work and reports them), and phase 9's three
-``reorg`` engines and its single calls (``table3``), each its own path.
+around its sharded engine's work and reports them), phase 9's three
+``reorg`` engines and its single calls (``table3``), and phase 10's
+prefill and decode runs (``lm``, held to no launch), each its own path.
 Every kernel variant held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
@@ -226,10 +245,419 @@ T3_CHUNKS = (50, 100, 200, 400, 800)
 # three engines taking turns in each round
 REORG_CHUNK, REORG_WARM_PASSES = 100, 300
 EXAMPLES_TIMEOUT = 400
+# phase 10, the LM family's serving path in bf16: granite-moe-3b-a800m at
+# its full size, prefill_32k at batch 1 of the shape's 32 and decode_32k at
+# batch 16 of its 128 (the shape's cache alone would be 275 GB); Mixtral
+# 8x7B at full width, 4 of its 32 layers (93 GB in bf16 at full depth),
+# long_500k's batch 1 over a ring of W = 4096 at positions past 524k
+LM_GRANITE, LM_MIXTRAL = "granite-moe-3b-a800m", "mixtral-8x7b"
+LM_PREFILL_BATCH, LM_DECODE_BATCH, LM_DECODE_STEPS = 1, 16, 32
+LM_MIXTRAL_LAYERS, LM_LONG_STEPS, LM_RING_POS = 4, 64, 5119
+LM_ORACLE_S, LM_MOE_T = 4096, 4096
 
 
 def log(tag: str, **kv) -> None:
     print(json.dumps({"phase": tag, **kv}, default=str), flush=True)
+
+
+# ---- phase 10: the LM family's serving path ---------------------------------
+
+def lm_config(arch: str, **over):
+    """The registry's config for ``arch`` with ``over`` replaced."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).CONFIG, **over)
+
+
+def naive_attention(q, k, v, q_pos, kv_pos, window=None):
+    """Causal masked softmax attention with the whole score matrix in fp32
+    (the oracle of tests/test_flash_and_parser.py): (B, Sq, Hq, hd)."""
+    import torch
+    g = q.shape[2] // k.shape[2]
+    kk = k.float().repeat_interleave(g, dim=2)
+    vv = v.float().repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / (
+        q.shape[-1] ** 0.5)
+    dist = q_pos[:, :, None] - kv_pos[:, None, :]
+    mask = dist >= 0
+    if window is not None:
+        mask &= dist < window
+    logits = logits.masked_fill(~mask[:, None], -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), vv)
+
+
+def moe_loop_oracle(x, ffn, cfg):
+    """``moe_ffn``'s capacity rule by a loop over tokens: each token's
+    top-k choices in order, an expert keeping the first C (token, choice)
+    pairs that reach it; each kept pair's SwiGLU in fp32 on the same bf16
+    weights, weighted by its gate. Routing reads the same bf16 router
+    product as the model. Returns (y in fp32, pairs dropped)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.transformer import moe_capacity
+    T, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = moe_capacity(cfg, T)
+    logits = (x @ ffn["router"].to(x.dtype)).float()
+    topv, topi = torch.topk(logits, k, dim=-1)
+    gates = torch.softmax(topv, dim=-1)
+    kept = [[] for _ in range(E)]
+    dropped = 0
+    for t, row in enumerate(topi.cpu().numpy()):
+        for j, e in enumerate(row):
+            if len(kept[e]) < C:
+                kept[e].append((t, j))
+            else:
+                dropped += 1
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e, pairs in enumerate(kept):
+        if not pairs:
+            continue
+        tj = torch.as_tensor(np.asarray(pairs), device=x.device)
+        xe = x[tj[:, 0]].float()
+        h = F.silu(xe @ ffn["wg"][e].float()) * (xe @ ffn["wu"][e].float())
+        y.index_add_(0, tj[:, 0], (h @ ffn["wd"][e].float())
+                     * gates[tj[:, 0], tj[:, 1]][:, None])
+    return y, dropped
+
+
+def lm_prefill_flops(cfg, batch: int, seq: int, layers: int) -> int:
+    """FLOPs of the reference's prefill: the projections, every attention
+    block (masked ones included: 2·2·B·Hq·S²·hd), the MoE's router and its
+    E·C expert rows (or the dense FFN), and the last token's lm_head."""
+    from repro_torch.models.transformer import moe_capacity
+    T, D, hd = batch * seq, cfg.d_model, cfg.hd
+    hq, hkv, F_ = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    proj = 2 * T * D * (hq + 2 * hkv) * hd + 2 * T * hq * hd * D
+    attn = 4 * batch * hq * seq * seq * hd
+    if cfg.is_moe:
+        E = cfg.moe_experts
+        ffn = 2 * T * D * E + 6 * E * moe_capacity(cfg, T) * D * F_
+    else:
+        ffn = 6 * T * D * F_
+    return layers * (proj + attn + ffn) + 2 * batch * D * cfg.vocab_padded
+
+
+def lm_decode_cost(cfg, params, cache, batch: int) -> tuple[int, int]:
+    """(bytes, FLOPs) one decode step must move and do: every weight but
+    the embedding table read once (each expert gets C >= 1 rows, so all
+    of them are read), B embedding rows, the whole cache read once, the
+    new K/V and the logits written; the products over those rows and the
+    attention over every cache slot."""
+    from repro_torch.common import tree_bytes
+    from repro_torch.models.transformer import moe_capacity
+    L, _, W, hkv, hd = cache["k"].shape
+    item = cache["k"].element_size()
+    D, hq, F_, V = cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_padded
+    embed = params["embed"]
+    nbytes = (tree_bytes(params) - embed.numel() * embed.element_size()
+              + batch * D * embed.element_size() + tree_bytes(cache)
+              + 2 * L * batch * hkv * hd * item + batch * V * item)
+    ffn_rows = (cfg.moe_experts * moe_capacity(cfg, batch) if cfg.is_moe
+                else batch)
+    flops = L * (2 * batch * D * (2 * hq + 2 * hkv) * hd
+                 + 4 * batch * hq * W * hd + 6 * ffn_rows * D * F_
+                 + (2 * batch * D * cfg.moe_experts if cfg.is_moe else 0)
+                 ) + 2 * batch * D * V
+    return nbytes, flops
+
+
+def profile_call(fn) -> dict:
+    """torch.profiler over one call: device busy ms (kernel self time)
+    against the call's wall ms under the profiler, and the kernels taking
+    the most device time (name, ms, count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms if busy_ms else None,
+                top_kernels=[[e.key[:70], e.self_device_time_total / 1e3,
+                              e.count] for e in top])
+
+
+def lm_phase(dev, counting) -> None:
+    """Phase 10: the LM serving path at full width in bf16 (the cuts in
+    the module constants). Oracles first (flash attention at granite's and
+    Mixtral's head shapes against ``naive_attention``, ``moe_ffn`` at
+    granite's width against ``moe_loop_oracle``), then granite's prefill
+    and its decode captured and eager, then Mixtral's long_500k decode
+    captured and eager and one ring step against a full cache. Prefill
+    and decode runs are the ``lm`` path of the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.data.lm import token_batch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    mem_at_start = torch.cuda.memory_allocated(dev) / 1e9
+    bf16 = torch.bfloat16
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def max_err(a, b):
+        a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("non-finite output")
+        bad = (a - b).abs() > BF16_TOL["atol"] + BF16_TOL["rtol"] * b.abs()
+        err = float((a - b).abs().max())
+        if bool(bad.any()):
+            raise AssertionError(f"outside bf16 tolerance: max |d| {err:.3e}")
+        return err
+
+    def bound(nbytes, flops):
+        by_bytes, by_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+        return (1e3 * max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations")
+
+    # -- oracles -----------------------------------------------------------
+    oracles = {}
+    for arch in (LM_GRANITE, LM_MIXTRAL):
+        cfg = lm_config(arch)
+        g = gen(1)
+        S = LM_ORACLE_S
+        q = torch.randn((1, S, cfg.n_heads, cfg.hd), generator=g, dtype=bf16,
+                        device=dev)
+        k, v = (torch.randn((1, S, cfg.n_kv_heads, cfg.hd), generator=g,
+                            dtype=bf16, device=dev) for _ in range(2))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        with torch.inference_mode():
+            got = tfm.flash_attention(q, k, v, pos, pos, window=cfg.window,
+                                      q_chunk=cfg.q_chunk,
+                                      kv_chunk=cfg.kv_chunk)
+            want = naive_attention(q, k, v, pos, pos, cfg.window)
+        oracles[f"flash_{arch}"] = max_err(got, want)
+        del q, k, v, got, want
+    cfg = lm_config(LM_GRANITE, n_layers=1)
+    ffn = tfm.init_lm_params(cfg, seed=2, device=dev)["layers"]["ffn"]
+    ffn = {name: w[0] for name, w in ffn.items()}
+    g = gen(3)
+    # a shared direction skews the routing, so experts overflow
+    x = (torch.randn((LM_MOE_T, cfg.d_model), generator=g, device=dev)
+         + 2 * torch.randn((cfg.d_model,), generator=g, device=dev)).to(bf16)
+    with torch.inference_mode():
+        got = tfm.moe_ffn(x, ffn, cfg)
+    want, dropped = moe_loop_oracle(x, ffn, cfg)
+    if dropped == 0:
+        raise AssertionError("moe oracle input dropped no token")
+    oracles["moe_granite"] = max_err(got, want)
+    log("lm_oracles", tol=BF16_TOL, max_abs_err=oracles, seq=LM_ORACLE_S,
+        memory_allocated_at_start_gb=mem_at_start,
+        moe_tokens=LM_MOE_T, moe_capacity=tfm.moe_capacity(cfg, LM_MOE_T),
+        moe_pairs_dropped=dropped)
+    del ffn, x, got, want
+
+    def decode_run(step, params, cache, toks, positions):
+        """One step per position: logits and CUDA-event ms per step."""
+        outs, ms = [], []
+        for t, p in enumerate(positions):
+            pos = torch.tensor(p, dtype=torch.int32, device=dev)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            logits, out = step(params, cache, toks[:, t:t + 1], pos)
+            ev1.record()
+            torch.cuda.synchronize()
+            if out is not cache:
+                raise AssertionError("decode returned another cache")
+            outs.append(logits)
+            ms.append(ev0.elapsed_time(ev1))
+        return torch.stack(outs), ms
+
+    def decode_both(name, cfg, prog, params, cache, batch, positions, seed):
+        """The steps captured (``prog.compiled()``), then eager from the
+        same cache (the slots the steps write restored first: a ring slot
+        holds an older position until overwritten); logits held against
+        each other, the graph built once."""
+        toks = token_batch(gen(seed), batch, len(positions),
+                           cfg.vocab)["tokens"]
+        decode = prog.compiled(dev)
+
+        def eager(params, cache, tok, pos):
+            with torch.inference_mode():
+                return tfm.lm_decode_step(params, cfg, cache, tok, pos)
+
+        slots = torch.tensor(positions, device=dev) % cache["k"].shape[2]
+        saved = {n: t[:, :, slots].clone() for n, t in cache.items()}
+        with counting("lm"):
+            got, ms_c = decode_run(decode, params, cache, toks, positions)
+            for n, t in cache.items():
+                t[:, :, slots] = saved[n]
+            want, ms_e = decode_run(eager, params, cache, toks, positions)
+        if decode.compilations != 1:
+            raise AssertionError(f"{name}: {decode.compilations} graphs")
+        last = (toks[:, -1:], torch.tensor(positions[-1], dtype=torch.int32,
+                                           device=dev))
+        profile = profile_call(lambda: decode(params, cache, *last))
+        err = max_err(got, want)
+        nbytes, flops = lm_decode_cost(cfg, params, cache, batch)
+        bound_ms, bound_by = bound(nbytes, flops)
+        p50_c, p50_e = float(np.median(ms_c[1:])), float(np.median(ms_e))
+        log(f"lm_{name}_decode", batch=batch, cache=list(cache["k"].shape),
+            positions=[positions[0], positions[-1]], steps=len(positions),
+            compiled_ms_per_step=p50_c,
+            compiled_ms_p10_p90=[float(np.percentile(ms_c[1:], q))
+                                 for q in (10, 90)],
+            first_call_ms=ms_c[0], eager_ms_per_step=p50_e,
+            eager_ms_p10_p90=[float(np.percentile(ms_e, q))
+                              for q in (10, 90)],
+            tokens_per_s_compiled=batch * 1e3 / p50_c,
+            tokens_per_s_eager=batch * 1e3 / p50_e,
+            bound_ms=bound_ms, bound_by=bound_by, bytes_per_step=nbytes,
+            flops_per_step=flops, compilations=decode.compilations,
+            max_abs_compiled_vs_eager=err,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+            / 1e9)
+        log(f"lm_{name}_decode_profile", position=positions[-1],
+            captured=True, **profile)
+
+    # -- granite-moe-3b-a800m at its full size -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = lm_config(LM_GRANITE)
+    params = tfm.init_lm_params(cfg, seed=0, device=dev)
+    prog = build_cell(LM_GRANITE, "prefill_32k")
+    seq = prog.args[1].shape[1]
+    prefill = prog.compiled(dev)
+    toks = token_batch(gen(4), LM_PREFILL_BATCH, seq, cfg.vocab)["tokens"]
+    prefill(params, toks[:, :cfg.kv_chunk])        # cuBLAS and kernels warm
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    with counting("lm"):
+        t0 = time.perf_counter()
+        ev0.record()
+        logits, kv = prefill(params, toks)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    ms = ev0.elapsed_time(ev1)
+    want_kv = (cfg.n_layers, LM_PREFILL_BATCH, seq, cfg.n_kv_heads, cfg.hd)
+    if (tuple(logits.shape) != (LM_PREFILL_BATCH, cfg.vocab_padded)
+            or tuple(kv["k"].shape) != want_kv
+            or not all(bool(torch.isfinite(t).all())
+                       for t in (logits, kv["k"], kv["v"]))):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
+                             f"kv {tuple(kv['k'].shape)} or non-finite")
+    flops = lm_prefill_flops(cfg, LM_PREFILL_BATCH, seq, cfg.n_layers)
+    from repro_torch.common import tree_bytes
+    bound_ms, bound_by = bound(tree_bytes(params) + tree_bytes(kv), flops)
+    log("lm_granite_prefill", batch=LM_PREFILL_BATCH, seq=seq, ms=ms,
+        host_s=host_s, tokens_per_s=LM_PREFILL_BATCH * seq * 1e3 / ms,
+        flops=flops, attention_flop_share=cfg.n_layers * 4 * LM_PREFILL_BATCH
+        * cfg.n_heads * seq * seq * cfg.hd / flops, bound_ms=bound_ms,
+        bound_by=bound_by, note="eager: prefill is not captured",
+        params_gb=tree_bytes(params) / 1e9,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    # where a prefill's time goes, at an eighth of the sequence: the
+    # profiler's events at 32k would be ~1.3M, and its host work grows
+    # with them (~1 ms an event)
+    short = toks[:, :seq // 8]
+    log("lm_granite_prefill_profile", seq=seq // 8,
+        **profile_call(lambda: prefill(params, short)))
+    del logits, kv, toks, short
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prog = build_cell(LM_GRANITE, "decode_32k")
+    max_len = prog.args[1]["k"].shape[2]
+    g = gen(5)
+    shape = tfm.init_kv_cache(cfg, LM_DECODE_BATCH, max_len,
+                              device="meta")["k"].shape
+    cache = {n: torch.randn(shape, generator=g, dtype=bf16, device=dev)
+             for n in ("k", "v")}
+    decode_both("granite", cfg, prog, params, cache, LM_DECODE_BATCH,
+                list(range(max_len - LM_DECODE_STEPS, max_len)), seed=6)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- Mixtral-8x7B at full width, LM_MIXTRAL_LAYERS layers ----------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = lm_config(LM_MIXTRAL, n_layers=LM_MIXTRAL_LAYERS)
+    params = tfm.init_lm_params(cfg, seed=7, device=dev)
+    prog = build_cell(LM_MIXTRAL, "long_500k")
+    batch, max_len = prog.args[2].shape[0], prog.args[1]["k"].shape[2]
+    g = gen(8)
+    shape = tfm.init_kv_cache(cfg, batch, 524288, device="meta")["k"].shape
+    ring = {n: torch.randn(shape, generator=g, dtype=bf16, device=dev)
+            for n in ("k", "v")}
+    decode_both("mixtral", cfg, prog, params, ring, batch,
+                list(range(524288 - LM_LONG_STEPS, 524288)), seed=9)
+    # one step at LM_RING_POS through the ring (slot p % W holds position
+    # p for the W - 1 positions before it) against a full cache holding
+    # positions 0 .. LM_RING_POS - 1 at their own slots; both mask with
+    # the window
+    W = ring["k"].shape[2]
+    full = {n: torch.randn((cfg.n_layers, batch, LM_RING_POS + 1,
+                            cfg.n_kv_heads, cfg.hd), generator=g, dtype=bf16,
+                           device=dev) for n in ("k", "v")}
+    held = torch.arange(LM_RING_POS - W + 1, LM_RING_POS, device=dev)
+    for n in ("k", "v"):
+        ring[n][:, :, held % W] = full[n][:, :, held]
+    tok = token_batch(gen(10), batch, 1, cfg.vocab)["tokens"]
+    pos = torch.tensor(LM_RING_POS, dtype=torch.int32, device=dev)
+
+    def step(cfg, params, cache):
+        with torch.inference_mode():
+            return tfm.lm_decode_step(params, cfg, cache, tok, pos)[0].float()
+
+    # fp32 (the same bf16 draws, cast) holds the ring's slot-to-position
+    # map and masking to 2e-4. In bf16 the step's own rounding is larger
+    # than 2e-2 here: the full cache walked in 512-key chunks instead of
+    # 1024 (the same semantics) moves the logits as far as the ring does,
+    # so bf16 is printed beside that control and the fp32 step, not held
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    from repro_torch.common import tree_map
+    to32 = lambda t: t.float()                             # noqa: E731
+    p32 = tree_map(to32, params)
+    got32 = step(cfg32, p32, tree_map(to32, ring))
+    want32 = step(cfg32, p32, tree_map(to32, full))
+    del p32
+    err_fp32 = float((got32 - want32).abs().max())
+    if not bool(((got32 - want32).abs() <= TOL["atol"]
+                 + TOL["rtol"] * want32.abs()).all()):
+        raise AssertionError(f"ring vs full in fp32: max |d| {err_fp32:.3e}")
+    got, want = step(cfg, params, ring), step(cfg, params, full)
+    chunk512 = step(dataclasses.replace(cfg, kv_chunk=cfg.kv_chunk // 2),
+                    params, full)
+    if not all(bool(torch.isfinite(t).all()) for t in (got, want, chunk512)):
+        raise AssertionError("ring vs full: non-finite logits")
+
+    def d(a, b):
+        return float((a - b).abs().max())
+
+    log("lm_mixtral_ring", pos=LM_RING_POS, window=cfg.window, ring_slots=W,
+        full_slots=LM_RING_POS + 1, max_abs_ring_vs_full_fp32=err_fp32,
+        fp32_tol=TOL, max_abs_ring_vs_full_bf16=d(got, want),
+        max_abs_full_chunk_halved_bf16=d(chunk512, want),
+        max_abs_ring_bf16_vs_fp32=d(got, want32),
+        max_abs_full_bf16_vs_fp32=d(want, want32),
+        max_abs_logit_fp32=float(want32.abs().max()))
+    del params, ring, full, got, want, got32, want32, chunk512
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lm_phase", seconds=time.perf_counter() - t_phase,
+        cuts=[f"{LM_GRANITE} prefill_32k: batch {LM_PREFILL_BATCH} of 32",
+              f"{LM_GRANITE} decode_32k: batch {LM_DECODE_BATCH} of 128 (the "
+              f"shape's cache alone is 275 GB)",
+              f"{LM_MIXTRAL} long_500k: {LM_MIXTRAL_LAYERS} of 32 layers "
+              f"(93 GB of weights at full depth)"])
 
 
 def main() -> int:
@@ -887,25 +1315,8 @@ def main() -> int:
                            * np.abs(b)))
 
     def device_window(eng, reqs):
-        """torch.profiler over one warm coalesced call: device busy time
-        (kernel self time) against the call's wall time under the profiler."""
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            eng.score_coalesced(reqs)
-            wall_ms = (time.perf_counter() - t) * 1e3
-        kern = [e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-        return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                    device_idle_share=(1 - busy_ms / wall_ms
-                                       if busy_ms else None),
-                    top_kernels=[[e.key[:70], e.self_device_time_total / 1e3,
-                                  e.count] for e in top])
+        """torch.profiler over one warm coalesced call."""
+        return profile_call(lambda: eng.score_coalesced(reqs))
 
     def serve_checks(tag, graph, params, plans, oracle_plan, reqs, n_out):
         oracle = ServingEngine(graph, params, oracle_plan, device=dev)
@@ -2479,6 +2890,14 @@ def main() -> int:
     reorg_phase()
     examples_phase()
     log("paper_tables_phase", seconds=time.perf_counter() - t_phase)
+
+    # ---- phase 10: the LM family's serving path ----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_phase(dev, counting)
+    if any(by_path["lm"].values()):
+        raise AssertionError(f"the LM path launched a recsys kernel: "
+                             f"{by_path['lm']}")
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the

@@ -158,7 +158,7 @@ def params_from_numpy(tree: PyTree, device: str | torch.device = "cuda"
     ``np.asarray``) -> the same nesting of tensors on ``device`` (copies:
     the port never writes through to the caller's arrays)."""
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev), tree)
+    return tree_map(lambda x: _tensor_from_numpy(x, dev), tree)
 
 
 def feeds_from_numpy(feeds: Mapping[str, Any],
@@ -166,8 +166,19 @@ def feeds_from_numpy(feeds: Mapping[str, Any],
                      ) -> dict[str, torch.Tensor]:
     """Flat feed dict of numpy arrays -> tensors on ``device``."""
     dev = resolve_device(device)
-    return {k: torch.tensor(np.asarray(v), device=dev)
-            for k, v in feeds.items()}
+    return {k: _tensor_from_numpy(v, dev) for k, v in feeds.items()}
+
+
+def _tensor_from_numpy(x, device: torch.device) -> torch.Tensor:
+    """A copy of array ``x`` on ``device``. numpy has no bfloat16 of its
+    own: the reference's bf16 arrays are ``ml_dtypes.bfloat16``, which
+    ``torch.tensor`` refuses, so they cross through their 16-bit view and
+    keep every bit."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
 
 
 def take_clip(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

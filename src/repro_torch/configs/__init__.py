@@ -1,15 +1,22 @@
-"""Architecture registry (port of ``repro.configs``, the recsys entries).
+"""Architecture registry (port of ``repro.configs``).
 
-``get_config(arch)`` returns the config module, which carries ``BUILD``
-(the published widths), ``smoke_build()`` (a small build for tests and
-the CPU) and ``SHAPES``. The reference's LM and GNN entries are not ported
-yet: asking for one raises a ``KeyError`` that says so.
+``get_config(arch)`` returns the config module. A recsys module carries
+``BUILD`` (the published widths), ``smoke_build()`` (a small build for
+tests and the CPU) and ``SHAPES``; an LM module carries ``CONFIG`` (an
+``LMConfig`` at the published widths), ``smoke_config()`` and ``SHAPES``.
+The reference's GNN entry is not ported yet: asking for it raises a
+``KeyError`` that says so.
 """
 from __future__ import annotations
 
 import importlib
 
 _ARCH_MODULES = {
+    "mixtral-8x7b": "mixtral_8x7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "deepseek-67b": "deepseek_67b",
+    "qwen3-14b": "qwen3_14b",
+    "yi-9b": "yi_9b",
     "dlrm-mlperf": "dlrm_mlperf",
     "fm": "fm",
     "din": "din",
@@ -18,14 +25,13 @@ _ARCH_MODULES = {
 }
 
 # the reference registry's other entries, which wait for their model ports
-NOT_PORTED = ("mixtral-8x7b", "granite-moe-3b-a800m", "deepseek-67b",
-              "qwen3-14b", "yi-9b", "schnet")
+NOT_PORTED = ("schnet",)
 
 
 def get_config(arch: str):
     if arch in NOT_PORTED:
         raise KeyError(f"arch {arch!r} is in the reference registry but not "
-                       f"ported yet (the LM and GNN models come with a later "
+                       f"ported yet (the GNN model comes with a later "
                        f"slice); ported: {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")

@@ -1,1 +1,2 @@
-"""Synthetic feeds for the recsys graphs (port of ``repro.data``)."""
+"""Synthetic feeds for the recsys graphs and LM token batches (port of
+``repro.data``)."""

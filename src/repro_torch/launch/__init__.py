@@ -1,2 +1,2 @@
 """Entry points (port of ``repro.launch``: the serving and training
-launchers)."""
+launchers, and the LM family's per-cell serving programs in ``steps``)."""

@@ -2,6 +2,7 @@
 plain dicts of tensors)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -26,3 +27,23 @@ def dense_apply(params: dict, x: Tensor) -> Tensor:
     if "b" in params:
         y = y + params["b"]
     return y
+
+
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm: the mean square in fp32, its ``rsqrt`` cast back to
+    ``x.dtype`` before the multiply, then the scale (the reference's order,
+    which sets the bf16 bits)."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSNorm:
+    dim: int
+    eps: float = 1e-6
+
+    def init(self, dtype=torch.float32, device="cuda") -> dict:
+        return {"scale": torch.ones((self.dim,), dtype=dtype, device=device)}
+
+    def apply(self, params: dict, x: Tensor) -> Tensor:
+        return rms_norm(x, params["scale"], self.eps)

@@ -1649,3 +1649,153 @@ def test_detect_in_fx_same_report_on_cuda_and_cpu(cuda):
             {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}))
     assert reports[0] == reports[1] and len(reports[0].eligible) == 1
     assert reports[2] == reports[3] and len(reports[2].eligible) == 9
+
+
+# -- the LM family's serving path --------------------------------------------
+
+LM_ARCHS = ("mixtral-8x7b", "granite-moe-3b-a800m", "deepseek-67b",
+            "qwen3-14b", "yi-9b")
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its phase-10 oracles; importing it runs
+    nothing)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lm_smoke(arch, dtype="float32"):
+    import dataclasses
+    return dataclasses.replace(get_config(arch).smoke_config(), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x7b"])
+def test_lm_decode_captured_matches_eager(cuda, arch, dtype):
+    """One graph captured for the decode step (tokens and pos fed, the
+    cache by address) replays at every position, across the ring's wrap
+    for Mixtral's window, and equals the eager step from the same cache."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    cfg = _lm_smoke(arch, dtype)
+    params = tfm.init_lm_params(cfg, seed=0, device=cuda)
+    cache = tfm.init_kv_cache(cfg, 2, 128, device=cuda)
+    g = _gen(cuda, 1)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    positions = list(range(58, 70))
+    toks = torch.randint(0, cfg.vocab, (2, len(positions)), generator=g,
+                         device=cuda, dtype=torch.int32)
+    slots = torch.tensor(positions, device=cuda) % cache["k"].shape[2]
+    saved = {n: t[:, :, slots].clone() for n, t in cache.items()}
+    decode = steps._lm_decode(cfg, 128, 2).compiled(cuda)
+    got = [decode(params, cache, toks[:, i:i + 1],
+                  torch.tensor(p, dtype=torch.int32, device=cuda))[0]
+           for i, p in enumerate(positions)]
+    for n, t in cache.items():
+        t[:, :, slots] = saved[n]
+    with torch.inference_mode():
+        want = [tfm.lm_decode_step(params, cfg, cache, toks[:, i:i + 1],
+                                   torch.tensor(p, dtype=torch.int32,
+                                                device=cuda))[0]
+                for i, p in enumerate(positions)]
+    assert decode.compilations == 1
+    tol = TOL if dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(torch.stack(got), torch.stack(want), **tol)
+
+
+def test_lm_decode_step_reads_nothing_back(cuda):
+    """No host synchronisation anywhere on the decode path (what a
+    capture needs), MoE dispatch included."""
+    from repro_torch.models import transformer as tfm
+    cfg = _lm_smoke("granite-moe-3b-a800m")
+    params = tfm.init_lm_params(cfg, seed=0, device=cuda)
+    cache = tfm.init_kv_cache(cfg, 2, 32, device=cuda)
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    pos = torch.tensor(5, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            tfm.lm_decode_step(params, cfg, cache, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_logits_on_the_card_match_the_cpu(cuda, arch):
+    from repro_torch.common import tree_map
+    from repro_torch.models import transformer as tfm
+    cfg = _lm_smoke(arch)
+    params = tfm.init_lm_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator()
+                         .manual_seed(1), dtype=torch.int32)
+    with torch.inference_mode():
+        want = tfm.lm_logits(params, cfg, toks)
+        got = tfm.lm_logits(tree_map(lambda t: t.to(cuda), params), cfg,
+                            toks.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,window", [(4, 4, None), (8, 2, 16),
+                                           (6, 2, None)])
+def test_flash_attention_on_the_card_matches_naive(cuda, hq, hkv, window,
+                                                   dtype):
+    from repro_torch.models.transformer import flash_attention
+    naive = _chip_smoke().naive_attention
+    g = _gen(cuda, hq + hkv)
+    S, hd = 64, 32
+    q = torch.randn((2, S, hq, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, S, hkv, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None].expand(2, S)
+    got = flash_attention(q, k, v, pos, pos, window=window, q_chunk=16,
+                          kv_chunk=32)
+    want = naive(q, k, v, pos, pos, window)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_on_the_card_matches_the_loop_oracle(cuda, dtype):
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    oracle = _chip_smoke().moe_loop_oracle
+    cfg = dataclasses.replace(_lm_smoke("granite-moe-3b-a800m", dtype),
+                              moe_experts=8, moe_top_k=4)
+    ffn = {n: w[0] for n, w in tfm.init_lm_params(
+        cfg, seed=2, device=cuda)["layers"]["ffn"].items()}
+    g = _gen(cuda, 3)
+    x = (torch.randn((96, cfg.d_model), generator=g, device=cuda)
+         + 2 * torch.randn((cfg.d_model,), generator=g, device=cuda)
+         ).to(cfg.torch_dtype)
+    with torch.inference_mode():
+        got = tfm.moe_ffn(x, ffn, cfg)
+    want, dropped = oracle(x, ffn, cfg)
+    assert dropped > 0
+    tol = TOL if dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+def test_moe_ffn_is_deterministic_on_the_card(cuda):
+    """Same inputs, same bits: the combine sums each token's k choices in
+    order (atomics would not), so a captured decode step and an eager one
+    route every later layer alike."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(_lm_smoke("granite-moe-3b-a800m", "bfloat16"),
+                              moe_experts=16, moe_top_k=8)
+    ffn = {n: w[0] for n, w in tfm.init_lm_params(
+        cfg, seed=4, device=cuda)["layers"]["ffn"].items()}
+    x = torch.randn((512, cfg.d_model), generator=_gen(cuda, 5),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        runs = [tfm.moe_ffn(x, ffn, cfg) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
