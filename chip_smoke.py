@@ -39,14 +39,19 @@
    ``tpu`` preset).
 5. Train + convert, DIN at ``configs/din.py`` width: trains on the card
    (VanI executor, autograd, Adam, batch 64, labels from a frozen
-   teacher), checkpoints through ``CheckpointManager``, crashes once on
-   purpose and resumes to the last step, converts with GCA + MaRI, and
+   teacher) with the captured step (``recsys_step``:
+   one CUDA graph, the state updated in place), checkpoints through
+   ``CheckpointManager``, crashes once on purpose and resumes to the last
+   step (the restored state copied into the captured one: one graph in
+   all), holds 10 captured steps against 10 eager steps of the same body
+   from the same state and batches (2e-4), converts with GCA + MaRI, and
    scores 2048 candidates single-call in VanI, UOI and MaRI (UOI and MaRI
    through the kernels: the whole DIN attention unit is ``din_attention``)
    against ``use_pallas=False`` executors, with per-task AUC; then times
-   each paradigm and one training step. Last, the paper model at full
-   width single-call in VanI / UOI / MaRI at B = 2048, compiled as the
-   reference's ``bench_table1`` and eager, timed and printed.
+   each paradigm and one training step, captured and eager. Last, the
+   paper model at full width single-call in VanI / UOI / MaRI at B =
+   2048, compiled as the reference's ``bench_table1`` and eager, timed
+   and printed.
 6. Multi-hot DLRM (``build_dlrm``'s topology at its published widths, the
    26 tables at ``scale_tables=0.1``, sparse fields multi-hot with MLPerf
    DLRM-DCNv2's hotness, pooled with ``pool="sum"``: 8 bags per
@@ -128,6 +133,31 @@
    bound (decode: bytes a step over 3.35 TB/s; prefill: the reference
    algorithm's FLOPs, masked blocks included, over the bf16 peak), and
    peak memory per model. No kernel of the six runs on this path.
+11. The training and serving cells (``cells``) through
+   ``build_cell(...).compiled()`` at full published width:
+   ``lm_granite_train`` (granite-moe-3b-a800m, all 32 layers, train_4k's
+   seq 4096 at the largest batch of 1..4 that fits beside its 54 GB of
+   bf16 params, f32 master weights and moments; eager steps, then the
+   captured step, whose loss is held against an eager forward at bf16
+   2e-2; the batch planned from a probe sequence's activations and
+   ``CELL_POOL_GROWTH``), then granite at full width and
+   ``CELL_SLICED_LAYERS`` layers (``lm_granite_sliced_update``: its
+   expert leaves span several of AdamW's in-place slices), whose captured
+   state after ``CELL_SLICED_STEPS`` steps is held against ``eager()``
+   from the same state and batches and against the functional
+   ``opt.update`` (2e-4 on all but 0.1% of each leaf, the bf16 params at
+   one ulp),
+   ``recsys_paper_train`` and ``recsys_din_train`` (65,536 rows; DIN also
+   with ``emb_bf16``: captured against eager from one state and the same
+   batches, 2e-4), ``recsys_paper_serve`` (512 / 262,144 / 1,000,000
+   candidates) and ``recsys_din_serve`` with ``attn_reparam`` (512 /
+   262,144) through the kernels against the same program's
+   ``use_pallas=False`` runs, compiled and eager (2e-4). Per cell: step ms
+   (p50 of 5 calls after the first), rows or tokens a second, the bound
+   by bytes and by operations (serving and recsys FLOPs counted by
+   ``FlopCounterMode`` over a plain run; fp32 SIMT peak, TF32 off), peak
+   memory, and for training the in-place update's own extra peak (held to
+   2 x the largest leaf's f32 size).
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -152,8 +182,9 @@ call, in phase 6 the device-tier service, its re-stacking twin, the
 fault run and the hedged engine, phase 7's memory-tier engines,
 phase 8's runner workers (each worker zeroes and reads its own counts
 around its sharded engine's work and reports them), phase 9's three
-``reorg`` engines and its single calls (``table3``), and phase 10's
-prefill and decode runs (``lm``, held to no launch), each its own path.
+``reorg`` engines and its single calls (``table3``), phase 10's
+prefill and decode runs (``lm``, held to no launch), and phase 11's
+kernel serving calls (``cells``), each its own path.
 Every kernel variant held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
@@ -173,6 +204,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import shutil
@@ -203,6 +235,7 @@ POOLS = (1000, 3000, 5000)            # straddle max_batch = 4096
 SERVED = ("dlrm-mlperf", "deepfm", "fm")
 DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
 TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
+TRAIN_COMPARE = 10                    # captured vs eager steps, same batches
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
 # builds of a kernel's source with one part left out, timed beside it
 VARIANTS = {"gather_einsum": ("GATHER_EINSUM_NO_ROW_SORT",),
@@ -254,6 +287,21 @@ LM_GRANITE, LM_MIXTRAL = "granite-moe-3b-a800m", "mixtral-8x7b"
 LM_PREFILL_BATCH, LM_DECODE_BATCH, LM_DECODE_STEPS = 1, 16, 32
 LM_MIXTRAL_LAYERS, LM_LONG_STEPS, LM_RING_POS = 4, 64, 5119
 LM_ORACLE_S, LM_MOE_T = 4096, 4096
+# phase 11, the training and serving cells at full published width: timed
+# calls after each program's first, granite's train_4k batch cut to the
+# largest of 1..CELL_GRANITE_MAX_BATCH whose activations fit in
+# CELL_MEM_SHARE of the card beside its 54 GB of state
+CELL_REPLAYS, CELL_GRANITE_MAX_BATCH, CELL_MEM_SHARE = 5, 4, 0.92
+# a captured step's private pool over the eager step's gradients and
+# activations: 34.2 GB against 26.3 GB for granite at b = 4 on the card
+CELL_POOL_GROWTH = 1.3
+# granite at full width and cut depth for the in-place AdamW's slices: its
+# (2, 40, 1536, 512) expert leaves and 49,408 x 1536 tables span 2-3 slices
+CELL_SLICED_LAYERS, CELL_SLICED_STEPS = 2, 3
+CELL_SERVES = (("recsys_paper_serve", "paper-ranking", (),
+                ("serve_p99", "serve_bulk", "retrieval_cand")),
+               ("recsys_din_serve", "din", ("attn_reparam",),
+                ("serve_p99", "serve_bulk")))
 
 
 def log(tag: str, **kv) -> None:
@@ -397,8 +445,8 @@ def lm_phase(dev, counting) -> None:
     import numpy as np
     import torch
     from repro_torch.data.lm import token_batch
-    from repro_torch.launch.steps import build_cell
     from repro_torch.models import transformer as tfm
+    from repro_torch.launch.steps import build_cell
 
     t_phase = time.perf_counter()
     mem_at_start = torch.cuda.memory_allocated(dev) / 1e9
@@ -660,6 +708,437 @@ def lm_phase(dev, counting) -> None:
               f"(93 GB of weights at full depth)"])
 
 
+# ---- phase 11: the training and serving cells -------------------------------
+
+def lm_train_flops(cfg, batch: int, seq: int) -> int:
+    """FLOPs of one training step of the reference's algorithm: the
+    layers' forward four times (forward, the remat recompute, a backward
+    of twice the forward; attention blocks masked ones included, the MoE's
+    E·C expert rows) and the lm_head over every token three times."""
+    head = 2 * batch * seq * cfg.d_model * cfg.vocab_padded
+    layers = (lm_prefill_flops(cfg, batch, seq, cfg.n_layers)
+              - 2 * batch * cfg.d_model * cfg.vocab_padded)
+    return 4 * layers + 3 * head
+
+
+def device_feeds(arch: str, metas: dict, gen) -> dict:
+    """Random feeds on ``gen``'s device at the shapes and dtypes of a cell
+    program's meta feeds: ids uniform over the consuming table's rows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.features import _vocab_for_input
+    graph, _ = get_config(arch).BUILD()
+    out = {}
+    for name, m in metas.items():
+        if m.dtype.is_floating_point:
+            out[name] = torch.randn(m.shape, generator=gen, dtype=m.dtype,
+                                    device=gen.device)
+        else:
+            vocab = _vocab_for_input(graph, name) or 1000
+            out[name] = torch.randint(0, vocab, m.shape, generator=gen,
+                                      dtype=m.dtype, device=gen.device)
+    return out
+
+
+def serve_bytes(arch: str, params: dict, feeds: dict, out) -> int:
+    """Bytes one serving call must move: every weight but the embedding
+    tables read once, each table row the call's ids name read once, the
+    feeds read once and the scores written once."""
+    from repro_torch.common import tree_bytes
+    from repro_torch.configs import get_config
+    graph, _ = get_config(arch).BUILD()
+    nbytes = tree_bytes(params) + tree_bytes(feeds) + out.numel() * 4
+    for n in graph.param_nodes():
+        if n.op == "embedding" and n.inputs[0] in feeds:
+            table = params[n.name]["table"]
+            rows = feeds[n.inputs[0]].numel()
+            nbytes += (rows - table.shape[0]) * table.shape[1] * \
+                table.element_size()
+    return nbytes
+
+
+def cells_phase(dev, counting) -> None:
+    """Phase 11: every training cell and the serving cells through
+    ``build_cell(...).compiled()`` at full published width (the cuts in
+    ``CELL_*``). Per cell: step ms (p50 over ``CELL_REPLAYS`` calls after
+    the first) captured and eager, rows or tokens a second, the bound by
+    bytes and by operations, peak memory, the in-place update's own
+    extra peak, and captured against eager. The kernel serving calls are
+    the ``cells`` path of the launch counts."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.common import tree_bytes, tree_leaves, tree_map
+    from repro_torch.common import value_and_grad
+    from repro_torch.data.lm import token_batch
+    from repro_torch.kernels import read_launches
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    gb = 1e9
+    props = torch.cuda.get_device_properties(dev)
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def timed(fn):
+        """(fn(), CUDA-event ms)."""
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return out, ev0.elapsed_time(ev1)
+
+    def bound(nbytes, flops, peak):
+        by_bytes, by_ops = nbytes / PEAK_BYTES_S, flops / peak
+        return dict(bound_ms=1e3 * max(by_bytes, by_ops),
+                    bound_by="bytes" if by_bytes >= by_ops else "operations",
+                    bytes=nbytes, flops=flops)
+
+    def p50(ms):
+        return dict(p50=float(np.median(ms)),
+                    p10_p90=[float(np.percentile(ms, q)) for q in (10, 90)])
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def update_peak(prog, state, feeds):
+        """Extra bytes the in-place update allocates over what is live
+        (the state and the gradients): gradients first, then the update
+        alone."""
+        _, grads = value_and_grad(lambda p: prog.loss_fn(p, feeds),
+                                  state["params"])
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        prog.opt.update_(grads, state["opt"], state["params"])
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - live
+        largest = max(t.numel() for t in tree_leaves(state["params"])) * 4
+        if extra > 2 * largest:
+            raise AssertionError(f"the update's extra peak {extra} B is "
+                                 f"above 2 x the largest leaf's f32 size")
+        return dict(update_extra_peak_gb=extra / gb,
+                    largest_leaf_f32_gb=largest / gb)
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    # -- lm_granite_train: granite-moe-3b-a800m at its full size -----------
+    fresh()
+    prog = build_cell(LM_GRANITE, "train_4k")
+    cfg = lm_config(LM_GRANITE)
+    global_batch, seq = prog.args[1]["tokens"].shape
+    state = prog.init(seed=11, device=dev)
+    state_bytes = tree_bytes(state)
+    grads_bytes = tree_bytes(state["params"])
+    vocab = cfg.vocab
+
+    def lm_batch(i, b):
+        return token_batch(gen(200 + i), b, seq, vocab)
+
+    # one sequence, the gradients and the update apart: activations per
+    # sequence, a no-grad forward's transient memory (the loss check's)
+    # and the update's own peak
+    probe = lm_batch(0, 1)
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (_, grads), fb_ms = timed(lambda: value_and_grad(
+        lambda p: prog.loss_fn(p, probe), state["params"]))
+    act = torch.cuda.max_memory_allocated(dev) - live - grads_bytes
+    del grads
+    upd = update_peak(prog, state, probe)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        prog.loss_fn(state["params"], probe)
+    fwd = torch.cuda.max_memory_allocated(dev) - live
+    # the captured step's pool (gradients and activations, grown) and
+    # the loss check's no-grad forward beside the state
+    room = (CELL_MEM_SHARE * props.total_memory - live
+            - CELL_POOL_GROWTH * grads_bytes)
+    b = max(1, min(CELL_GRANITE_MAX_BATCH,
+                   int(room // (CELL_POOL_GROWTH * act + fwd))))
+    log("cell_lm_granite_train_probe", batch=1, seq=seq,
+        state_gb=state_bytes / gb, grads_gb=grads_bytes / gb,
+        activations_per_sequence_gb=act / gb,
+        no_grad_forward_gb=fwd / gb, card_gb=props.total_memory / gb,
+        forward_backward_ms=fb_ms, batch_chosen=b, **upd)
+    fresh()
+    eager_ms, eager_loss = [], []
+    for i in range(CELL_REPLAYS):
+        # [1]: the metrics only (a name bound to the returned state would
+        # keep 47 GB alive past this cell)
+        m, ms = timed(lambda: prog.step_fn(state, lm_batch(i, b))[1])
+        eager_ms.append(ms)
+        eager_loss.append(float(m["loss"]))
+    peak_eager = torch.cuda.max_memory_allocated(dev)
+    log("cell_lm_granite_train_eager", batch=b, eager_ms=eager_ms,
+        losses=eager_loss, peak_gb=peak_eager / gb)
+    fresh()
+    steps_before = int(state["opt"]["step"])
+    step = prog.compiled(dev)
+    cap_ms, cap_loss, loss_pairs = [], [], []
+    for i in range(1 + CELL_REPLAYS):
+        batch = lm_batch(100 + i, b)
+        if i in (0, CELL_REPLAYS):
+            with torch.no_grad():
+                want = float(prog.loss_fn(state["params"], batch))
+        m, ms = timed(lambda: step(state, batch)[1])
+        cap_ms.append(ms)
+        cap_loss.append(float(m["loss"]))
+        if i in (0, CELL_REPLAYS):
+            loss_pairs.append((cap_loss[-1], want))
+    if step.compilations != 1 or step.state is not state:
+        raise AssertionError(f"granite train: {step.compilations} graphs")
+    if not np.all(np.isfinite(eager_loss + cap_loss)):
+        raise AssertionError(f"granite train: non-finite loss")
+    d_loss = max(abs(c - e) for c, e in loss_pairs)
+    if not all(abs(c - e) <= BF16_TOL["atol"] + BF16_TOL["rtol"] * abs(e)
+               for c, e in loss_pairs):
+        raise AssertionError(f"granite train: captured vs eager loss "
+                             f"{loss_pairs}")
+    if int(state["opt"]["step"]) != steps_before + 1 + CELL_REPLAYS:
+        raise AssertionError(f"granite train: {1 + CELL_REPLAYS} captured "
+                             f"calls took "
+                             f"{int(state['opt']['step']) - steps_before} "
+                             f"optimizer steps")
+    c50, e50 = p50(cap_ms[1:]), p50(eager_ms)
+    log("cell_lm_granite_train", arch=LM_GRANITE, shape="train_4k",
+        seq=seq, batch=b, layers=cfg.n_layers,
+        reduced=[f"global_batch {global_batch} -> {b} (the largest of 1.."
+                 f"{CELL_GRANITE_MAX_BATCH} whose captured step and loss "
+                 f"check fit beside the state)"],
+        state_gb=state_bytes / gb, grads_gb=grads_bytes / gb,
+        activations_per_sequence_gb=act / gb, **upd,
+        captured_ms=c50, first_call_ms=cap_ms[0], eager_ms=e50,
+        captured_over_eager=c50["p50"] / e50["p50"],
+        tokens_per_s_captured=b * seq * 1e3 / c50["p50"],
+        tokens_per_s_eager=b * seq * 1e3 / e50["p50"],
+        **bound(2 * state_bytes + 2 * b * seq * 4,
+                lm_train_flops(cfg, b, seq), PEAK_BF16_FLOPS),
+        peak_gb=max(peak_eager, torch.cuda.max_memory_allocated(dev)) / gb,
+        peak_eager_gb=peak_eager / gb,
+        peak_captured_gb=torch.cuda.max_memory_allocated(dev) / gb,
+        graph_reserved_gb=step.run.pool.reserved_bytes / gb,
+        compilations=step.compilations, losses_eager=eager_loss,
+        losses_captured=cap_loss,
+        captured_vs_eager_loss=loss_pairs, max_abs_loss=d_loss,
+        tol=BF16_TOL)
+    del state, step, prog, probe
+    fresh()
+
+    # -- lm_granite_sliced_update: AdamW's in-place slices, captured --------
+    from repro_torch.launch.steps import _lm_train
+    from repro_torch.train.optim import SLICE, apply_updates
+
+    def adam_diff(a, b, lr, steps):
+        """Max |a - b| over the state's leaves and the largest share of a
+        leaf off by more than 2e-4 (bf16 leaves: one ulp, 2^-7 |b|, plus
+        1e-6). Every element must lie within 2 · lr · steps beside that
+        (Adam moves a near-zero gradient's element by ~lr whatever its
+        sign) and at most 0.1% of each leaf off."""
+        worst, share = 0.0, 0.0
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            tol = (2 ** -7 * y.float().abs() + 1e-6
+                   if y.dtype == torch.bfloat16
+                   else 2e-4 + 2e-4 * y.float().abs())
+            d = (x.float() - y.float()).abs()
+            worst = max(worst, float(d.max()))
+            share = max(share, float((d > tol).float().mean()))
+            if bool((d > 2 * lr * steps + tol).any()) or share > 1e-3:
+                raise AssertionError(f"granite sliced update: |d| "
+                                     f"{float(d.max()):.3e}, share off "
+                                     f"{share:.2e} of a {tuple(y.shape)} "
+                                     f"leaf")
+        return worst, share
+
+    cfg_cut = lm_config(LM_GRANITE, n_layers=CELL_SLICED_LAYERS)
+    prog = _lm_train(cfg_cut, seq, 1)
+    lr = 3e-4                            # _lm_train's AdamW
+    state = prog.init(seed=12, device=dev)
+    sizes = [t.numel() for t in tree_leaves(state["params"])]
+    slices = sum(-(-n // SLICE) for n in sizes if n > SLICE)
+    if slices < 2:
+        raise AssertionError(f"granite sliced update: no leaf over "
+                             f"{SLICE} elements")
+    master0 = tree_map(torch.clone, state["opt"]["master"])
+    # one update from the same gradients: in place against functional
+    probe = tree_map(torch.clone, state)
+    batch = lm_batch(500, 1)
+    _, grads = value_and_grad(lambda p: prog.loss_fn(p, batch),
+                              probe["params"])
+    updates, func_opt = prog.opt.update(grads, probe["opt"], probe["params"])
+    func = {"params": apply_updates(probe["params"], updates),
+            "opt": func_opt}
+    del updates
+    prog.opt.update_(grads, probe["opt"], probe["params"])
+    d_func = adam_diff(probe, func, lr, 1)
+    del probe, func, func_opt, grads
+    fresh()
+    # CELL_SLICED_STEPS captured steps against eager() from one state
+    twin = tree_map(torch.clone, state)
+    step = prog.compiled(dev)
+    for i in range(CELL_SLICED_STEPS):
+        batch = lm_batch(510 + i, 1)
+        step(state, batch)
+        step.eager(twin, batch)
+    d_cap = adam_diff(state, twin, lr, CELL_SLICED_STEPS)
+    moved = min(float((w - w0).abs().max()) for w, w0 in zip(
+        tree_leaves(state["opt"]["master"]), tree_leaves(master0)))
+    if (step.compilations != 1 or moved == 0.0
+            or int(state["opt"]["step"]) != CELL_SLICED_STEPS
+            or int(twin["opt"]["step"]) != CELL_SLICED_STEPS):
+        raise AssertionError(f"granite sliced update: "
+                             f"{step.compilations} graphs, steps "
+                             f"{int(state['opt']['step'])} / "
+                             f"{int(twin['opt']['step'])}, least master "
+                             f"move {moved}")
+    log("cell_lm_granite_sliced_update", arch=LM_GRANITE, seq=seq, batch=1,
+        layers=CELL_SLICED_LAYERS,
+        reduced=[f"{cfg.n_layers} layers -> {CELL_SLICED_LAYERS} (width "
+                 f"kept: the expert leaves span two slices)"],
+        slice_elements=SLICE, largest_leaf_elements=max(sizes),
+        sliced_leaves=sum(n > SLICE for n in sizes), slices=slices,
+        inplace_vs_functional_max_abs=d_func[0],
+        inplace_vs_functional_share_off=d_func[1],
+        steps=CELL_SLICED_STEPS, captured_vs_eager_max_abs=d_cap[0],
+        captured_vs_eager_share_off=d_cap[1], least_master_move=moved,
+        compilations=step.compilations,
+        tol="2e-4 on all but 0.1% of each leaf (bf16: one ulp), every "
+            "element within 2 lr steps")
+    del state, twin, master0, step, prog
+    fresh()
+
+    # -- recsys train cells -------------------------------------------------
+    def recsys_train_cell(name, arch, opts=()):
+        fresh()
+        prog = build_cell(arch, "train_batch", opts=opts)
+        metas, labels_meta = prog.args[1], prog.args[2]
+        B, n_out = labels_meta.shape
+
+        def batch(i):
+            g = gen(300 + i)
+            feeds = device_feeds(arch, metas, g)
+            labels = (torch.rand((B, n_out), generator=g, device=dev)
+                      < 0.2).float()
+            return feeds, labels
+
+        state = prog.init(seed=0, device=dev)
+        twin = tree_map(torch.clone, state)
+        feeds0 = prog.pack(*batch(0))
+        feed_bytes = tree_bytes(feeds0)
+        with FlopCounterMode(display=False) as fc:
+            value_and_grad(lambda p: prog.loss_fn(p, feeds0),
+                           twin["params"])
+        flops = fc.get_total_flops()
+        del feeds0
+        fresh()
+        step = prog.compiled(dev)
+        cap_ms, eager_ms = [], []
+        for i in range(1 + CELL_REPLAYS):
+            cap_ms.append(timed(lambda: step(state, *batch(i)))[1])
+        peak_captured = torch.cuda.max_memory_allocated(dev)
+        for i in range(1 + CELL_REPLAYS):
+            eager_ms.append(timed(lambda: prog.step_fn(twin, *batch(i)))[1])
+        peak = torch.cuda.max_memory_allocated(dev)
+        d = max_diff(state, twin)
+        if step.compilations != 1 or not all(
+                torch.allclose(a.float(), b.float(), **TOL)
+                for a, b in zip(tree_leaves(state), tree_leaves(twin))):
+            raise AssertionError(f"{name}: captured vs eager state "
+                                 f"{d:.3e}, {step.compilations} graphs")
+        del step
+        fresh()
+        upd = update_peak(prog, twin, prog.pack(*batch(0)))
+        c50, e50 = p50(cap_ms[1:]), p50(eager_ms[1:])
+        log(f"cell_{name}", arch=arch, shape="train_batch", rows=B,
+            opts=list(opts), reduced=[],
+            state_gb=tree_bytes(state) / gb, feed_gb=feed_bytes / gb,
+            captured_ms=c50, first_call_ms=cap_ms[0], eager_ms=e50,
+            captured_over_eager=c50["p50"] / e50["p50"],
+            rows_per_s_captured=B * 1e3 / c50["p50"],
+            rows_per_s_eager=B * 1e3 / e50["p50"],
+            **bound(2 * tree_bytes(state) + feed_bytes, flops,
+                    PEAK_FP32_FLOPS),
+            peak_gb=peak / gb, peak_captured_gb=peak_captured / gb, **upd,
+            compilations=1, steps_compared=1 + CELL_REPLAYS,
+            max_abs_captured_vs_eager_state=d, tol=TOL)
+
+    recsys_train_cell("recsys_paper_train", "paper-ranking")
+    recsys_train_cell("recsys_din_train", "din")
+    recsys_train_cell("recsys_din_train_emb_bf16", "din", ("emb_bf16",))
+
+    # -- recsys serve cells, through the kernels ------------------------------
+    for name, arch, opts, shapes in CELL_SERVES:
+        fresh()
+        params = None
+        for shape in shapes:
+            prog = build_cell(arch, shape, opts=opts)
+            if params is None:
+                params = prog.init(seed=0, device=dev)
+            metas = prog.args[1]
+            B = max(m.shape[0] for m in metas.values())
+            feeds = device_feeds(arch, metas, gen(400))
+            torch.cuda.reset_peak_memory_stats(dev)
+            serve = prog.compiled(dev)
+            with counting("cells"):
+                got, first_ms = timed(lambda: serve(params, feeds))
+                cap_ms = [timed(lambda: serve(params, feeds))[1]
+                          for _ in range(CELL_REPLAYS)]
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in read_launches().items() if v}
+            peak = torch.cuda.max_memory_allocated(dev)
+            del serve
+            fresh()
+            plain = prog.compiled(dev, use_pallas=False)
+            want_c, _ = timed(lambda: plain(params, feeds))
+            plain_ms = [timed(lambda: plain(params, feeds))[1]
+                        for _ in range(CELL_REPLAYS)]
+            del plain
+            fresh()
+            with FlopCounterMode(display=False) as fc:
+                want = prog.step_fn(params, feeds)
+            eager_ms = [timed(lambda: prog.step_fn(params, feeds))[1]
+                        for _ in range(CELL_REPLAYS)]
+            if (tuple(got.shape) != tuple(want.shape)
+                    or not bool(torch.isfinite(got).all())
+                    or not torch.allclose(got, want, **TOL)
+                    or not torch.allclose(want_c, want, **TOL)):
+                raise AssertionError(
+                    f"{name} {shape}: kernels vs plain "
+                    f"{float((got - want).abs().max()):.3e}")
+            if launched.get("mari_matmul/broadcast", 0) == 0:
+                raise AssertionError(f"{name} {shape}: no mari_matmul "
+                                     f"launch: {launched}")
+            c50, e50 = p50(cap_ms), p50(eager_ms)
+            log(f"cell_{name}", arch=arch, shape=shape, rows=B,
+                opts=list(opts), reduced=[],
+                captured_ms=c50, first_call_ms=first_ms,
+                captured_plain_ms=p50(plain_ms), eager_plain_ms=e50,
+                eager_over_captured=e50["p50"] / c50["p50"],
+                rows_per_s_captured=B * 1e3 / c50["p50"],
+                **bound(serve_bytes(arch, params, feeds, got),
+                        fc.get_total_flops(), PEAK_FP32_FLOPS),
+                peak_gb=peak / gb, feed_gb=tree_bytes(feeds) / gb,
+                launches=launched,
+                max_abs_kernels_vs_eager_plain=float(
+                    (got - want).abs().max()),
+                max_abs_compiled_plain_vs_eager_plain=float(
+                    (want_c - want).abs().max()), tol=TOL)
+            del feeds, got, want, want_c
+        del params
+    fresh()
+    log("cells_phase", seconds=time.perf_counter() - t_phase,
+        card_memory_gb=props.total_memory / gb)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -682,7 +1161,7 @@ def main() -> int:
     from repro_torch.graph.executor import Executor, init_graph_params
     from repro_torch.configs import get_config
     from repro_torch.ckpt.manager import CheckpointManager
-    from repro_torch.common import timeit
+    from repro_torch.common import timeit, tree_leaves, tree_map
     from repro_torch.core.mari import apply_mari
     from repro_torch.data.features import (interleaved_spans,
                                            make_recsys_feeds)
@@ -1862,6 +2341,8 @@ def main() -> int:
         teacher = init_graph_params(graph, seed=99, device=dev)
         ex = Executor(graph, "vani", device=dev)
         opt = adam(2e-3)
+        # one captured graph, the state updated in place; the resume copies
+        # the restored checkpoint into the captured state
         step = recsys_step(ex, outputs, opt)
         state0 = {"params": params, "opt": opt.init(params)}
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1911,17 +2392,45 @@ def main() -> int:
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
         del state0
-        params = state["params"]
+        if step.compilations != 1 or state is not step.state:
+            raise AssertionError(f"the captured step built "
+                                 f"{step.compilations} graphs across the "
+                                 f"crash and resume")
+        params = tree_map(torch.clone, state["params"])
+        # TRAIN_COMPARE captured steps against as many eager steps of the
+        # same body from the same state and batches
+        twin = tree_map(torch.clone, state)
+        for b in itertools.islice(teacher_batches(graph, teacher, ex, dev,
+                                                  seed=5), TRAIN_COMPARE):
+            step(state, b)
+        for b in itertools.islice(teacher_batches(graph, teacher, ex, dev,
+                                                  seed=5), TRAIN_COMPARE):
+            step.eager(twin, b)
+        d_params = 0.0
+        for a, b in zip(tree_leaves(state), tree_leaves(twin)):
+            d_params = max(d_params, float((a.float() - b.float()).abs()
+                                           .max()))
+            if not torch.allclose(a.float(), b.float(), **TOL):
+                raise AssertionError(f"captured vs eager state after "
+                                     f"{TRAIN_COMPARE} steps: "
+                                     f"{d_params:.3e}")
         batch = next(teacher_batches(graph, teacher, ex, dev, seed=3))
         t_step = timeit(lambda: step(state, batch), warmup=2, iters=10)
-        del state
+        t_eager = timeit(lambda: step.eager(twin, batch), warmup=2,
+                         iters=10)
         log("train", arch="din", steps=TRAIN_STEPS, batch=64,
             crash_at=FAIL_AT, latest_after_crash=crashed_at_latest,
             resumed=lines[0], latest_after_resume=resumed_to,
             loss_first=losses[0], loss_last=losses[-1], losses=losses,
             wall_s=train_s, checkpoint_gbytes=ckpt_gb,
-            train_step_ms=dict(p50=t_step["p50_us"] / 1e3,
-                               mean=t_step["mean_us"] / 1e3))
+            compilations=step.compilations,
+            max_abs_captured_vs_eager_state=d_params,
+            compared_steps=TRAIN_COMPARE, tol=TOL,
+            train_step_ms=dict(compiled_p50=t_step["p50_us"] / 1e3,
+                               compiled_mean=t_step["mean_us"] / 1e3,
+                               eager_p50=t_eager["p50_us"] / 1e3,
+                               eager_mean=t_eager["mean_us"] / 1e3))
+        del state, twin
 
         # convert, then score one user's 2048 candidates single-call; the
         # mari_matmul kernel's weights are prepared once, before the calls
@@ -2898,6 +3407,11 @@ def main() -> int:
     if any(by_path["lm"].values()):
         raise AssertionError(f"the LM path launched a recsys kernel: "
                              f"{by_path['lm']}")
+
+    # ---- phase 11: the training and serving cells --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells_phase(dev, counting)
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the
@@ -2913,7 +3427,8 @@ def main() -> int:
     # contractions, the runner's sharded engines to the gathered MaRI init
     # (every rank, checked in dist_phase), the three engines of the reorg
     # path to the gathered MaRI init and its single calls (table3) to the
-    # broadcast init; table1 is only printed
+    # broadcast init, the serve cells of phase 11 (cells) to the broadcast
+    # init of their single calls; table1 is only printed
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
                           and k not in OFF_PATH]}
@@ -2934,6 +3449,7 @@ def main() -> int:
     held["dist"] = ["mari_matmul/gather"]
     held["reorg"] = ["mari_matmul/gather"]
     held["table3"] = ["mari_matmul/broadcast"]
+    held["cells"] = ["mari_matmul/broadcast"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
     # every path hands mari_matmul prepared weights (engines at load, the

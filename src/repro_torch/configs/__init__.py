@@ -31,8 +31,9 @@ NOT_PORTED = ("schnet",)
 def get_config(arch: str):
     if arch in NOT_PORTED:
         raise KeyError(f"arch {arch!r} is in the reference registry but not "
-                       f"ported yet (the GNN model comes with a later "
-                       f"slice); ported: {sorted(_ARCH_MODULES)}")
+                       f"ported yet (the GNN model, SchNet, comes with the "
+                       f"next slice of the port); ported: "
+                       f"{sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(

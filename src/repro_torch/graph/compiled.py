@@ -74,6 +74,25 @@ Traps, and what this module does about each:
 Params are keyed by object identity: the addresses of a params tree's
 tensors are read once per params object (an engine's params never change
 in place), and the entry keeps the object alive.
+
+**Training steps** (``CompiledStep``, over ``CompiledRun(fn, grad=True)``).
+The body ``fn(state, batch)`` computes a loss and its gradients by
+autograd and updates the state (params and optimizer state) in place: the
+state is passed where an engine passes its params (its addresses are the
+key, as the reference donates it), the batch as feeds. Grad mode stays on
+for the warm-up and the capture (autograd runs the backward on the
+capture stream, where the forward ran). Three traps:
+
+* **The warm-up mutates the state.** The warm-up run on the side stream
+  is a real step, so it *is* the first call's step: the first call returns
+  the warm-up's outputs and skips the replay; every later call replays.
+  After N calls the state has taken exactly N steps.
+* **Memory.** The warm-up's activations go back to the allocator's cache,
+  which the graph's private pool cannot reuse, so the cache is emptied
+  before a training capture: at full size the two would not fit together.
+* **A restored state** (``CheckpointManager.restore`` returns new tensors)
+  is copied into the captured state with ``copy_``; it never starts a
+  second graph over a second copy of the state (``CompiledStep.adopt``).
 """
 from __future__ import annotations
 
@@ -137,6 +156,8 @@ class _Entry:
     graph: Any = None             # torch.cuda.CUDAGraph (None on the CPU)
     out: dict[str, Tensor] | None = None   # the graph's static outputs
     launches: list = dataclasses.field(default_factory=list)
+    # a training entry's warm-up outputs: the first call's step
+    first: dict[str, Tensor] | None = None
 
 
 def _feed_spec(v: Feed) -> tuple[tuple[int, ...], torch.dtype]:
@@ -172,8 +193,9 @@ class CompiledRun:
 
     def __init__(self, fn: Callable[[Any, dict], Mapping[str, Tensor]], *,
                  device: str | torch.device = "cuda",
-                 pool: GraphPool | None = None):
+                 pool: GraphPool | None = None, grad: bool = False):
         self.fn = fn
+        self.grad = grad
         self.device = resolve_device(device)
         self.pool = pool if pool is not None else GraphPool(self.device)
         if self.pool.device.type != self.device.type:
@@ -212,9 +234,10 @@ class CompiledRun:
                  ) -> dict[str, Tensor]:
         """Run ``fn(params, {**feeds, **refs})`` through the entry of this
         call's signature (built on first use), under
-        ``torch.inference_mode``; returns fresh output tensors, enqueued on
-        the current stream."""
-        with torch.inference_mode():
+        ``torch.inference_mode`` (grad mode for a training step); returns
+        fresh output tensors, enqueued on the current stream."""
+        mode = torch.enable_grad() if self.grad else torch.inference_mode()
+        with mode:
             return self._call(params, feeds, dict(refs or {}))
 
     def _call(self, params, feeds: Mapping[str, Feed],
@@ -229,6 +252,9 @@ class CompiledRun:
                     self._entries[key] = entry
         pool = self.pool
         with pool.lock:
+            if entry.first is not None:      # the warm-up was this step
+                out, entry.first = entry.first, None
+                return out
             for k, v in feeds.items():
                 _copy_in(entry.static[k], v)
             if entry.graph is not None:
@@ -258,8 +284,14 @@ class CompiledRun:
             side = pool.capture_stream
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                self.fn(params, args)
+                warm = self.fn(params, args)
+                if self.grad:
+                    warm = {k: v.clone() for k, v in warm.items()}
             cur.wait_stream(side)
+            if self.grad:
+                entry.first = warm
+                torch.cuda.empty_cache()
+            del warm
             reserved0 = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
             # capture_begin / capture_end directly: torch.cuda.graph's
@@ -293,3 +325,54 @@ class CompiledRun:
             pool.captures += 1
         entry.graph, entry.out, entry.launches = graph, out, list(rec)
         return entry
+
+
+class CompiledStep:
+    """``step(state, *batch) -> (state, metrics)``: a training step
+    ``body(state, feeds) -> {name: tensor}`` that updates ``state`` in
+    place, behind one captured graph (``CompiledRun(body, grad=True)``).
+
+    ``pack(*batch)`` turns the caller's batch into the flat feed mapping
+    the body reads (default: the batch is that mapping). The first state
+    passed becomes the captured state and is the one returned; a state
+    with other tensors (a restored checkpoint) is copied into it first.
+    On the CPU the body runs eagerly over the same static buffers."""
+
+    def __init__(self, body: Callable[[Any, dict], Mapping[str, Tensor]], *,
+                 device: str | torch.device = "cuda",
+                 pack: Callable[..., Mapping[str, Feed]] | None = None):
+        self.run = CompiledRun(body, device=device, grad=True)
+        self.pack = pack
+        self.state = None
+
+    @property
+    def compilations(self) -> int:
+        return self.run.compilations
+
+    def adopt(self, state) -> Any:
+        """The captured state, holding ``state``'s values."""
+        if self.state is None:
+            self.state = state
+        elif state is not self.state:
+            mine, theirs = tree_leaves(self.state), tree_leaves(state)
+            if len(mine) != len(theirs):
+                raise ValueError(f"state has {len(theirs)} leaves, the "
+                                 f"captured one {len(mine)}")
+            with torch.no_grad():
+                for dst, src in zip(mine, theirs):
+                    if dst.data_ptr() != src.data_ptr():
+                        dst.copy_(src)
+        return self.state
+
+    def _feeds(self, batch: tuple) -> Mapping[str, Feed]:
+        return self.pack(*batch) if self.pack is not None else batch[0]
+
+    def __call__(self, state, *batch) -> tuple[Any, dict[str, Tensor]]:
+        state = self.adopt(state)
+        return state, self.run(state, self._feeds(batch))
+
+    def eager(self, state, *batch) -> tuple[Any, dict[str, Tensor]]:
+        """The same step run eagerly on ``state`` (in place, uncaptured):
+        what the graph is held against."""
+        with torch.enable_grad():
+            return state, dict(self.run.fn(state, self._feeds(batch)))

@@ -61,47 +61,60 @@ _DTYPES = {"float32": torch.float32, "float16": torch.float16,
 def init_graph_params(graph: Graph, seed: int = 0, dtype=torch.float32,
                       device: str | torch.device = "cuda") -> dict:
     """Initialize params for every parameterized node, drawn on ``device``
-    from a ``torch.Generator`` seeded with ``seed``."""
-    gen = make_generator(seed, resolve_device(device))
+    from a ``torch.Generator`` seeded with ``seed``. On ``device="meta"``
+    the tree holds shapes and dtypes only (the port of ``jax.eval_shape``
+    over it): a full-width table costs nothing."""
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else make_generator(seed, dev)
+
+    def glorot_(shape):
+        if gen is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return glorot(gen, shape, dtype)
+
+    def normal_(shape, scale):
+        if gen is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return normal_init(gen, shape, scale, dtype)
+
     shapes = infer_shapes(graph)
     params: dict = {}
     for n in graph.topo_order():
         if n.op == "dense":
             din = shapes[n.inputs[0]][-1]
-            p = {"w": glorot(gen, (din, n.attrs["units"]), dtype)}
+            p = {"w": glorot_((din, n.attrs["units"]))}
             if n.attrs.get("use_bias", True):
                 p["b"] = torch.zeros((n.attrs["units"],), dtype=dtype,
-                                     device=gen.device)
+                                     device=dev)
             params[n.name] = p
         elif n.op == "embedding":
             scale = 1.0 / max(n.attrs["vocab"], 1) ** 0.5
             params[n.name] = {
-                "table": normal_init(gen, (n.attrs["vocab"], n.attrs["dim"]),
-                                     scale, dtype)}
+                "table": normal_((n.attrs["vocab"], n.attrs["dim"]), scale)}
         elif n.op == "target_attention":
             d = shapes[n.inputs[0]][-1]
             dims = (4 * d,) + tuple(n.attrs["mlp_hidden"]) + (1,)
             p = {}
             for li, (di, do) in enumerate(zip(dims[:-1], dims[1:])):
                 p[f"layer_{li}"] = {
-                    "w": glorot(gen, (di, do), dtype),
-                    "b": torch.zeros((do,), dtype=dtype, device=gen.device)}
+                    "w": glorot_((di, do)),
+                    "b": torch.zeros((do,), dtype=dtype, device=dev)}
             if n.attrs.get("decomposed"):
                 h1 = n.attrs["mlp_hidden"][0]
                 p["layer_0"] = {
-                    "w_kd": glorot(gen, (d, h1), dtype),
-                    "w_qd": glorot(gen, (d, h1), dtype),
-                    "w_p": glorot(gen, (d, h1), dtype),
-                    "b": torch.zeros((h1,), dtype=dtype, device=gen.device)}
+                    "w_kd": glorot_((d, h1)),
+                    "w_qd": glorot_((d, h1)),
+                    "w_p": glorot_((d, h1)),
+                    "b": torch.zeros((h1,), dtype=dtype, device=dev)}
             params[n.name] = p
         elif n.op == "mari_dense":
             units = n.attrs["units"]
             p = {}
             for label, seg_idx in n.attrs["groups"]:
                 d = sum(n.attrs["seg_widths"][i] for i in seg_idx)
-                p[f"w_{label}"] = glorot(gen, (d, units), dtype)
+                p[f"w_{label}"] = glorot_((d, units))
             if n.attrs.get("use_bias", True):
-                p["b"] = torch.zeros((units,), dtype=dtype, device=gen.device)
+                p["b"] = torch.zeros((units,), dtype=dtype, device=dev)
             params[n.name] = p
     return params
 

@@ -1,2 +1,3 @@
 """Entry points (port of ``repro.launch``: the serving and training
-launchers, and the LM family's per-cell serving programs in ``steps``)."""
+launchers, and the per-cell programs of the LM and recsys families in
+``steps``)."""

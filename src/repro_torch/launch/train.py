@@ -1,15 +1,20 @@
-"""Training launcher (port of ``repro.launch.train``, the recsys family)::
+"""Training launcher (port of ``repro.launch.train``)::
 
   python -m repro_torch.launch.train --arch din --steps 50 --ckpt-dir D
+  python -m repro_torch.launch.train --arch granite-moe-3b-a800m --steps 20
 
-Trains the registry model's smoke build in VanI mode with Adam on
-synthetic feeds and labels (``data.features``), checkpointing into
-``--ckpt-dir`` and resuming from its newest checkpoint, as the
-reference's ``--smoke`` path does (the only size either launcher
-trains). ``--device`` defaults to ``cuda`` (the
-run fails without a card); ``--device cpu`` runs on the CPU. The LM
-family's training path and the GNN family are not ported yet: asking for
-one exits with a message.
+Trains the registry model's smoke build (recsys: VanI executor, Adam, BCE
+on synthetic feeds and labels from ``data.features``; LM: the smoke
+config in fp32, AdamW with f32 master weights, ``lm_loss`` on 8 × 32
+uniform token batches), checkpointing into ``--ckpt-dir`` and resuming
+from its newest checkpoint, as the reference's ``--smoke`` path does (the
+only size either launcher trains). On the card each step is one replay of
+a captured CUDA graph (``graph.compiled.CompiledStep``: the state updated
+in place, a restored checkpoint copied into the captured state); on the
+CPU the same in-place step runs eagerly. ``--device`` defaults to
+``cuda`` (the run fails without a card); ``--device cpu`` runs on the
+CPU. The GNN family is not ported yet (SchNet comes with the next slice):
+asking for it exits with a message.
 """
 from __future__ import annotations
 
@@ -21,31 +26,47 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
-from repro_torch.common import resolve_device, value_and_grad
+from repro_torch.common import resolve_device
+from repro_torch.graph.compiled import CompiledStep
+from repro_torch.launch.steps import (compiled_train_step, lm_train_loss,
+                                      recsys_loss, recsys_pack)
 from repro_torch.train.loop import LoopConfig, train_loop
-from repro_torch.train.losses import bce_with_logits
-from repro_torch.train.optim import Optimizer, apply_updates
+from repro_torch.train.optim import Optimizer
 
 
-def recsys_step(executor, outputs: list[str], opt: Optimizer):
+def recsys_step(executor, outputs: list[str], opt: Optimizer
+                ) -> CompiledStep:
     """``step(state, (feeds, labels)) -> (state, {"loss"})``: BCE over the
-    concatenated task logits, gradients by autograd through the
-    executor, one optimizer update."""
-    def step(state, batch):
-        feeds, labels = batch
+    concatenated task logits, gradients by autograd through the executor,
+    and ``opt.update_`` on the state in place, behind one captured CUDA
+    graph on the executor's device (eager over static buffers on the
+    CPU); ``step.compilations`` counts its graphs."""
+    return compiled_train_step(recsys_loss(lambda _: executor, outputs), opt,
+                               device=executor.device,
+                               pack=lambda batch: recsys_pack(*batch))
 
-        def loss_fn(p):
-            out = executor.run(p, feeds)
-            return bce_with_logits(torch.cat([out[o] for o in outputs], -1),
-                                   labels)
 
-        loss, grads = value_and_grad(loss_fn, state["params"])
-        with torch.no_grad():
-            updates, opt_state = opt.update(grads, state["opt"],
-                                            state["params"])
-            params = apply_updates(state["params"], updates)
-        return {"params": params, "opt": opt_state}, {"loss": loss}
-    return step
+def _smoke_lm(arch: str, steps: int, ckpt_dir: str, device):
+    from repro_torch import configs as cfgreg
+    from repro_torch.data.lm import token_batch
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.train.optim import adamw
+
+    cfg = cfgreg.get_config(arch).smoke_config()
+    opt = adamw(1e-3, master_weights=True)
+    params = init_lm_params(cfg, seed=0, dtype=torch.float32, device=device)
+    state = {"params": params, "opt": opt.init(params)}
+
+    def batches():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        while True:
+            yield token_batch(gen, 8, 32, cfg.vocab)
+
+    mgr = CheckpointManager(ckpt_dir)
+    return train_loop(compiled_train_step(lm_train_loss(cfg), opt,
+                                          device=device),
+                      state, batches(), mgr, LoopConfig(steps))
 
 
 def _smoke_recsys(arch: str, steps: int, ckpt_dir: str, device):
@@ -69,8 +90,8 @@ def _smoke_recsys(arch: str, steps: int, ckpt_dir: str, device):
             yield feeds, torch.as_tensor(labels, device=device)
 
     mgr = CheckpointManager(ckpt_dir)
-    return train_loop(recsys_step(ex, outputs, opt), state, batches(), mgr,
-                      LoopConfig(steps))
+    return train_loop(recsys_step(ex, outputs, opt), state,
+                      batches(), mgr, LoopConfig(steps))
 
 
 def main(argv=None):
@@ -90,16 +111,13 @@ def main(argv=None):
         fam = cfgreg.get_config(args.arch).FAMILY
     except KeyError as e:
         raise SystemExit(str(e.args[0]))
-    if fam == "lm":
-        raise SystemExit(
-            f"{args.arch}: the LM training path is not ported yet — it comes "
-            f"with the next slice of the port (the captured training step "
-            f"with lm_loss, AdamW and master weights); the LM serving path "
-            f"is in: repro_torch.launch.steps.build_cell")
-    if fam != "recsys":
-        raise SystemExit(f"the {fam} family is not ported yet")
     dev = resolve_device(args.device)
-    _, hist = _smoke_recsys(args.arch, args.steps, args.ckpt_dir, dev)
+    if fam == "lm":
+        _, hist = _smoke_lm(args.arch, args.steps, args.ckpt_dir, dev)
+    elif fam == "recsys":
+        _, hist = _smoke_recsys(args.arch, args.steps, args.ckpt_dir, dev)
+    else:
+        raise SystemExit(f"the {fam} family is not ported yet")
     first, last = hist[0]["loss"], hist[-1]["loss"]
     print(f"[train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")

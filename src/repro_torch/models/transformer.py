@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common import take_clip, tree_map
+from repro_torch.common import take_clip, tree_leaves, tree_unflatten
 from repro_torch.dist import policy
 from repro_torch.nn.layers import rms_norm
 
@@ -368,8 +368,15 @@ def _depth(params: dict) -> int:
     return params["layers"]["ln1"].shape[0]
 
 
-def _layer_params(params: dict, i: int) -> dict:
-    return tree_map(lambda t: t[i], params["layers"])
+def _layer_slices(params: dict) -> list[dict]:
+    """Every layer's params: one ``torch.unbind`` per stacked leaf. Under
+    grad its backward writes the leaf's gradient as one stack, where
+    ``t[i]`` per layer would write a zero-filled full-size gradient per
+    layer and add them up."""
+    layers = params["layers"]
+    per_leaf = [torch.unbind(t) for t in tree_leaves(layers)]
+    return [tree_unflatten(layers, [u[i] for u in per_leaf])
+            for i in range(_depth(params))]
 
 
 def _embed(params: dict, tokens: Tensor, dt: torch.dtype) -> Tensor:
@@ -396,10 +403,12 @@ def lm_forward(params: dict, cfg: LMConfig, tokens: Tensor,
 
     remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
-    for i in range(_depth(params)):
-        lp = _layer_params(params, i)
+    for lp in _layer_slices(params):
         if remat:
-            x, kv = checkpoint(layer, x, lp, use_reentrant=False)
+            # the layer draws no random numbers: no RNG state to keep,
+            # and reading it would break a CUDA graph capture
+            x, kv = checkpoint(layer, x, lp, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
             x, kv = layer(x, lp)
         if return_kv:
@@ -488,8 +497,7 @@ def lm_decode_step(params: dict, cfg: LMConfig, cache: dict,
     valid_b = (kv_pos >= 0)[None].expand(b, W)
 
     x = _embed(params, tokens, dt)                 # (B, 1, D)
-    for i in range(_depth(params)):
-        lp = _layer_params(params, i)
+    for i, lp in enumerate(_layer_slices(params)):
         kv_state = {"k": cache["k"][i], "v": cache["v"][i], "slot": slot,
                     "pos": kv_pos_b, "valid": valid_b}
         x, _ = _attn_block(x, lp, cfg, positions, kv_state)

@@ -28,7 +28,8 @@ def target_attention(
     scores = mlp_apply(feats)[..., 0]  # (B, L)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bl,bld->bd", w, keys)
+    dt = torch.promote_types(w.dtype, keys.dtype)   # as jnp.einsum promotes
+    return torch.einsum("bl,bld->bd", w.to(dt), keys.to(dt))
 
 
 def cross_attention(

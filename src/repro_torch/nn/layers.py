@@ -22,8 +22,13 @@ ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
 
 
 def dense_apply(params: dict, x: Tensor) -> Tensor:
-    """y = x @ w (+ b). w: (D_in, D_out)."""
-    y = x @ params["w"]
+    """y = x @ w (+ b). w: (D_in, D_out). Mixed dtypes (bf16 embeddings
+    into f32 layers) promote as ``jnp.matmul`` does."""
+    w = params["w"]
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if "b" in params:
         y = y + params["b"]
     return y

@@ -1799,3 +1799,129 @@ def test_moe_ffn_is_deterministic_on_the_card(cuda):
     with torch.inference_mode():
         runs = [tfm.moe_ffn(x, ffn, cfg) for _ in range(3)]
     assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+# -- captured training steps ----------------------------------------------------
+
+def _clone_tree(tree):
+    from repro_torch.common import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def _assert_states_close(a, b, tol=TOL):
+    from repro_torch.common import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        torch.testing.assert_close(x.float(), y.float(), **tol)
+
+
+def _din_train_setup(cuda, bsz=48):
+    """The smoke DIN with Adam, its captured step and 6 batches."""
+    from repro_torch.launch.train import recsys_step
+    from repro_torch.train.optim import adam
+    from repro_torch.data.features import make_labels
+    graph, *_ = get_config("din").smoke_build()()
+    ex = Executor(graph, "vani", device=cuda)
+    opt = adam(1e-2)
+    params = init_graph_params(graph, seed=0, device=cuda)
+    state = {"params": params, "opt": opt.init(params)}
+    rng = np.random.default_rng(7)
+    batches = [(make_recsys_feeds(graph, bsz, rng, tile_user=True),
+                torch.as_tensor(make_labels(bsz, rng, 1), device=cuda))
+               for _ in range(6)]
+    return recsys_step(ex, list(graph.outputs), opt), state, \
+        batches
+
+
+def test_captured_train_step_matches_eager_din(cuda):
+    """The DIN step behind one graph: the same states as the eager body
+    from the same state and batches, one optimizer step per call (the
+    first call's warm-up is its step), one graph."""
+    step, state, batches = _din_train_setup(cuda)
+    twin = _clone_tree(state)
+    for i, b in enumerate(batches):
+        out, m = step(state, b)
+        assert out is state
+        assert int(state["opt"]["step"]) == i + 1
+        _, me = step.eager(twin, b)
+        torch.testing.assert_close(m["loss"], me["loss"], **TOL)
+    assert step.compilations == 1
+    _assert_states_close(state, twin)
+
+
+def test_captured_train_step_matches_eager_lm(cuda):
+    """A 2-layer granite (remat on, so the capture records the
+    checkpointed recompute; fp32) through ``_lm_train``'s compiled step
+    against its eager ``step_fn``."""
+    import dataclasses
+    from repro_torch.data.lm import token_batch
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(_lm_smoke("granite-moe-3b-a800m"), n_layers=2,
+                              remat=True)
+    prog = steps._lm_train(cfg, 32, 4)
+    state = prog.init(seed=3, device=cuda)
+    twin = _clone_tree(state)
+    step = prog.compiled(cuda)
+    g = _gen(cuda, 9)
+    for i in range(4):
+        batch = token_batch(g, 4, 32, cfg.vocab)
+        _, m = step(state, batch)
+        _, me = prog.step_fn(twin, batch)
+        torch.testing.assert_close(m["loss"], me["loss"], **TOL)
+        assert int(state["opt"]["step"]) == i + 1
+    assert step.compilations == 1
+    _assert_states_close(state, twin)
+
+
+def test_captured_step_one_graph_across_a_restore(cuda, tmp_path):
+    """A crash after a checkpoint and a resume through ``train_loop``: the
+    restored state (new tensors) is copied into the captured state, so
+    one graph serves both runs, and the step count is the loop's."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.train.loop import LoopConfig, train_loop
+    step, state0, batches = _din_train_setup(cuda)
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    cfg = LoopConfig(total_steps=12, ckpt_every=4, log_every=100)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        train_loop(step, state0, iter(batches * 2), mgr, cfg, fail_at=6,
+                   log=lambda *_: None)
+    assert mgr.latest_step() == 4 and step.compilations == 1
+    logs = []
+    state, _ = train_loop(step, state0, iter(batches * 2), mgr, cfg,
+                          log=logs.append)
+    assert logs[0] == "[loop] resumed from step 4"
+    assert state is step.state and step.compilations == 1
+    assert int(state["opt"]["step"]) == 12
+
+
+@pytest.mark.parametrize("master", [False, True])
+def test_inplace_update_extra_peak_within_two_leaves(cuda, master):
+    """The in-place AdamW's own allocations stay within 2 x the largest
+    leaf's f32 size, as the caching allocator sizes a block (rounded up to
+    2 MiB; the step's scalars take 512-byte blocks): it walks leaves in
+    slices and reuses the f32 gradient's memory. It reads nothing back."""
+    from repro_torch.common import tree_map
+    from repro_torch.train import optim
+    g = _gen(cuda, 11)
+    dt = torch.bfloat16 if master else torch.float32
+    params = {"big": _randn(g, 3000, 2048).to(dt),
+              "small": {"w": _randn(g, 64, 32).to(dt),
+                        "b": _randn(g, 32).to(dt)}}
+    opt = optim.adamw(1e-3, master_weights=master)
+    state = opt.init(params)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                           device=cuda).to(p.dtype), params)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.update_(grads, state, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - live
+    block = -(-3000 * 2048 * 4 // (2 << 20)) * (2 << 20)
+    assert extra <= 2 * block + 64 * 512
+    assert int(state["step"]) == 1

@@ -494,13 +494,19 @@ def test_build_cell_matches_reference(arch, shape):
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_build_cell_refuses_train_shapes(arch):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_cell(arch, "train_4k")
+    """Since the training cells' slice a train shape builds; what it still
+    refuses is a mesh or a sharding option, naming that slice."""
+    prog = build_cell(arch, "train_4k")
+    assert prog.kind == "train" and prog.donate_argnums == (0,)
+    for kw in (dict(opts=("moe_local",)), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="sharding rule sets"):
+            build_cell(arch, "train_4k", **kw)
 
 
 def test_build_cell_refuses_other_families_and_sharding():
-    with pytest.raises(NotImplementedError, match="recsys family"):
-        build_cell("din", "serve_p99")
+    assert build_cell("din", "serve_p99").kind == "serve"
+    with pytest.raises(NotImplementedError, match="sharding rule sets"):
+        build_cell("din", "serve_p99", opts=("serve_full_dp",))
     with pytest.raises(KeyError, match="not ported yet"):
         build_cell("schnet", "full_graph")
     with pytest.raises(NotImplementedError, match="sharding rule sets"):
@@ -571,7 +577,13 @@ def test_compiled_refuses_a_missing_card():
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
-def test_launch_train_refuses_lm_archs_naming_the_next_slice(arch):
+def test_launch_train_refuses_lm_archs_naming_the_next_slice(arch, tmp_path):
+    """The LM archs train since the training cells' slice; the launcher
+    now refuses the GNN arch, naming the next slice (SchNet)."""
     from repro_torch.launch.train import main
-    with pytest.raises(SystemExit, match="LM training path .* next slice"):
-        main(["--device", "cpu", "--arch", arch])
+    hist = main(["--device", "cpu", "--arch", arch, "--steps", "2",
+                 "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    with pytest.raises(SystemExit, match="SchNet, comes with the next slice"):
+        main(["--device", "cpu", "--arch", "schnet"])
