@@ -158,6 +158,22 @@
    ``FlopCounterMode`` over a plain run; fp32 SIMT peak, TF32 off), peak
    memory, and for training the in-place update's own extra peak (held to
    2 x the largest leaf's f32 size).
+12. SchNet's four training cells (``gnn``) through ``build_cell("schnet",
+   shape).compiled()`` at full published width (d_hidden 64, n_rbf 300,
+   3 interactions, cutoff 10), Adam, random weights from a seed:
+   ``full_graph_sm`` (2708 nodes, 10,556 edges, ``GNN_FULL_SM_STEPS``
+   steps over which the loss must fall), ``molecule`` (128 molecules of
+   30 atoms and 64 edges), ``minibatch_lg`` (batches of 1024 seeds drawn
+   by ``NeighborSampler`` with fanout (15, 10) over a ``random_graph`` of
+   232,965 nodes and 114,615,892 edges, its host ``sample``, feature
+   gather and copy to the card timed per batch) and ``ogb_products``
+   (2,449,029 nodes, its 61,859,140 edges cut to the largest 1 / 2^k
+   whose step fits in ``CELL_MEM_SHARE`` of the card, planned from
+   eager and captured probes at 2^-6 and 2^-5). Per cell: step ms
+   captured and eager, edges a second, the bound by bytes and by
+   operations (the GEMMs ``FlopCounterMode`` counts), peak memory,
+   captured against eager after the same steps (2e-4), and two eager
+   steps from one saved state held equal bit for bit.
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -183,8 +199,9 @@ fault run and the hedged engine, phase 7's memory-tier engines,
 phase 8's runner workers (each worker zeroes and reads its own counts
 around its sharded engine's work and reports them), phase 9's three
 ``reorg`` engines and its single calls (``table3``), phase 10's
-prefill and decode runs (``lm``, held to no launch), and phase 11's
-kernel serving calls (``cells``), each its own path.
+prefill and decode runs (``lm``, held to no launch), phase 11's
+kernel serving calls (``cells``) and phase 12's training steps (``gnn``,
+held to no launch), each its own path.
 Every kernel variant held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
@@ -298,6 +315,13 @@ CELL_POOL_GROWTH = 1.3
 # granite at full width and cut depth for the in-place AdamW's slices: its
 # (2, 40, 1536, 512) expert leaves and 49,408 x 1536 tables span 2-3 slices
 CELL_SLICED_LAYERS, CELL_SLICED_STEPS = 2, 3
+# phase 12, SchNet's four training cells at full published width: the
+# captured steps over which full_graph_sm's loss must fall, and the two
+# edge cuts of ogb_products (61,859,140 / 2^k) probed to plan its cut
+GNN_FULL_SM_STEPS, GNN_OGB_PROBE_K = 30, (6, 5)
+# eager minibatch_lg steps on the sampler's own padding and on pad_edges'
+# spread, taking turns
+GNN_PADDING_TURNS = 4
 CELL_SERVES = (("recsys_paper_serve", "paper-ranking", (),
                 ("serve_p99", "serve_bulk", "retrieval_cand")),
                ("recsys_din_serve", "din", ("attn_reparam",),
@@ -1136,6 +1160,362 @@ def cells_phase(dev, counting) -> None:
         del params
     fresh()
     log("cells_phase", seconds=time.perf_counter() - t_phase,
+        card_memory_gb=props.total_memory / gb)
+
+
+# ---- phase 12: SchNet's training cells --------------------------------------
+
+def gnn_graph(n_nodes: int, n_edges: int, d_feat: int, n_classes: int,
+              gen) -> dict:
+    """A ``full`` cell's batch drawn on ``gen``'s device as
+    ``data.sampler.random_graph`` draws it on the host (uniform senders
+    and receivers, normal features, positions normal x 3, uniform labels),
+    its edges padded to a multiple of 1024 with ``edge_mask`` False, as
+    ``data.sampler.pad_edges`` pads (each pad edge a self-loop on its own
+    node)."""
+    import torch
+    from repro_torch.launch.steps import _pad_up
+    dev, e_pad = gen.device, _pad_up(n_edges)
+
+    def ids(n, high):
+        return torch.randint(0, high, (n,), generator=gen, dtype=torch.int32,
+                             device=dev)
+
+    pad = torch.arange(n_edges, e_pad, dtype=torch.int32,
+                       device=dev) % n_nodes
+    mask = torch.zeros(e_pad, dtype=torch.bool, device=dev)
+    mask[:n_edges] = True
+    return {"features": torch.randn((n_nodes, d_feat), generator=gen,
+                                    device=dev),
+            "positions": torch.randn((n_nodes, 3), generator=gen,
+                                     device=dev) * 3.0,
+            "senders": torch.cat([ids(n_edges, n_nodes), pad]),
+            "receivers": torch.cat([ids(n_edges, n_nodes), pad]),
+            "edge_mask": mask, "labels": ids(n_nodes, n_classes)}
+
+
+def gnn_phase(dev, counting) -> None:
+    """Phase 12: SchNet's four training cells through
+    ``build_cell("schnet", shape).compiled()`` at full published width
+    (d_hidden 64, n_rbf 300, 3 interactions, cutoff 10); the one cut, of
+    ``ogb_products``' edges, planned from probes' measured bytes. Per
+    cell: step ms (p50 over the calls after the first) captured and eager,
+    edges a second, the bound by bytes and by operations
+    (``FlopCounterMode`` counts the GEMMs, over the fp32 peak; the RBF's
+    exp and the scatters are bytes), peak memory, captured against eager
+    after the same steps (2e-4), two eager steps from one saved state bit
+    for bit, finite losses, falling over ``GNN_FULL_SM_STEPS`` steps on
+    ``full_graph_sm``; ``minibatch_lg`` also times the host's sampling,
+    feature gather and copy to the card per batch. Every step run is the
+    ``gnn`` path of the launch counts, held to none of the six kernels."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.common import tree_bytes, tree_leaves, tree_map
+    from repro_torch.common import value_and_grad
+    from repro_torch.configs import get_config
+    from repro_torch.data import sampler
+    from repro_torch.launch.steps import _pad_up, build_cell
+
+    t_phase = time.perf_counter()
+    gb = 1e9
+    props = torch.cuda.get_device_properties(dev)
+    n_rbf = get_config("schnet").CONFIG.n_rbf
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def timed(fn):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return out, ev0.elapsed_time(ev1)
+
+    def p50(ms):
+        return dict(p50=float(np.median(ms)),
+                    p10_p90=[float(np.percentile(ms, q)) for q in (10, 90)])
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def run_cell(shape, batches, n_steps, cut_edges=False):
+        """The cell's checks and timings over ``batches`` (cycled): the
+        batches have the program's shapes and dtypes (``cut_edges``: all
+        but the edge arrays' length)."""
+        fresh()
+        prog = build_cell("schnet", shape)
+        metas = prog.args[1]
+        for b in batches:
+            for k, m in metas.items():
+                want = tuple(m.shape)
+                if cut_edges and k in ("senders", "receivers", "edge_mask"):
+                    want = tuple(b[k].shape)
+                if tuple(b[k].shape) != want or b[k].dtype != m.dtype:
+                    raise AssertionError(
+                        f"gnn {shape}: batch {k} {tuple(b[k].shape)} "
+                        f"{b[k].dtype}, the cell's {tuple(m.shape)} "
+                        f"{m.dtype}")
+        n_nodes = metas["positions"].shape[0]
+        n_edges = batches[0]["senders"].shape[0]
+        real_edges = float(np.mean([int(b["edge_mask"].sum())
+                                    for b in batches]))
+        saved = prog.init(seed=0, device=dev)
+        # two eager steps from one saved state: bit for bit
+        runs = []
+        with counting("gnn"):
+            for _ in range(2):
+                s = tree_map(torch.clone, saved)
+                _, m = prog.step_fn(s, batches[0])
+                runs.append((m["loss"], s))
+        repeat = torch.equal(runs[0][0], runs[1][0]) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][1]),
+                                              tree_leaves(runs[1][1])))
+        if not repeat:
+            d = max(float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(runs[0][1]), tree_leaves(runs[1][1])))
+            raise AssertionError(f"gnn {shape}: two eager steps from one "
+                                 f"state differ by {d:.3e}")
+        del runs, s
+        fresh()
+        with FlopCounterMode(display=False) as fc:
+            value_and_grad(lambda p: prog.loss_fn(p, batches[0]),
+                           saved["params"])
+        flops = fc.get_total_flops()
+        # where an eager step's device time goes (its kernels by name)
+        s = tree_map(torch.clone, saved)
+        with counting("gnn"):
+            prof = profile_call(lambda: prog.step_fn(s, batches[0]))
+        del s
+        fresh()
+        twin = tree_map(torch.clone, saved)
+        eager_ms, eager_loss = [], []
+        with counting("gnn"):
+            for i in range(n_steps):
+                m, ms = timed(lambda: prog.step_fn(
+                    twin, batches[i % len(batches)])[1])
+                eager_ms.append(ms)
+                eager_loss.append(float(m["loss"]))
+        peak_eager = torch.cuda.max_memory_allocated(dev)
+        fresh()
+        state = tree_map(torch.clone, saved)
+        step = prog.compiled(dev)
+        cap_ms, cap_loss = [], []
+        with counting("gnn"):
+            for i in range(n_steps):
+                m, ms = timed(lambda: step(state,
+                                           batches[i % len(batches)])[1])
+                cap_ms.append(ms)
+                cap_loss.append(float(m["loss"]))
+        peak_cap = torch.cuda.max_memory_allocated(dev)
+        pairs = list(zip(tree_leaves(state), tree_leaves(twin)))
+        d_state = max(float((a - b).abs().max()) for a, b in pairs)
+        d_loss = max(abs(a - b) for a, b in zip(cap_loss, eager_loss))
+        if step.compilations != 1 or not all(
+                torch.allclose(a, b, **TOL) for a, b in pairs) or not all(
+                abs(a - b) <= TOL["atol"] + TOL["rtol"] * abs(b)
+                for a, b in zip(cap_loss, eager_loss)):
+            raise AssertionError(f"gnn {shape}: captured vs eager state "
+                                 f"{d_state:.3e}, loss {d_loss:.3e}, "
+                                 f"{step.compilations} graphs")
+        if not np.all(np.isfinite(cap_loss + eager_loss)):
+            raise AssertionError(f"gnn {shape}: non-finite loss")
+        if int(state["opt"]["step"]) != n_steps:
+            raise AssertionError(f"gnn {shape}: {n_steps} captured calls "
+                                 f"took {int(state['opt']['step'])} steps")
+        c50, e50 = p50(cap_ms[1:]), p50(eager_ms[1:])
+        # the state read and written once, the batch read once, the loss
+        nbytes = 2 * tree_bytes(saved) + tree_bytes(batches[0]) + 4
+        by_bytes, by_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+        bound_ms = 1e3 * max(by_bytes, by_ops)
+        out = dict(
+            arch="schnet", shape=shape, nodes=n_nodes, edges_padded=n_edges,
+            real_edges=real_edges, steps=n_steps,
+            captured_ms=c50, first_call_ms=cap_ms[0], eager_ms=e50,
+            eager_over_captured=e50["p50"] / c50["p50"],
+            edges_per_s_captured=real_edges * 1e3 / c50["p50"],
+            edges_per_s_eager=real_edges * 1e3 / e50["p50"],
+            bound_ms=bound_ms,
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            bound_bytes_ms=1e3 * by_bytes, bound_ops_ms=1e3 * by_ops,
+            bytes=nbytes, gemm_flops=flops,
+            gemm_flops_per_edge=flops / n_edges,
+            captured_over_bound=c50["p50"] / bound_ms,
+            rbf_gb=n_edges * n_rbf * 4 / gb,
+            state_gb=tree_bytes(saved) / gb,
+            batch_gb=tree_bytes(batches[0]) / gb,
+            peak_gb=max(peak_eager, peak_cap) / gb,
+            peak_eager_gb=peak_eager / gb, peak_captured_gb=peak_cap / gb,
+            graph_reserved_gb=step.run.pool.reserved_bytes / gb,
+            compilations=step.compilations,
+            losses_captured=cap_loss, losses_eager=eager_loss,
+            max_abs_captured_vs_eager_state=d_state,
+            max_abs_captured_vs_eager_loss=d_loss,
+            eager_repeat_bit_for_bit=repeat, tol=TOL, eager_profile=prof)
+        del state, twin, saved, step, prog
+        fresh()
+        return out
+
+    shapes = get_config("schnet").SHAPES
+
+    def padded_edges(shape):
+        return build_cell("schnet", shape).args[1]["senders"].shape[0]
+
+    # -- full_graph_sm: the whole graph, 2708 nodes, 10,556 edges -----------
+    spec = shapes["full_graph_sm"]
+    batch = on_card(sampler.pad_edges(sampler.random_graph(
+        spec["n_nodes"], spec["n_edges"], spec["d_feat"], seed=0,
+        n_classes=spec["n_classes"]), padded_edges("full_graph_sm")))
+    r = run_cell("full_graph_sm", [batch], GNN_FULL_SM_STEPS)
+    if not r["losses_captured"][-1] < r["losses_captured"][0]:
+        raise AssertionError(f"gnn full_graph_sm: the loss did not fall "
+                             f"over {GNN_FULL_SM_STEPS} steps: "
+                             f"{r['losses_captured']}")
+    log("gnn_full_graph_sm", reduced=[], **r)
+    del batch
+
+    # -- molecule: 128 molecules x 30 atoms, 64 edges each --------------------
+    spec = shapes["molecule"]
+    batches = [on_card(sampler.pad_edges(sampler.batched_molecules(
+        spec["batch"], spec["n_nodes"], spec["n_edges"], seed=i),
+        padded_edges("molecule"))) for i in range(1 + CELL_REPLAYS)]
+    log("gnn_molecule", reduced=[],
+        **run_cell("molecule", batches, 1 + CELL_REPLAYS))
+    del batches
+
+    # -- minibatch_lg: NeighborSampler batches over the published graph -----
+    spec = shapes["minibatch_lg"]
+    n = spec["n_nodes"]
+    t = time.perf_counter()
+    big = sampler.random_graph(n, spec["n_edges"], spec["d_feat"], seed=0,
+                               n_classes=spec["n_classes"])
+    t_graph = time.perf_counter() - t
+    t = time.perf_counter()
+    ns = sampler.NeighborSampler(big["senders"], big["receivers"], n,
+                                 spec["fanout"])
+    t_csr = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    n_edges = padded_edges("minibatch_lg")
+    batches, host = [], {"sample_ms": [], "gather_ms": [], "h2d_ms": []}
+    for _ in range(1 + CELL_REPLAYS):
+        seeds = rng.choice(n, spec["batch_nodes"], replace=False)
+        t0 = time.perf_counter()
+        samp = ns.sample(seeds, rng)
+        t1 = time.perf_counter()
+        b = sampler.pad_edges(sampler.sampled_batch(big, samp), n_edges)
+        t2 = time.perf_counter()
+        batches.append(on_card(b))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host["sample_ms"].append(1e3 * (t1 - t0))
+        host["gather_ms"].append(1e3 * (t2 - t1))
+        host["h2d_ms"].append(1e3 * (t3 - t2))
+    # the last batch as the sampler pads it (every masked edge 0 -> its
+    # last node), padded on with 0 -> 0 edges: pad_edges' spread beside it
+    raw = dict(batches[-1])
+    for k, a in (("senders", samp["senders"]),
+                 ("receivers", samp["receivers"])):
+        raw[k] = torch.zeros(n_edges, dtype=torch.int32, device=dev)
+        raw[k][:len(a)] = torch.as_tensor(a, device=dev)
+    del big, ns, b, samp
+    gc.collect()
+    r = run_cell("minibatch_lg", batches, 1 + CELL_REPLAYS)
+    prog = build_cell("schnet", "minibatch_lg")
+    saved = prog.init(seed=0, device=dev)
+    padding = {"spread": ([], batches[-1]), "sampler": ([], raw)}
+    with counting("gnn"):
+        for turn in range(GNN_PADDING_TURNS):
+            for name in ("spread", "sampler")[::1 - 2 * (turn % 2)]:
+                s = tree_map(torch.clone, saved)
+                m, ms = timed(lambda: prog.step_fn(s, padding[name][1])[1])
+                padding[name][0].append((ms, float(m["loss"])))
+    losses = {k: {x[1] for x in v[0]} for k, v in padding.items()}
+    if losses["spread"] != losses["sampler"] or len(losses["spread"]) != 1:
+        raise AssertionError(f"gnn minibatch_lg: the padding moved the "
+                             f"loss: {losses}")
+    del prog, saved, s, raw
+    host_ms = float(np.median(np.add(host["sample_ms"], host["gather_ms"])))
+    log("gnn_minibatch_lg", reduced=[], graph_build_s=t_graph,
+        csr_build_s=t_csr, host_ms={k: p50(v) for k, v in host.items()},
+        host_sample_gather_ms=host_ms,
+        host_over_captured_step=host_ms / r["captured_ms"]["p50"],
+        eager_ms_by_padding={k: p50([x[0] for x in v[0]])
+                             for k, v in padding.items()},
+        loss_by_padding={k: sorted(v) for k, v in losses.items()}, **r)
+    del batches, padding
+
+    # -- ogb_products: all 2,449,029 nodes, its edges cut to fit -------------
+    spec = shapes["ogb_products"]
+    full_e = spec["n_edges"]
+    prog = build_cell("schnet", "ogb_products")
+
+    def edges_at(k):
+        return -(-full_e // 2 ** k)
+
+    def probe(k):
+        """Peak reserved bytes (state and batch included) of an eager step
+        and of the captured step (warm-up, capture, a replay) at
+        61,859,140 / 2^k edges."""
+        fresh()
+        batch = gnn_graph(spec["n_nodes"], edges_at(k), spec["d_feat"],
+                          spec["n_classes"], gen(600 + k))
+        state = prog.init(seed=0, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with counting("gnn"):
+            prog.step_fn(state, batch)
+            torch.cuda.synchronize()
+            eager = torch.cuda.max_memory_reserved(dev)
+            torch.cuda.empty_cache()
+            step = prog.compiled(dev)
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+        cap = torch.cuda.max_memory_reserved(dev)
+        del step, state, batch
+        fresh()
+        return _pad_up(edges_at(k)), eager, cap
+
+    t = time.perf_counter()
+    (e1, a1, c1), (e2, a2, c2) = [probe(k) for k in GNN_OGB_PROBE_K]
+    room = CELL_MEM_SHARE * props.total_memory
+
+    def need(e):
+        return max(a1 + (a2 - a1) / (e2 - e1) * (e - e1),
+                   c1 + (c2 - c1) / (e2 - e1) * (e - e1))
+
+    plan = {k: need(_pad_up(edges_at(k))) for k in range(GNN_OGB_PROBE_K[1])}
+    k = min((k for k, b in plan.items() if b <= room), default=None)
+    if k is None:
+        raise AssertionError(f"gnn ogb_products: no cut fits {room} B: "
+                             f"{plan}")
+    t_plan = time.perf_counter() - t
+    del prog
+    batch = gnn_graph(spec["n_nodes"], edges_at(k), spec["d_feat"],
+                      spec["n_classes"], gen(700))
+    r = run_cell("ogb_products", [batch], 1 + CELL_REPLAYS, cut_edges=True)
+    log("gnn_ogb_products", reduced=[
+        f"edges {full_e:,} -> {edges_at(k):,} = {full_e:,} / 2^{k} (padded "
+        f"to {_pad_up(edges_at(k)):,}): the largest 2^-k cut whose step "
+        f"fits in {CELL_MEM_SHARE} of the card, planned from probes at "
+        f"2^-{GNN_OGB_PROBE_K[0]} and 2^-{GNN_OGB_PROBE_K[1]}; nodes, "
+        f"widths and classes whole"],
+        cut_k=k, probes=[dict(edges=e, eager_reserved_gb=a / gb,
+                              captured_reserved_gb=c / gb)
+                         for e, a, c in ((e1, a1, c1), (e2, a2, c2))],
+        planned_gb={f"2^-{kk}": b / gb for kk, b in plan.items()},
+        room_gb=room / gb, plan_s=t_plan, **r)
+    del batch
+    fresh()
+    log("gnn_phase", seconds=time.perf_counter() - t_phase,
         card_memory_gb=props.total_memory / gb)
 
 
@@ -3412,6 +3792,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cells_phase(dev, counting)
+
+    # ---- phase 12: SchNet's training cells ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn_phase(dev, counting)
+    if any(by_path["gnn"].values()):
+        raise AssertionError(f"the GNN path launched a recsys kernel: "
+                             f"{by_path['gnn']}")
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the

@@ -1,7 +1,7 @@
 """Per-cell programs (port of ``repro.launch.steps``): for an
-(architecture × input shape) cell of the LM or recsys family, the step
-function and its inputs as ``meta``-device tensors at the shape's sizes
-(the reference's ``ShapeDtypeStruct``s).
+(architecture × input shape) cell of the LM, recsys or GNN family, the
+step function and its inputs as ``meta``-device tensors at the shape's
+sizes (the reference's ``ShapeDtypeStruct``s).
 
 The port runs on one device with no mesh: ``in_shardings``,
 ``out_shardings`` and ``mesh`` stay ``None`` and ``policy_kv`` empty
@@ -14,11 +14,12 @@ step's first argument (the train state, or the params) at full size::
     state = prog.init(seed=0)
     state, metrics = step(state, batch)       # state updated in place
 
-* **train** (``_lm_train``, ``_recsys_train``): one step behind a captured
-  CUDA graph (``graph.compiled.CompiledStep``). The state — params and
-  optimizer state — is updated in place by the optimizer's ``update_``
-  (the reference donates it, ``donate_argnums=(0,)``); the batch is copied
-  into static buffers; ``loss`` is the only output.
+* **train** (``_lm_train``, ``_recsys_train``, ``_gnn_train``): one step
+  behind a captured CUDA graph (``graph.compiled.CompiledStep``). The
+  state — params and optimizer state — is updated in place by the
+  optimizer's ``update_`` (the reference donates it,
+  ``donate_argnums=(0,)``); the batch is copied into static buffers;
+  ``loss`` is the only output.
 * **serve** (``_recsys_serve``): the GCA + MaRI rewrite, then the
   executor behind one ``CompiledRun`` per feed signature. On the card it
   runs through the CUDA kernels (``use_pallas``), the ``mari_matmul``
@@ -49,17 +50,14 @@ from repro_torch.data.lm import token_batch_specs
 from repro_torch.dist import policy
 from repro_torch.graph.compiled import CompiledRun, CompiledStep
 from repro_torch.graph.executor import Executor, init_graph_params
+from repro_torch.models import schnet as schnet_mod
 from repro_torch.models.transformer import (LMConfig, init_lm_params,
                                             kv_cache_specs, lm_decode_step,
                                             lm_forward, lm_loss,
                                             lm_param_specs)
-from repro_torch.train.losses import bce_with_logits
+from repro_torch.train.losses import bce_with_logits, softmax_xent
 from repro_torch.train.optim import Optimizer, adam, adamw
 
-# what build_cell refuses, and the slice of the port that brings it
-FAMILY_SLICE = ("the {fam} family's cell programs come with a later slice "
-                "of the port (ROADMAP Queue 1: SchNet, with data/sampler.py "
-                "and configs/schnet.py)")
 # the batch's labels in a recsys train step's flat feed mapping
 LABELS_FEED = "__labels__"
 
@@ -389,6 +387,105 @@ def _recsys_serve(mod, batch: int, use_mari: bool = True, mode: str = "uoi",
 
 
 # ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+def _pad_up(n: int, m: int = 1024) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def gnn_loss(scfg: schnet_mod.SchNetConfig, shape_spec: dict
+             ) -> Callable[[dict, dict], torch.Tensor]:
+    """``loss_fn(params, batch)`` of a GNN cell: ``softmax_xent`` over
+    every node (``full``) or the first ``batch_nodes`` rows, the seeds
+    (``sampled``); MSE of ``schnet_graph_readout`` against ``energies``
+    (``molecule``)."""
+    mode = shape_spec["mode"]
+    if mode == "molecule":
+        ng = shape_spec["batch"]
+
+        def loss_fn(params, batch):
+            out = schnet_mod.schnet_forward(
+                params, scfg, batch["atom_types"], batch["positions"],
+                batch["senders"], batch["receivers"],
+                edge_mask=batch["edge_mask"])
+            en = schnet_mod.schnet_graph_readout(out, batch["graph_ids"], ng)
+            return torch.mean(torch.square(en[:, 0] - batch["energies"]))
+        return loss_fn
+
+    def loss_fn(params, batch):
+        out = schnet_mod.schnet_forward(
+            params, scfg, batch["features"], batch["positions"],
+            batch["senders"], batch["receivers"],
+            edge_mask=batch["edge_mask"])
+        labels = batch["labels"]
+        if mode == "sampled":
+            out = out[: shape_spec["batch_nodes"]]
+            labels = labels[: shape_spec["batch_nodes"]]
+        return softmax_xent(out, labels)
+    return loss_fn
+
+
+def _gnn_train(cfg: schnet_mod.SchNetConfig, shape_spec: dict
+               ) -> CellProgram:
+    """SchNet with Adam(1e-3) over one batch of ``shape_spec``'s regime:
+    the whole graph (``full``), a padded ``NeighborSampler`` subgraph of
+    ``batch_nodes`` seeds (``sampled``) or ``batch`` molecules
+    (``molecule``). Edge arrays are padded to a multiple of 1024 (the
+    padding carries ``edge_mask`` False); the batch is a dict of the
+    reference's ``batch_sds`` names."""
+    mode = shape_spec["mode"]
+    f32, i32 = torch.float32, torch.int32
+    if mode in ("full", "sampled"):
+        d_feat = shape_spec["d_feat"]
+        scfg = dataclasses.replace(cfg, d_feat=d_feat,
+                                   n_out=shape_spec["n_classes"])
+        if mode == "full":
+            n_nodes, n_edges = shape_spec["n_nodes"], shape_spec["n_edges"]
+        else:
+            bn, fan = shape_spec["batch_nodes"], shape_spec["fanout"]
+            n, n_nodes, n_edges = bn, bn, 0
+            for f in fan:
+                n *= f
+                n_nodes += n
+                n_edges += n
+        n_edges = _pad_up(n_edges)
+        batch = {"features": _meta((n_nodes, d_feat), f32),
+                 "positions": _meta((n_nodes, 3), f32),
+                 "senders": _meta((n_edges,), i32),
+                 "receivers": _meta((n_edges,), i32),
+                 "edge_mask": _meta((n_edges,), torch.bool),
+                 "labels": _meta((n_nodes,), i32)}
+    else:  # molecule: batched energy regression
+        scfg = dataclasses.replace(cfg, d_feat=0, n_out=1)
+        ng = shape_spec["batch"]
+        n_nodes = ng * shape_spec["n_nodes"]
+        n_edges = _pad_up(ng * shape_spec["n_edges"])
+        batch = {"atom_types": _meta((n_nodes,), i32),
+                 "positions": _meta((n_nodes, 3), f32),
+                 "senders": _meta((n_edges,), i32),
+                 "receivers": _meta((n_edges,), i32),
+                 "edge_mask": _meta((n_edges,), torch.bool),
+                 "graph_ids": _meta((n_nodes,), i32),
+                 "energies": _meta((ng,), f32)}
+    opt = adam(1e-3)
+
+    def init(seed: int = 0, device: str | torch.device = "cuda"):
+        params = schnet_mod.init_schnet_params(
+            scfg, seed=seed, device=resolve_device(device))
+        return {"params": params, "opt": opt.init(params)}
+
+    params = schnet_mod.schnet_param_specs(scfg)
+    return _train_program(gnn_loss(scfg, shape_spec), opt,
+                          ({"params": params, "opt": opt.init(params)},
+                           batch), init)
+
+
+# ---------------------------------------------------------------------------
 # dispatcher
 # ---------------------------------------------------------------------------
 
@@ -399,10 +496,10 @@ SHARDING_OPTS = frozenset({"moe_local", "seq_par", "table_md",
 
 def build_cell(arch: str, shape: str, mesh=None, opts=(), **kw
                ) -> CellProgram:
-    """The cell's program, for every shape of the LM and recsys families.
-    opts: named §Perf options — 'attn_reparam', 'serve_uoi', 'serve_vani',
-    'serve_bf16', 'grad_bf16', 'emb_bf16'; ``kw`` (``use_mari``,
-    ``mode``) goes to a recsys serve program. The GNN family, a mesh and
+    """The cell's program, for every shape of the LM, recsys and GNN
+    families. opts: named §Perf options — 'attn_reparam', 'serve_uoi',
+    'serve_vani', 'serve_bf16', 'grad_bf16', 'emb_bf16'; ``kw``
+    (``use_mari``, ``mode``) goes to a recsys serve program. A mesh and
     the sharding options ('moe_local', 'seq_par', 'table_md',
     'serve_full_dp') raise, naming the slice that brings them."""
     opts = frozenset(opts)
@@ -411,9 +508,6 @@ def build_cell(arch: str, shape: str, mesh=None, opts=(), **kw
     if spec.get("skip"):
         raise ValueError(f"cell ({arch}, {shape}) is skipped: {spec['skip']}")
     fam = mod.FAMILY
-    if fam not in ("lm", "recsys"):
-        raise NotImplementedError(f"build_cell({arch!r}, {shape!r}): "
-                                  + FAMILY_SLICE.format(fam=fam))
     sharded = sorted(opts & SHARDING_OPTS)
     if mesh is not None or sharded:
         raise NotImplementedError(
@@ -428,9 +522,14 @@ def build_cell(arch: str, shape: str, mesh=None, opts=(), **kw
             prog = _lm_prefill(cfg, seq, batch)
         else:
             prog = _lm_decode(cfg, seq, batch)
-    elif spec["kind"] == "train":
-        prog = _recsys_train(mod, spec["batch"], opts=opts)
+    elif fam == "recsys":
+        if spec["kind"] == "train":
+            prog = _recsys_train(mod, spec["batch"], opts=opts)
+        else:
+            prog = _recsys_serve(mod, spec["batch"], opts=opts, **kw)
+    elif fam == "gnn":
+        prog = _gnn_train(mod.CONFIG, spec)
     else:
-        prog = _recsys_serve(mod, spec["batch"], opts=opts, **kw)
+        raise ValueError(fam)
     prog.arch, prog.shape = arch, shape
     return prog

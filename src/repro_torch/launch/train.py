@@ -13,8 +13,9 @@ a captured CUDA graph (``graph.compiled.CompiledStep``: the state updated
 in place, a restored checkpoint copied into the captured state); on the
 CPU the same in-place step runs eagerly. ``--device`` defaults to
 ``cuda`` (the run fails without a card); ``--device cpu`` runs on the
-CPU. The GNN family is not ported yet (SchNet comes with the next slice):
-asking for it exits with a message.
+CPU. The GNN family exits with the reference's message, as the reference
+has no GNN launcher: its cells train through
+``launch.steps.build_cell("schnet", shape).compiled()``.
 """
 from __future__ import annotations
 
@@ -117,7 +118,7 @@ def main(argv=None):
     elif fam == "recsys":
         _, hist = _smoke_recsys(args.arch, args.steps, args.ckpt_dir, dev)
     else:
-        raise SystemExit(f"the {fam} family is not ported yet")
+        raise SystemExit("use examples/train_schnet for gnn smoke training")
     first, last = hist[0]["loss"], hist[-1]["loss"]
     print(f"[train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")

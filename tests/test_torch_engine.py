@@ -267,11 +267,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.dist, repro_torch.dist.runner, "
             "repro_torch.ft.failures, repro_torch.models.transformer, "
             "repro_torch.dist.policy, repro_torch.data.lm, "
-            "repro_torch.launch.steps; "
+            "repro_torch.launch.steps, repro_torch.models.schnet, "
+            "repro_torch.data.sampler; "
             "[repro_torch.configs.get_config(a) for a in "
             "('din', 'deepfm', 'fm', 'dlrm-mlperf', 'paper-ranking', "
             "'mixtral-8x7b', 'granite-moe-3b-a800m', 'deepseek-67b', "
-            "'qwen3-14b', 'yi-9b')]; "
+            "'qwen3-14b', 'yi-9b', 'schnet')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1925,3 +1925,165 @@ def test_inplace_update_extra_peak_within_two_leaves(cuda, master):
     block = -(-3000 * 2048 * 4 // (2 << 20)) * (2 << 20)
     assert extra <= 2 * block + 64 * 512
     assert int(state["step"]) == 1
+
+
+# -- SchNet: the GNN family's training cells ------------------------------
+
+# small shape specs of the three regimes (``_gnn_train`` pads edges to 1024)
+SMALL_GNN_SPECS = {
+    "full": {"kind": "train", "n_nodes": 50, "n_edges": 300, "d_feat": 12,
+             "n_classes": 6, "mode": "full"},
+    "sampled": {"kind": "train", "n_nodes": 120, "n_edges": 700,
+                "d_feat": 10, "n_classes": 5, "mode": "sampled",
+                "batch_nodes": 8, "fanout": (4, 3)},
+    "molecule": {"kind": "train", "n_nodes": 10, "n_edges": 20, "batch": 4,
+                 "mode": "molecule"},
+}
+
+
+def small_gnn_batch(spec, n_edges, seed):
+    """One numpy batch of a small GNN shape spec, its edges padded to
+    ``n_edges`` (jax-free: tests/test_torch_schnet.py takes it too)."""
+    from repro_torch.data import sampler
+    mode = spec["mode"]
+    if mode == "molecule":
+        return sampler.pad_edges(sampler.batched_molecules(
+            spec["batch"], spec["n_nodes"], spec["n_edges"], seed), n_edges)
+    g = sampler.random_graph(spec["n_nodes"], spec["n_edges"],
+                             spec["d_feat"], seed, spec["n_classes"])
+    if mode == "full":
+        return sampler.pad_edges(g, n_edges)
+    s = sampler.NeighborSampler(g["senders"], g["receivers"],
+                                spec["n_nodes"], spec["fanout"])
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(spec["n_nodes"], spec["batch_nodes"], replace=False)
+    return sampler.pad_edges(sampler.sampled_batch(g, s.sample(seeds, rng)),
+                             n_edges)
+
+
+def _schnet_cell(mode, dev, n_batches=4):
+    """``_gnn_train`` over the smoke config and a small spec: the program,
+    a state on ``dev`` and ``n_batches`` batches on ``dev``."""
+    from repro_torch.launch import steps
+    prog = steps._gnn_train(get_config("schnet").smoke_config(),
+                            SMALL_GNN_SPECS[mode])
+    n_edges = prog.args[1]["senders"].shape[0]
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                small_gnn_batch(SMALL_GNN_SPECS[mode], n_edges, 40 + i
+                                ).items()} for i in range(n_batches)]
+    return prog, prog.init(seed=2, device=dev), batches
+
+
+@pytest.mark.parametrize("mode", ["full", "sampled", "molecule"])
+def test_schnet_captured_step_matches_eager(cuda, mode):
+    """The GNN step behind one captured graph against the eager
+    ``step_fn`` from the same state and batches: losses and states at
+    TOL, one optimizer step per call, one graph."""
+    prog, state, batches = _schnet_cell(mode, cuda)
+    twin = _clone_tree(state)
+    step = prog.compiled(cuda)
+    for i, b in enumerate(batches):
+        _, m = step(state, b)
+        _, me = prog.step_fn(twin, b)
+        torch.testing.assert_close(m["loss"], me["loss"], **TOL)
+        assert int(state["opt"]["step"]) == i + 1
+    assert step.compilations == 1
+    _assert_states_close(state, twin)
+
+
+@pytest.mark.parametrize("mode", ["full", "sampled", "molecule"])
+def test_schnet_step_repeats_bit_for_bit_on_the_card(cuda, mode):
+    """Two eager steps from one saved state give the same loss and state
+    bit for bit: the gathers' backward and the segment sums reduce in a
+    fixed order (no fp32 atomics)."""
+    prog, state, batches = _schnet_cell(mode, cuda, n_batches=1)
+    runs = []
+    for _ in range(2):
+        s = _clone_tree(state)
+        _, m = prog.step_fn(s, batches[0])
+        runs.append((m["loss"], s))
+    from repro_torch.common import tree_leaves
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)
+
+
+def test_schnet_scatter_and_gather_repeat_bit_for_bit(cuda):
+    """``segment_sum`` of 200,000 rows into 37 segments (heavy
+    duplication, ids out of range among them) and the backward of
+    ``take_rows`` over as many indices repeat bit for bit, and match the
+    CPU within TOL."""
+    from repro_torch.models import schnet as ts
+    g = _gen(cuda, 21)
+    data = _randn(g, 200_000, 64)
+    ids = torch.randint(-3, 40, (200_000,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    outs = [ts.segment_sum(data, ids, 37) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].cpu(), ts.segment_sum(
+        data.cpu(), ids.cpu(), 37), **TOL)
+    grads = []
+    for _ in range(2):
+        x = _randn(_gen(cuda, 5), 37, 64).requires_grad_(True)
+        (ts.take_rows(x, ids) * data).sum().backward()
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_schnet_padded_edges_change_nothing(cuda):
+    """The full regime's graph with its 300 edges as they are, and padded
+    to 1024 with ``edge_mask`` False: the same loss and gradients at
+    TOL."""
+    import dataclasses
+    from repro_torch.common import value_and_grad
+    from repro_torch.data import sampler
+    from repro_torch.models import schnet as ts
+    from repro_torch.train.losses import softmax_xent
+    spec = SMALL_GNN_SPECS["full"]
+    cfg = dataclasses.replace(get_config("schnet").smoke_config(),
+                              d_feat=spec["d_feat"], n_out=spec["n_classes"])
+    params = ts.init_schnet_params(cfg, seed=4, device=cuda)
+    g = sampler.random_graph(50, 300, spec["d_feat"], 3, spec["n_classes"])
+    outs = []
+    for b in (sampler.pad_edges(g, 300), sampler.pad_edges(g, 1024)):
+        t = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+        outs.append(value_and_grad(lambda p: softmax_xent(ts.schnet_forward(
+            p, cfg, t["features"], t["positions"], t["senders"],
+            t["receivers"], t["edge_mask"]), t["labels"]), params))
+    torch.testing.assert_close(outs[0][0], outs[1][0], **TOL)
+    _assert_states_close(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("mode", ["full", "molecule"])
+def test_schnet_on_the_card_matches_the_cpu(cuda, mode):
+    """One eager step on the card and on the CPU from the same state and
+    batch, out-of-range ids among the edges and atom types (dropped,
+    clamped, NaN-filled as the reference does; no device assert): the
+    loss and the state at TOL, NaN where the CPU has NaN."""
+    from repro_torch.common import tree_map
+    prog, state, batches = _schnet_cell(mode, cuda, n_batches=1)
+    b = dict(batches[0])
+    b["senders"] = b["senders"].clone()
+    b["receivers"] = b["receivers"].clone()
+    b["senders"][:3] = torch.tensor([-1, 10_000, -10_000], device=cuda)
+    b["receivers"][3:6] = torch.tensor([-1, 10_000, 7], device=cuda)
+    cpu_state = tree_map(lambda t: t.to("cpu", copy=True), state)
+    _, m = prog.step_fn(state, b)
+    _, mc = prog.step_fn(cpu_state, {k: v.cpu() for k, v in b.items()})
+    torch.testing.assert_close(m["loss"].cpu(), mc["loss"], **TOL)
+    _assert_states_close(tree_map(lambda t: t.cpu(), state), cpu_state)
+    if mode == "molecule":
+        from repro_torch.models import schnet as ts
+        at = b["atom_types"].clone()
+        at[:2] = torch.tensor([-1, 1000], device=cuda)
+        p = prog.init(seed=3, device=cuda)["params"]
+        cfg = get_config("schnet").smoke_config().scaled_down(d_feat=0,
+                                                              n_out=1)
+        got = ts.schnet_forward(p, cfg, at, b["positions"], b["senders"],
+                                b["receivers"], b["edge_mask"]).cpu()
+        want = ts.schnet_forward(tree_map(lambda t: t.cpu(), p), cfg,
+                                 at.cpu(), b["positions"].cpu(),
+                                 b["senders"].cpu(), b["receivers"].cpu(),
+                                 b["edge_mask"].cpu())
+        assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any()
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)

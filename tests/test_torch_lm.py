@@ -393,8 +393,11 @@ def test_registry_lm_config_matches_reference(arch):
 
 
 def test_registry_refuses_only_schnet():
-    assert tconfigs.NOT_PORTED == ("schnet",)
+    """Since the SchNet slice the registry refuses no arch of the
+    reference's: it holds the same names, in the same order."""
+    assert list(tconfigs._ARCH_MODULES) == list(jconfigs._ARCH_MODULES)
     assert set(LM_ARCHS) <= set(tconfigs._ARCH_MODULES)
+    assert tconfigs.get_config("schnet").FAMILY == "gnn"
 
 
 def _shape_tree(tree):
@@ -507,8 +510,9 @@ def test_build_cell_refuses_other_families_and_sharding():
     assert build_cell("din", "serve_p99").kind == "serve"
     with pytest.raises(NotImplementedError, match="sharding rule sets"):
         build_cell("din", "serve_p99", opts=("serve_full_dp",))
-    with pytest.raises(KeyError, match="not ported yet"):
-        build_cell("schnet", "full_graph")
+    assert build_cell("schnet", "full_graph_sm").kind == "train"
+    with pytest.raises(NotImplementedError, match="sharding rule sets"):
+        build_cell("schnet", "full_graph_sm", mesh=object())
     with pytest.raises(NotImplementedError, match="sharding rule sets"):
         build_cell("mixtral-8x7b", "decode_32k", opts=("moe_local",))
     with pytest.raises(NotImplementedError, match="sharding rule sets"):
@@ -579,11 +583,12 @@ def test_compiled_refuses_a_missing_card():
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_launch_train_refuses_lm_archs_naming_the_next_slice(arch, tmp_path):
     """The LM archs train since the training cells' slice; the launcher
-    now refuses the GNN arch, naming the next slice (SchNet)."""
+    refuses the GNN arch in the reference's words (it has no GNN
+    launcher: SchNet trains through ``build_cell``)."""
     from repro_torch.launch.train import main
     hist = main(["--device", "cpu", "--arch", arch, "--steps", "2",
                  "--ckpt-dir", str(tmp_path)])
     assert [h["step"] for h in hist] == [0, 1]
     assert all(np.isfinite(h["loss"]) for h in hist)
-    with pytest.raises(SystemExit, match="SchNet, comes with the next slice"):
+    with pytest.raises(SystemExit, match="use examples/train_schnet"):
         main(["--device", "cpu", "--arch", "schnet"])

@@ -167,15 +167,14 @@ def test_register_and_lifecycle_errors(problems):
         svc.register("din2", graph=problems["din"][2])
     with pytest.raises(KeyError, match="not registered"):
         svc.score("paper-ranking", None)
-    with pytest.raises(KeyError, match="not ported yet"):
-        svc.register("schnet")
-    # an LM config module has no smoke_build / BUILD: the port's service
-    # refuses it as the reference's does
-    with pytest.raises(AttributeError, match="smoke_build"):
-        svc.register("qwen3-14b")
-    with jserve.RankingService(_ref_plan()) as ref, \
-            pytest.raises(AttributeError, match="smoke_build"):
-        ref.register("qwen3-14b")
+    # an LM or GNN config module has no smoke_build / BUILD: the port's
+    # service refuses it as the reference's does
+    for arch in ("qwen3-14b", "schnet"):
+        with pytest.raises(AttributeError, match="smoke_build"):
+            svc.register(arch)
+        with jserve.RankingService(_ref_plan()) as ref, \
+                pytest.raises(AttributeError, match="smoke_build"):
+            ref.register(arch)
     assert "fm" in svc and "paper-ranking" not in svc
     assert list(svc) == sorted(SCENARIOS)
     sc, req = _stream(svc, 1)[0]

@@ -323,9 +323,9 @@ def test_launch_train_on_cpu(tmp_path, capsys):
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert CheckpointManager(str(tmp_path)).latest_step() == 2
     assert "[train] loss" in capsys.readouterr().out
-    # the GNN family waits for its slice (the LM family trains since the
-    # training cells' slice: tests/test_torch_train_cells.py)
-    with pytest.raises(SystemExit, match="not ported"):
+    # the GNN family has no launcher, as in the reference (its cells train
+    # through build_cell: tests/test_torch_schnet.py)
+    with pytest.raises(SystemExit, match="use examples/train_schnet"):
         main(["--device", "cpu", "--arch", "schnet"])
 
 
