@@ -174,6 +174,25 @@
    operations (the GEMMs ``FlopCounterMode`` counts), peak memory,
    captured against eager after the same steps (2e-4), and two eager
    steps from one saved state held equal bit for bit.
+13. The cells on a mesh (``sharded``): a real one-rank NCCL group and
+   ``make_host_mesh((1, 1))``; each program built with the mesh (state
+   and batches as DTensors laid out by the rule sets, the step run
+   eagerly on them) against the mesh-less program from the same seed and
+   batches: granite-moe-3b-a800m ``train_4k`` at full width and
+   ``SHARD_GRANITE_LAYERS`` of its 32 layers, batch ``SHARD_GRANITE_BATCH``
+   of 256, plain, with ``moe_local`` and with ``seq_par``;
+   ``dlrm-mlperf`` ``train_batch`` (65,536 rows) with ``table_md``, its
+   tables at ``SHARD_DLRM_SCALE_TABLES``; ``paper-ranking``
+   ``serve_bulk`` (262,144 candidates) with ``serve_full_dp`` through the
+   kernels; ``schnet`` ``molecule``. ``SHARD_STEPS`` steps each: losses
+   and scores within fp32 2e-4, every state element within 2 · lr · steps
+   (an f32 model's also 2e-4 on all but 0.1% of each leaf; granite's bf16
+   share printed beside the mesh-less program run twice; bit equality
+   printed). Beside it,
+   as subprocesses on the host's cores, the dry run
+   (``repro_torch.launch.dryrun``) of ``fm × serve_p99 × single`` and
+   ``granite-moe-3b-a800m × train_4k × single --opts moe_local`` on a
+   fake 256-rank group; both records printed (``sharded_dryrun``).
 
 Every stage runs compiled, as the reference's ``jax.jit``: the engines'
 stage 1 and stage 2 (one graph per (rows, bucket) shape and table route)
@@ -200,8 +219,9 @@ phase 8's runner workers (each worker zeroes and reads its own counts
 around its sharded engine's work and reports them), phase 9's three
 ``reorg`` engines and its single calls (``table3``), phase 10's
 prefill and decode runs (``lm``, held to no launch), phase 11's
-kernel serving calls (``cells``) and phase 12's training steps (``gnn``,
-held to no launch), each its own path.
+kernel serving calls (``cells``), phase 12's training steps (``gnn``,
+held to no launch) and phase 13's programs on the mesh (``sharded``),
+each its own path.
 Every kernel variant held to a path must have launched on it; runs made only to compare (the
 plain engines, phase 1's checks, per-request oracles) count nowhere.
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
@@ -322,6 +342,15 @@ GNN_FULL_SM_STEPS, GNN_OGB_PROBE_K = 30, (6, 5)
 # eager minibatch_lg steps on the sampler's own padding and on pad_edges'
 # spread, taking turns
 GNN_PADDING_TURNS = 4
+# phase 13, the cells on a one-rank mesh against the mesh-less programs:
+# granite at full width cut to 2 layers and 2 sequences of 4096 (the
+# comparison holds two states), DLRM's tables at 0.05 of their published
+# rows (Adam state of both programs: 29 GB), two steps each; the dry-run
+# subprocesses' time limit
+SHARD_GRANITE_LAYERS, SHARD_GRANITE_BATCH = 2, 2
+SHARD_DLRM_SCALE_TABLES, SHARD_STEPS, SHARD_DRYRUN_TIMEOUT = 0.05, 2, 600
+SHARD_DRYRUNS = (("fm", "serve_p99", ()),
+                 ("granite-moe-3b-a800m", "train_4k", ("moe_local",)))
 CELL_SERVES = (("recsys_paper_serve", "paper-ranking", (),
                 ("serve_p99", "serve_bulk", "retrieval_cand")),
                ("recsys_din_serve", "din", ("attn_reparam",),
@@ -781,6 +810,40 @@ def serve_bytes(arch: str, params: dict, feeds: dict, out) -> int:
     return nbytes
 
 
+def adam_state_gap(a, b, lr: float, steps: int) -> dict:
+    """Two Adam states' leaves (DTensors read whole) against each other:
+    max |a - b|, the largest share of a leaf off by more than 2e-4 (bf16
+    leaves: one ulp, 2^-7 |b|, plus 1e-6) and the leaf it is in, and
+    whether any element lies beyond 2 · lr · steps of that (Adam moves a
+    near-zero gradient's element by ~lr whatever its sign)."""
+    import torch
+    from repro_torch.common import tree_leaves
+    gap = dict(max_abs=0.0, share_off=0.0, leaf=None, beyond_2_lr_steps=False)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = (t.full_tensor() if hasattr(t, "full_tensor") else t
+                for t in (x, y))
+        tol = (2 ** -7 * y.float().abs() + 1e-6
+               if y.dtype == torch.bfloat16
+               else 2e-4 + 2e-4 * y.float().abs())
+        d = (x.float() - y.float()).abs()
+        gap["max_abs"] = max(gap["max_abs"], float(d.max()))
+        share = float((d > tol).float().mean())
+        if share > gap["share_off"]:
+            gap["share_off"], gap["leaf"] = share, list(y.shape)
+        gap["beyond_2_lr_steps"] |= bool((d > 2 * lr * steps + tol).any())
+    return gap
+
+
+def adam_state_diff(a, b, lr: float, steps: int, name: str
+                    ) -> tuple[float, float]:
+    """``adam_state_gap``, held: no element beyond 2 · lr · steps and at
+    most 0.1% of each leaf off. Returns (max |a - b|, largest share)."""
+    gap = adam_state_gap(a, b, lr, steps)
+    if gap["beyond_2_lr_steps"] or gap["share_off"] > 1e-3:
+        raise AssertionError(f"{name}: {gap}")
+    return gap["max_abs"], gap["share_off"]
+
+
 def cells_phase(dev, counting) -> None:
     """Phase 11: every training cell and the serving cells through
     ``build_cell(...).compiled()`` at full published width (the cuts in
@@ -962,27 +1025,6 @@ def cells_phase(dev, counting) -> None:
     from repro_torch.launch.steps import _lm_train
     from repro_torch.train.optim import SLICE, apply_updates
 
-    def adam_diff(a, b, lr, steps):
-        """Max |a - b| over the state's leaves and the largest share of a
-        leaf off by more than 2e-4 (bf16 leaves: one ulp, 2^-7 |b|, plus
-        1e-6). Every element must lie within 2 · lr · steps beside that
-        (Adam moves a near-zero gradient's element by ~lr whatever its
-        sign) and at most 0.1% of each leaf off."""
-        worst, share = 0.0, 0.0
-        for x, y in zip(tree_leaves(a), tree_leaves(b)):
-            tol = (2 ** -7 * y.float().abs() + 1e-6
-                   if y.dtype == torch.bfloat16
-                   else 2e-4 + 2e-4 * y.float().abs())
-            d = (x.float() - y.float()).abs()
-            worst = max(worst, float(d.max()))
-            share = max(share, float((d > tol).float().mean()))
-            if bool((d > 2 * lr * steps + tol).any()) or share > 1e-3:
-                raise AssertionError(f"granite sliced update: |d| "
-                                     f"{float(d.max()):.3e}, share off "
-                                     f"{share:.2e} of a {tuple(y.shape)} "
-                                     f"leaf")
-        return worst, share
-
     cfg_cut = lm_config(LM_GRANITE, n_layers=CELL_SLICED_LAYERS)
     prog = _lm_train(cfg_cut, seq, 1)
     lr = 3e-4                            # _lm_train's AdamW
@@ -1003,7 +1045,7 @@ def cells_phase(dev, counting) -> None:
             "opt": func_opt}
     del updates
     prog.opt.update_(grads, probe["opt"], probe["params"])
-    d_func = adam_diff(probe, func, lr, 1)
+    d_func = adam_state_diff(probe, func, lr, 1, "granite sliced update")
     del probe, func, func_opt, grads
     fresh()
     # CELL_SLICED_STEPS captured steps against eager() from one state
@@ -1013,7 +1055,8 @@ def cells_phase(dev, counting) -> None:
         batch = lm_batch(510 + i, 1)
         step(state, batch)
         step.eager(twin, batch)
-    d_cap = adam_diff(state, twin, lr, CELL_SLICED_STEPS)
+    d_cap = adam_state_diff(state, twin, lr, CELL_SLICED_STEPS,
+                            "granite sliced update")
     moved = min(float((w - w0).abs().max()) for w, w0 in zip(
         tree_leaves(state["opt"]["master"]), tree_leaves(master0)))
     if (step.compilations != 1 or moved == 0.0
@@ -1517,6 +1560,208 @@ def gnn_phase(dev, counting) -> None:
     fresh()
     log("gnn_phase", seconds=time.perf_counter() - t_phase,
         card_memory_gb=props.total_memory / gb)
+
+
+def sharded_phase(dev, counting) -> None:
+    """Phase 13: every builder on a one-rank NCCL mesh against its
+    mesh-less program (the module docstring), and the dry run of two
+    cells in subprocesses started first. The mesh's serving call is the
+    ``sharded`` path of the launch counts."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as cfgreg
+    from repro_torch.common import tree_leaves
+    from repro_torch.data import sampler
+    from repro_torch.data.features import _vocab_for_input
+    from repro_torch.data.lm import token_batch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    dryruns = [(arch, shape, opts, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single"]
+        + (["--opts", ",".join(opts)] if opts else []),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)) for arch, shape, opts in SHARD_DRYRUNS]
+
+    mesh = make_host_mesh((1, 1), device="cuda")
+    backend = dist.get_backend()
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def full(t):
+        return t.full_tensor() if sh.is_dtensor(t) else t
+
+
+    def compare(name, plain, sharded, batches, lr, control=False, **info):
+        """SHARD_STEPS eager steps of each program from seed 5 on the
+        same batches: losses within 2e-4; states by ``adam_state_gap``,
+        every element within 2 · lr · steps (Adam's first steps move a
+        near-zero gradient's element by ~lr whatever its sign), and at
+        most 0.1% of a leaf beyond 2e-4 for an f32 model. A bf16 model's
+        gradients are bf16, and the mesh's step sums some in another
+        order (its vocab-parallel loss, the embedding's masked lookup):
+        its share is printed beside ``control`` — the mesh-less program
+        run twice from one seed —, not held."""
+        sa = plain.init(seed=5, device=dev)
+        sb = sharded.init(seed=5, device=dev)
+        step = sharded.compiled(dev)
+        la, lb, ms, by_step = [], [], [], []
+        for i, batch in enumerate(batches):
+            la.append(float(plain.step_fn(sa, *batch)[1]["loss"]))
+            dbatch = tuple(sh.distribute(b, mesh, spec) for b, spec in
+                           zip(batch, sharded.in_shardings[1:]))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lb.append(float(step(sb, *dbatch)[1]["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t))
+            gap = adam_state_gap(sb, sa, lr, i + 1)
+            by_step.append([gap["max_abs"], gap["share_off"]])
+        if control:
+            sc = plain.init(seed=5, device=dev)
+            lc = [float(plain.step_fn(sc, *batch)[1]["loss"])
+                  for batch in batches]
+            info["control_plain_twice"] = dict(
+                max_abs_loss=max(abs(x - y) for x, y in zip(la, lc)),
+                **adam_state_gap(sc, sa, lr, len(batches)))
+            del sc
+        d_loss = max(abs(x - y) for x, y in zip(la, lb))
+        same = la == lb and all(torch.equal(full(x), full(y)) for x, y in
+                                zip(tree_leaves(sa), tree_leaves(sb)))
+        bf16 = any(full(t).dtype == torch.bfloat16
+                   for t in tree_leaves(sa["params"]))
+        log(f"sharded_{name}", losses_plain=la, losses_mesh=lb,
+            max_abs_loss=d_loss, state=gap,
+            state_max_abs_share_by_step=by_step, bit_identical=same,
+            step_ms_mesh=ms, policy=sorted(sharded.policy_kv),
+            captured=sharded.meta["captured"], tol=TOL,
+            state_share_held=not bf16, **info)
+        if not all(abs(x - y) <= TOL["atol"] + TOL["rtol"] * abs(x)
+                   for x, y in zip(la, lb)):
+            raise AssertionError(f"sharded {name}: the mesh's losses are "
+                                 f"{d_loss:.3e} from the mesh-less ones")
+        if gap["beyond_2_lr_steps"] or (not bf16 and gap["share_off"] > 1e-3):
+            raise AssertionError(f"sharded {name}: the mesh's state is "
+                                 f"{gap} from the mesh-less one")
+        del sa, sb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- granite-moe-3b-a800m train_4k: plain, moe_local, seq_par ------------
+    cfg = lm_config(LM_GRANITE, n_layers=SHARD_GRANITE_LAYERS)
+    seq = cfgreg.get_config(LM_GRANITE).SHAPES["train_4k"]["seq"]
+    batches = [(token_batch(gen(500 + i), SHARD_GRANITE_BATCH, seq,
+                            cfg.vocab),) for i in range(SHARD_STEPS)]
+    for opts in ((), ("moe_local",), ("seq_par",)):
+        compare("granite_train_4k" + "".join("_" + o for o in opts),
+                steps._lm_train(cfg, seq, SHARD_GRANITE_BATCH),
+                steps._lm_train(cfg, seq, SHARD_GRANITE_BATCH, mesh,
+                                frozenset(opts)),
+                batches, 3e-4, control=not opts,
+                reduced=[f"layers {SHARD_GRANITE_LAYERS} of 32",
+                                  f"batch {SHARD_GRANITE_BATCH} of 256"])
+    del batches
+
+    # -- dlrm-mlperf train_batch with table_md --------------------------------
+    mod = types.SimpleNamespace(
+        FAMILY="recsys", BUILD=lambda: cfgreg.get_config("dlrm-mlperf").BUILD(
+            scale_tables=SHARD_DLRM_SCALE_TABLES))
+    plain = steps._recsys_train(mod, 65536)
+    sharded = steps._recsys_train(mod, 65536, mesh, frozenset({"table_md"}))
+    graph, _ = mod.BUILD()
+
+    def recsys_batch(i):
+        g = gen(600 + i)
+        feeds = {}
+        for name, m in plain.args[1].items():
+            if m.dtype.is_floating_point:
+                feeds[name] = torch.randn(m.shape, generator=g, device=dev)
+            else:
+                feeds[name] = torch.randint(
+                    0, _vocab_for_input(graph, name) or 1000, m.shape,
+                    generator=g, dtype=m.dtype, device=dev)
+        labels = (torch.rand(plain.args[2].shape, generator=g, device=dev)
+                  < 0.2).float()
+        return feeds, labels
+
+    tables = {n.name: n.attrs["vocab"] for n in graph.param_nodes()
+              if n.op == "embedding"
+              and n.attrs["vocab"] >= sh.TABLE_SHARD_THRESHOLD}
+    compare("dlrm_train_batch_table_md", plain, sharded,
+            [recsys_batch(i) for i in range(SHARD_STEPS)], 1e-3,
+            sharded_tables=len(tables),
+            reduced=[f"scale_tables {SHARD_DLRM_SCALE_TABLES}"])
+    del plain, sharded
+
+    # -- paper-ranking serve_bulk with serve_full_dp, through the kernels ----
+    plain = steps.build_cell("paper-ranking", "serve_bulk")
+    sharded = steps.build_cell("paper-ranking", "serve_bulk", mesh,
+                               ("serve_full_dp",))
+    feeds = device_feeds("paper-ranking", sharded.args[1], gen(700))
+    params = plain.init(seed=5, device=dev)
+    dparams = sharded.init(seed=5, device=dev)
+    want = plain.compiled(dev)(params, feeds)
+    want_plain = plain.compiled(dev, use_pallas=False)(params, feeds)
+    run = sharded.compiled(dev)
+    dfeeds = sh.distribute(feeds, mesh, sharded.in_shardings[1])
+    with counting("sharded"):
+        got = run(dparams, dfeeds)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(CELL_REPLAYS):
+            got = run(dparams, dfeeds)
+        torch.cuda.synchronize()
+    mesh_ms = 1e3 * (time.perf_counter() - t) / CELL_REPLAYS
+    got = full(got)
+    d = float((got - want).abs().max())
+    d_plain = float((got - want_plain).abs().max())
+    log("sharded_paper_serve_bulk_full_dp", rows=got.shape[0],
+        padded_batch=sharded.meta["padded_batch"],
+        max_abs_vs_meshless_kernels=d, max_abs_vs_meshless_plain=d_plain,
+        bit_identical=bool(torch.equal(got, want)), mesh_ms=mesh_ms,
+        captured=sharded.meta["captured"], tol=TOL)
+    if not (torch.allclose(got, want, **TOL)
+            and torch.allclose(got, want_plain, **TOL)):
+        raise AssertionError(f"sharded paper serve: {d:.3e} / {d_plain:.3e}")
+    del params, dparams, feeds, dfeeds, got, want, want_plain, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- schnet molecule --------------------------------------------------------
+    plain = steps.build_cell("schnet", "molecule")
+    sharded = steps.build_cell("schnet", "molecule", mesh)
+    spec = cfgreg.get_config("schnet").SHAPES["molecule"]
+    n_edges = plain.args[1]["senders"].shape[0]
+    batches = [({k: torch.as_tensor(v, device=dev) for k, v in
+                 sampler.pad_edges(sampler.batched_molecules(
+                     spec["batch"], spec["n_nodes"], spec["n_edges"],
+                     seed=800 + i), n_edges).items()},)
+               for i in range(SHARD_STEPS)]
+    compare("schnet_molecule", plain, sharded, batches, 1e-3, reduced=[])
+    dist.destroy_process_group()
+
+    # -- the dry run on this machine's torch ------------------------------------
+    for arch, shape, opts, p in dryruns:
+        out, err = p.communicate(timeout=SHARD_DRYRUN_TIMEOUT)
+        if p.returncode != 0:
+            raise AssertionError(f"dry run {arch} x {shape} {opts}: exit "
+                                 f"{p.returncode}: {err[-2000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        if not (rec["devices"] == 256 and rec["cost"]["flops_per_device"] > 0
+                and rec["roofline"]["bottleneck"] in (
+                    "compute_s", "memory_s", "collective_s")):
+            raise AssertionError(f"dry run {arch} x {shape}: {rec}")
+        log("sharded_dryrun", **rec)
+    log("sharded_phase", backend=backend,
+        seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -3800,6 +4045,11 @@ def main() -> int:
     if any(by_path["gnn"].values()):
         raise AssertionError(f"the GNN path launched a recsys kernel: "
                              f"{by_path['gnn']}")
+
+    # ---- phase 13: the cells on a mesh, the dry run --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_phase(dev, counting)
     log("launches_by_path", **by_path)
     # each path is held to its own counts: paper + DIN to every variant of
     # mari_matmul and gather_einsum on its path, the device twins to the
@@ -3815,8 +4065,9 @@ def main() -> int:
     # contractions, the runner's sharded engines to the gathered MaRI init
     # (every rank, checked in dist_phase), the three engines of the reorg
     # path to the gathered MaRI init and its single calls (table3) to the
-    # broadcast init, the serve cells of phase 11 (cells) to the broadcast
-    # init of their single calls; table1 is only printed
+    # broadcast init, the serve cells of phase 11 (cells) and phase 13's
+    # serving call on the mesh (sharded) to the broadcast init of their
+    # single calls; table1 is only printed
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
                           and k not in OFF_PATH]}
@@ -3838,6 +4089,7 @@ def main() -> int:
     held["reorg"] = ["mari_matmul/gather"]
     held["table3"] = ["mari_matmul/broadcast"]
     held["cells"] = ["mari_matmul/broadcast"]
+    held["sharded"] = ["mari_matmul/broadcast"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
     # every path hands mari_matmul prepared weights (engines at load, the

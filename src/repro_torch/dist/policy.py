@@ -11,11 +11,9 @@ and the model consults it via ``policy.get`` (a value or None) or
 keys — and are thread-local, so concurrent callers (a batcher's worker
 thread and the main thread) cannot leak entries into each other.
 
-The port runs on one device and has no DTensor rule sets yet, so a set
-key is refused where the model would act on it: ``constrain`` raises
-``NotImplementedError`` rather than return ``x`` unsharded, and so does
-the model's ``moe_shard_axes`` branch. A sharding request is never
-silently ignored.
+A sharding entry is ``(mesh, placements)``: ``constrain`` redistributes a
+DTensor to it (the port of ``with_sharding_constraint``). A set key on a
+plain tensor raises: a sharding request is never silently ignored.
 """
 from __future__ import annotations
 
@@ -24,10 +22,6 @@ import threading
 from typing import Any, Iterator
 
 _local = threading.local()
-
-# what a set key waits for
-SHARDING_SLICE = ("the DTensor sharding rule sets (ROADMAP Queue 1, the "
-                  "sharding item) are not ported yet")
 
 
 def _stack() -> list[dict]:
@@ -56,14 +50,22 @@ def get(key: str, default: Any = None) -> Any:
 
 
 def constrain(x, key: str):
-    """``x`` when ``key`` is unset; a set key raises ``NotImplementedError``
-    (the reference applies ``with_sharding_constraint`` there)."""
+    """``x`` when ``key`` is unset; else the DTensor ``x`` redistributed to
+    the entry's ``(mesh, placements)``. A plain tensor under a set key
+    raises ``TypeError``."""
     sh = get(key)
     if sh is None:
         return x
-    raise NotImplementedError(
-        f"policy key {key!r} asks for a sharding constraint ({sh!r}), but "
-        f"{SHARDING_SLICE}")
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError(
+            f"policy key {key!r} asks for the sharding {sh!r}, but the "
+            f"value is a plain {type(x).__name__}: only a DTensor can be "
+            "laid out")
+    mesh, pl = sh
+    if tuple(x.placements) == tuple(pl):
+        return x
+    return x.redistribute(mesh, tuple(pl))
 
 
 def active() -> dict:

@@ -26,7 +26,7 @@ for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping
 
 import torch
 
@@ -251,7 +251,8 @@ class Executor:
     def __init__(self, graph: Graph, mode: str = "uoi", *,
                  use_pallas: bool = False, kernel_gather: bool = False,
                  gather_attention: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 lookup: Callable | None = None):
         if mode not in ("vani", "uoi"):
             raise ValueError(f"mode must be 'vani' or 'uoi', got {mode!r}")
         self.graph = graph
@@ -259,6 +260,10 @@ class Executor:
         self.device = resolve_device(device)
         self.use_pallas = use_pallas
         self.gather_attention = gather_attention
+        # lookup(node, table, ids): the rows of an embedding node's table
+        # that the executor does not hold whole (a vocab-sharded table on
+        # a mesh), or None for a plain table
+        self.lookup = lookup
         self._consts: dict = {}       # per-node constant tensors, by device
         self._user_inputs = {
             n.name for n in graph.input_nodes() if n.attrs.get("domain") == "user"
@@ -391,6 +396,14 @@ class Executor:
             table = params[n.name]["table"]
             ids = ins[0]
             pool = n.attrs.get("pool")
+            rows = (self.lookup(n, table, ids) if self.lookup is not None
+                    else None)
+            if rows is not None:
+                if pool == "sum":
+                    rows = rows.sum(dim=-2)
+                elif pool == "mean":
+                    rows = rows.mean(dim=-2)
+                return rows
             if self.use_pallas and pool in ("sum", "mean") and ids.ndim >= 2:
                 # a pooled multi-hot lookup: one fixed-hotness bag per row
                 # of the flattened (..., H) ids

@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from repro_torch.dist.sharding import shard_local
 from repro_torch.kernels import build
 from repro_torch.nn.attention import NEG_INF
 
@@ -142,6 +143,7 @@ def _launch(query, keys, mask, w1, b1, w2, b2, w3, b3) -> Tensor:
     return out
 
 
+@shard_local("din_attention", rows=("query",))
 def din_attention(query: Tensor, keys: Tensor, mask: Tensor, w1: Tensor,
                   b1: Tensor, w2: Tensor, b2: Tensor, w3: Tensor,
                   b3: Tensor) -> Tensor:

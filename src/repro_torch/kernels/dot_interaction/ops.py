@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.dist.sharding import shard_local
 from repro_torch.kernels import build
 
 Tensor = torch.Tensor
@@ -114,6 +115,7 @@ def _launch(x: Tensor, keep_self: bool) -> Tensor:
     return out
 
 
+@shard_local("dot_interaction", rows=("x",))
 def dot_interaction(x: Tensor, keep_self: bool = False) -> Tensor:
     """x (B, F, D) -> (B, P) upper-triangle pairwise dots (DLRM)."""
     if x.ndim != 3:

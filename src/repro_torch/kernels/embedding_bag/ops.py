@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch.dist.sharding import shard_local
 from repro_torch.kernels import build
 
 Tensor = torch.Tensor
@@ -226,6 +227,7 @@ def _device_of(table: Tensor) -> str:
     return table.device.type
 
 
+@shard_local("embedding_bag")
 def embedding_bag(table: Tensor, ids: Tensor, segment_ids: Tensor,
                   num_segments: int, combiner: str = "sum",
                   weights: Tensor | None = None) -> Tensor:
@@ -254,6 +256,7 @@ def embedding_bag(table: Tensor, ids: Tensor, segment_ids: Tensor,
     return _launch("csr", table, ids_bag, offsets, w_bag, S, 0, combiner)
 
 
+@shard_local("embedding_bag_fixed", rows=("ids", "weights"))
 def embedding_bag_fixed(table: Tensor, ids: Tensor, combiner: str = "sum",
                         weights: Tensor | None = None) -> Tensor:
     """Fixed-hotness pooled lookup: ids (B, H) -> (B, D), bag b = row b."""

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.common import take_clip
+from repro_torch.dist.sharding import shard_local
 from repro_torch.kernels import build
 
 Tensor = torch.Tensor
@@ -139,6 +140,7 @@ def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
     return out
 
 
+@shard_local("gather_einsum", rows=("x", "user_index"))
 def gather_einsum(spec: str, x: Tensor, table: Tensor,
                   user_index: Tensor) -> Tensor:
     """``einsum(spec, x, table[clamp(user_index)])``, gather fused into the

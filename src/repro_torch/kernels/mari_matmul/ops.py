@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from repro_torch.common import take_clip
+from repro_torch.dist.sharding import shard_local
 from repro_torch.kernels import build
 from repro_torch.nn.layers import ACTIVATIONS
 
@@ -342,6 +343,7 @@ def _launch(x: Tensor, w: Tensor | MariWeight, u: Tensor,
     return out
 
 
+@shard_local("mari_matmul", rows=("x", "u", "user_index"))
 def mari_matmul(x: Tensor, w: Tensor | MariWeight, u: Tensor,
                 user_index: Tensor | None = None,
                 activation: str = "identity") -> Tensor:

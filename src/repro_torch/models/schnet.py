@@ -150,6 +150,10 @@ def rbf_expand(d: Tensor, n_rbf: int, cutoff: float) -> Tensor:
     return torch.exp(-gamma * torch.square(d[:, None] - mu[None, :]))
 
 
+# the interaction params used per edge (the rest act on nodes)
+EDGE_PARAMS = frozenset({"filt_w1", "filt_b1", "filt_w2", "filt_b2", "in2f"})
+
+
 def _interaction_slices(params: dict) -> list[dict]:
     """Every interaction's params: one ``torch.unbind`` per stacked leaf
     (its backward writes each leaf's gradient as one stack)."""
@@ -167,8 +171,16 @@ def schnet_forward(
     senders: Tensor,           # (E,)
     receivers: Tensor,         # (E,)
     edge_mask: Tensor | None = None,   # (E,) bool — padded sampled subgraphs
+    edge_comm: tuple[Callable, Callable] | None = None,
 ) -> Tensor:
-    """Returns per-node outputs (N, n_out)."""
+    """Returns per-node outputs (N, n_out).
+
+    ``edge_comm = (enter, reduce)``: this rank holds a block of the edges
+    and every node. ``enter`` marks a node-side value (node features, the
+    edge filter's weights) entering the per-edge work — identity, its
+    gradient summed over the edge blocks —, ``reduce`` sums the segment
+    sums over them (``dist.sharding.enter`` / ``psum``)."""
+    enter, reduce = edge_comm or (None, None)
     n_nodes = positions.shape[0]
     if cfg.d_feat > 0:
         h = node_input @ params["input"]["w"] + params["input"]["b"]
@@ -185,11 +197,18 @@ def schnet_forward(
         env = env * edge_mask.to(env.dtype)
 
     for ip in _interaction_slices(params):
+        h_e = h
+        if enter is not None:
+            ip = {k: enter(v) if k in EDGE_PARAMS else v
+                  for k, v in ip.items()}
+            h_e = enter(h)
         filt = ssp(rbf @ ip["filt_w1"] + ip["filt_b1"])
         filt = (filt @ ip["filt_w2"] + ip["filt_b2"]) * env[:, None]  # (E, H)
-        src = take_rows(h, senders) @ ip["in2f"]                     # (E, H)
+        src = take_rows(h_e, senders) @ ip["in2f"]                   # (E, H)
         msg = src * filt
         agg = segment_sum(msg, receivers, n_nodes)
+        if reduce is not None:
+            agg = reduce(agg)
         upd = ssp(agg @ ip["f2out_w1"] + ip["f2out_b1"])
         upd = upd @ ip["f2out_w2"] + ip["f2out_b2"]
         h = h + upd

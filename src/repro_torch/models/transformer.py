@@ -29,8 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common import take_clip, tree_leaves, tree_unflatten
+from repro_torch.common import (take_clip, tree_leaves, tree_map,
+                                tree_unflatten)
 from repro_torch.dist import policy
+from repro_torch.dist import sharding as sh
 from repro_torch.nn.layers import rms_norm
 
 Tensor = torch.Tensor
@@ -250,11 +252,12 @@ def moe_ffn(x: Tensor, ffn: dict, cfg: LMConfig, tp_axis: str | None = None
     """x: (T, D) -> (T, D): top-k routing, a stable sort of the (token,
     choice) pairs by expert, the first C of each expert kept (the rest
     routed to a dummy row ``E·C``), SwiGLU experts over (E, C, D), and a
-    gated combine summing each token's k contributions."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            f"moe_ffn(tp_axis={tp_axis!r}): the tensor-parallel reduction "
-            f"waits for the sharding slice ({policy.SHARDING_SLICE})")
+    gated combine summing each token's k contributions.
+
+    tp_axis: inside a shard-local block, the expert weights arrive
+    F-sharded (wg / wu on their last dim, wd on its contraction dim); the
+    output is a partial sum, summed over ``tp_axis`` of the active mesh
+    (``launch.mesh.mesh_context``) after the combine."""
     T, D = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     C = moe_capacity(cfg, T)
@@ -295,7 +298,10 @@ def moe_ffn(x: Tensor, ffn: dict, cfg: LMConfig, tp_axis: str | None = None
     # index_add_'s atomics sum in any order, and one token's other bf16
     # rounding can flip a later layer's top-k, so runs would disagree
     inv = torch.empty_like(order).scatter_(0, order, ar)
-    return contrib[inv].reshape(T, k, D).sum(dim=1)
+    y = contrib[inv].reshape(T, k, D).sum(dim=1)
+    if tp_axis is not None:
+        y = sh.psum(y, tp_axis)    # TP reduction after the combine
+    return y
 
 
 def dense_ffn(x: Tensor, ffn: dict, cfg: LMConfig) -> Tensor:
@@ -307,10 +313,9 @@ def dense_ffn(x: Tensor, ffn: dict, cfg: LMConfig) -> Tensor:
 # Transformer block + full forward
 # ---------------------------------------------------------------------------
 
-def _attn_block(x, lp, cfg: LMConfig, positions, kv_state=None,
-                return_kv: bool = False):
-    """x: (B, S, D). kv_state: None (full-seq) or dict with the layer's
-    cache (decode), which is written in place at ``slot``."""
+def _qkv(x, lp, cfg: LMConfig, positions):
+    """The block's normed, projected and rotated q (B, S, Hq, hd), k and v
+    (B, S, Hkv, hd)."""
     b, s, D = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = lp["attn"]
@@ -321,9 +326,17 @@ def _attn_block(x, lp, cfg: LMConfig, positions, kv_state=None,
     if cfg.qk_norm:
         q = rms_norm(q, attn["q_norm"].to(x.dtype))
         k = rms_norm(k, attn["k_norm"].to(x.dtype))
-    q = _rope(q, positions, cfg.rope_theta)
-    k = _rope(k, positions, cfg.rope_theta)
+    return (_rope(q, positions, cfg.rope_theta),
+            _rope(k, positions, cfg.rope_theta), v)
 
+
+def _attn_block(x, lp, cfg: LMConfig, positions, kv_state=None,
+                return_kv: bool = False):
+    """x: (B, S, D). kv_state: None (full-seq) or dict with the layer's
+    cache (decode), which is written in place at ``slot``."""
+    b, s, D = x.shape
+    hq, hd = cfg.n_heads, cfg.hd
+    q, k, v = _qkv(x, lp, cfg, positions)
     if kv_state is None:
         out = flash_attention(q, k, v, positions, positions, causal=True,
                               window=cfg.window, q_chunk=cfg.q_chunk,
@@ -343,7 +356,7 @@ def _attn_block(x, lp, cfg: LMConfig, positions, kv_state=None,
                               kv_valid=kv_valid, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
         new_kv = (kc, vc)
-    out = out.reshape(b, s, hq * hd) @ attn["wo"].to(x.dtype)
+    out = out.reshape(b, s, hq * hd) @ lp["attn"]["wo"].to(x.dtype)
     return x + out, new_kv
 
 
@@ -353,9 +366,10 @@ def _ffn_block(x, lp, cfg: LMConfig):
     if cfg.is_moe:
         axes = policy.get("moe_shard_axes")
         if axes:
-            raise NotImplementedError(
+            raise TypeError(
                 f"policy moe_shard_axes={axes!r} asks for the shard-local MoE "
-                f"dispatch ('moe_local'), but {policy.SHARDING_SLICE}")
+                "dispatch ('moe_local'), which runs on DTensors: the "
+                "activations here are plain tensors")
         y = moe_ffn(xn.reshape(b * s, D), lp["ffn"], cfg).reshape(b, s, D)
     else:
         y = dense_ffn(xn, lp["ffn"], cfg)
@@ -389,6 +403,10 @@ def lm_forward(params: dict, cfg: LMConfig, tokens: Tensor,
     """Full-sequence forward. tokens: (B, S) -> final hidden (B, S, D).
     With ``return_kv`` also returns the per-layer K/V stacked on a leading
     (L, ...) axis (prefill cache fill)."""
+    if sh.is_dtensor(tokens):
+        if positions is not None:
+            raise ValueError("on a mesh the positions are 0..S-1")
+        return _lm_forward_sharded(params, cfg, tokens, return_kv)
     dt = cfg.torch_dtype
     b, s = tokens.shape
     if positions is None:
@@ -428,6 +446,8 @@ def lm_logits(params: dict, cfg: LMConfig, tokens: Tensor) -> Tensor:
 def lm_loss(params: dict, cfg: LMConfig, tokens: Tensor, labels: Tensor
             ) -> Tensor:
     """Chunked-vocab cross entropy — never materializes (B, S, V) at once."""
+    if sh.is_dtensor(tokens):
+        return _lm_loss_sharded(params, cfg, tokens, labels)
     x = lm_forward(params, cfg, tokens)          # (B, S, D)
     b, s, D = x.shape
     c = min(cfg.loss_chunk, s)
@@ -482,6 +502,8 @@ def lm_decode_step(params: dict, cfg: LMConfig, cache: dict,
     ``cache["k"]`` / ``cache["v"]`` in place (the port of the reference's
     donated cache), so the returned cache is the same dict, holding the
     same tensors, that was passed in."""
+    if sh.is_dtensor(tokens):
+        return _lm_decode_sharded(params, cfg, cache, tokens, pos)
     dt = cfg.torch_dtype
     b = tokens.shape[0]
     W = cache["k"].shape[2]
@@ -505,3 +527,280 @@ def lm_decode_step(params: dict, cfg: LMConfig, cache: dict,
     x = rms_norm(x, params["final_norm"].to(dt))
     logits = x @ params["lm_head"].to(dt)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: shard-local blocks over DTensors
+# ---------------------------------------------------------------------------
+#
+# Params, tokens and caches arrive as DTensors laid out by
+# ``dist.sharding.lm_param_pspecs`` & co. Each block runs the plain code
+# above on this rank's local tensors; the collectives are DTensor
+# redistributes at the block's edges (their backward is DTensor's) and the
+# MoE's ``psum`` inside it. ``L`` is the program's ``sharding.Layouts``:
+#
+# * the residual lies on ``L.rows`` (batch over the DP axes), or on
+#   ``L.seq`` (sequence also over 'model') under the 'seq_par' policy
+#   entry ``residual``;
+# * attention runs sequence-parallel: each 'model' rank takes S / n_model
+#   query rows (the heads of the five archs do not divide 16), k / v are
+#   all-gathered over 'model', and the block's weights are all-gathered
+#   over 'model' too; its output lies on ``L.seq``. Decode (one token)
+#   and a sequence that does not divide run the block whole on each
+#   'model' rank;
+# * the FFN is tensor-parallel as the specs shard it: wg / wu on F, wd on
+#   its contraction dim; a dense FFN's partial sum is reduced by the
+#   redistribute to the residual's layout (an all-reduce, or a
+#   reduce-scatter under 'seq_par'), a MoE's by ``moe_ffn(tp_axis=
+#   'model')``. Without 'moe_local' the MoE routes all tokens globally
+#   (they are all-gathered over the DP axes); with it each DP shard
+#   routes its own;
+# * the loss is vocab-parallel over 'model' (lm_head all-gathered over the
+#   DP axes): a ``pmax`` and two ``psum`` per chunk.
+#
+# A gradient placement names what a block's local gradient is: ``Partial``
+# on a mesh dim where the ranks computed on different rows with the same
+# replicated tensor.
+
+def _layouts(tokens) -> "sh.Layouts":
+    from torch.distributed.tensor import Shard
+    mesh = tokens.device_mesh
+    L0 = sh.Layouts(mesh)
+    lead = [tokens.placements[i] for i in L0.dp]
+    return sh.Layouts(mesh, batch_sharded=all(isinstance(p, Shard)
+                                              for p in lead))
+
+
+def _grad_of(L, pl) -> tuple:
+    """A replicated tensor's gradient when it is used on rows laid out as
+    ``pl``: summed over every mesh dim that splits them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in pl)
+
+
+def _unbind_dt(t) -> list:
+    """``torch.unbind`` of a stacked DTensor along its (unsharded) dim 0:
+    one local unbind, so the backward writes the leaf's gradient as one
+    stack."""
+    from torch.distributed.tensor import Shard
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in t.placements)
+    return [sh.wrap(u, t.device_mesh, pl) for u in t.to_local().unbind(0)]
+
+
+def _layer_slices_sharded(params: dict) -> list[dict]:
+    layers = params["layers"]
+    per_leaf = [_unbind_dt(t) for t in tree_leaves(layers)]
+    return [tree_unflatten(layers, [u[i] for u in per_leaf])
+            for i in range(_depth(params))]
+
+
+def _gathered(tree, L, grad):
+    """Every DTensor of ``tree`` all-gathered (``L.rep``) as a local tensor
+    whose gradient has placements ``grad``."""
+    return tree_map(lambda t: sh.local(t, L.mesh, L.rep, grad), tree)
+
+
+def _attn_sharded(x, lp, cfg: LMConfig, L, return_kv: bool):
+    """The attention block of a full sequence on a mesh; returns the new
+    residual (on ``L.seq`` when the sequence splits, else ``L.rows``) and,
+    with ``return_kv``, this rank's (B_l, S, Hkv, hd) k / v."""
+    from torch.distributed.tensor import Partial
+    mesh = L.mesh
+    b, s, D = x.shape
+    nm = L.model_size()
+    split = s % nm == 0
+    lay = L.seq if split else L.rows
+    x_l = sh.local(x, mesh, lay)
+    w = _gathered({"attn": lp["attn"], "ln1": lp["ln1"]}, L, _grad_of(L, lay))
+    b_l, s_l = x_l.shape[:2]
+    dev = x_l.device
+    if not split:
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+            b_l, s)
+        y, kv = _attn_block(x_l, w, cfg, pos, return_kv=return_kv)
+        return sh.wrap(y, mesh, lay), kv
+    base = L.model_rank() * s_l
+    pos = torch.arange(base, base + s_l, dtype=torch.int32,
+                       device=dev)[None].expand(b_l, s_l)
+    q, k, v = _qkv(x_l, w, cfg, pos)
+    kv_grad = L.with_(L.rows, model=Partial())
+    k = sh.local(sh.wrap(k, mesh, L.seq), mesh, L.rows, kv_grad)
+    v = sh.local(sh.wrap(v, mesh, L.seq), mesh, L.rows, kv_grad)
+    kv_pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+        b_l, s)
+    out = flash_attention(q, k, v, pos, kv_pos, causal=True,
+                          window=cfg.window, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    y = x_l + out.reshape(b_l, s_l, -1) @ w["attn"]["wo"].to(x_l.dtype)
+    return sh.wrap(y, mesh, L.seq), ((k, v) if return_kv else None)
+
+
+def _ffn_sharded(x, lp, cfg: LMConfig, L, target: tuple):
+    """The FFN block on a mesh: ``x`` (any row layout) plus the FFN of its
+    norm, on ``target``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = L.mesh
+    route_global = cfg.is_moe and not policy.get("moe_shard_axes")
+    xin = L.with_(L.rows, dp=Replicate()) if route_global else L.rows
+    gdp = _grad_of(L, xin)[L.dp[0]] if L.dp else Replicate()
+    x_l = sh.local(x, mesh, xin, L.with_(xin, model=Partial()))
+    ln2 = sh.local(lp["ln2"], mesh, L.rep,
+                   L.with_(L.rep, dp=gdp, model=Partial()))
+
+    def weight(t):
+        pl = tuple(t.placements)
+        grad = L.with_(pl, dp=gdp)
+        if L.model is not None and not isinstance(pl[L.model], Shard):
+            grad = L.with_(grad, model=Partial())
+        return sh.local(t, mesh, pl, grad)
+
+    ffn = {k: weight(v) for k, v in lp["ffn"].items()}
+    xn = rms_norm(x_l, ln2.to(x_l.dtype))
+    if cfg.is_moe:
+        with policy.use(mesh=mesh):
+            y = moe_ffn(xn.reshape(-1, xn.shape[-1]), ffn, cfg,
+                        tp_axis="model").reshape(xn.shape)
+        y = sh.wrap(y, mesh, xin)
+    else:
+        y = sh.wrap(dense_ffn(xn, ffn, cfg), mesh,
+                    L.with_(L.rows, model=Partial()))
+    return x.redistribute(mesh, target) + y.redistribute(mesh, target)
+
+
+def _norm_sharded(x, weight, L):
+    """``rms_norm`` of a row-wise laid-out DTensor, in place of its rows."""
+    pl = tuple(x.placements)
+    w = sh.local(weight, L.mesh, L.rep, _grad_of(L, pl))
+    x_l = sh.local(x, L.mesh, pl)
+    return sh.wrap(rms_norm(x_l, w.to(x_l.dtype)), L.mesh, pl)
+
+
+def _embed_sharded(params, tokens, L, dt):
+    return sh.sharded_rows(params["embed"], tokens).redistribute(
+        L.mesh, L.rows).to(dt)
+
+
+def _lm_forward_sharded(params: dict, cfg: LMConfig, tokens, return_kv):
+    from torch.distributed.tensor import Shard
+    L = _layouts(tokens)
+    dt = cfg.torch_dtype
+    res = policy.get("residual")
+    target = tuple(res[1]) if res is not None else L.rows
+    x = _embed_sharded(params, tokens, L, dt)
+
+    def layer(x, lp):
+        x, kv = _attn_sharded(x, lp, cfg, L, return_kv)
+        x = _ffn_sharded(x, lp, cfg, L, target)
+        return policy.constrain(x, "residual"), kv
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    ks, vs = [], []
+    for lp in _layer_slices_sharded(params):
+        if remat:
+            x, kv = checkpoint(layer, x, lp, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            x, kv = layer(x, lp)
+        if return_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = _norm_sharded(x, params["final_norm"], L)
+    if return_kv:
+        pl = tuple(Shard(1) if isinstance(p, Shard) else p for p in L.rows)
+        return x, {"k": sh.wrap(torch.stack(ks), L.mesh, pl),
+                   "v": sh.wrap(torch.stack(vs), L.mesh, pl)}
+    return x
+
+
+def lm_head_local(params: dict, L):
+    """lm_head all-gathered over the DP axes, vocab over 'model': this
+    rank's (D, V / n_model) columns and their first column's index."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = L.with_(L.rep, model=Shard(1))
+    head = params["lm_head"]
+    grad = L.with_(pl, dp=Partial() if isinstance(L.rows[L.dp[0]], Shard)
+                   else Replicate())
+    h = sh.local(head, L.mesh, pl, grad)
+    return h, L.model_rank() * h.shape[1]
+
+
+def lm_last_logits_sharded(params: dict, x):
+    """The prefill's ``x[:, -1, :] @ lm_head`` on a mesh: (B, V) logits
+    with the batch as ``x``'s rows and the vocab over 'model'."""
+    from torch.distributed.tensor import Shard
+    L = _layouts(x)
+    head, _ = lm_head_local(params, L)
+    x_l = sh.local(x, L.mesh, L.rows)[:, -1, :]
+    return sh.wrap(x_l @ head.to(x_l.dtype), L.mesh,
+                   L.with_(L.rows, model=Shard(1)))
+
+
+def _lm_loss_sharded(params: dict, cfg: LMConfig, tokens, labels):
+    from torch.distributed.tensor import Partial
+    L = _layouts(tokens)
+    mesh = L.mesh
+    x = _lm_forward_sharded(params, cfg, tokens, False)
+    b, s, D = x.shape
+    x_l = sh.local(x, mesh, L.rows, L.with_(L.rows, model=Partial()))
+    ls_l = sh.local(labels, mesh, L.rows)
+    head, lo = lm_head_local(params, L)
+    col = lo + torch.arange(head.shape[1], device=x_l.device)
+    pad = col >= cfg.vocab
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"loss_chunk {c} must divide the sequence {s}")
+    with policy.use(mesh=mesh):
+        total = []
+        for i in range(s // c):
+            xs = x_l[:, i * c:(i + 1) * c]
+            ls = ls_l[:, i * c:(i + 1) * c]
+            logits = (xs @ head.to(xs.dtype)).float()
+            if cfg.vocab_padded != cfg.vocab:
+                logits = logits.masked_fill(pad, -1e30)
+            m = sh.pmax(logits.amax(dim=-1), "model")
+            se = sh.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                         "model")
+            gold = sh.psum(torch.where(col == ls[..., None].long(), logits,
+                                       logits.new_zeros(())).sum(dim=-1),
+                           "model")
+            total.append((torch.log(se) + m - gold).sum())
+        part = torch.stack(total).sum() / (b * s)
+    loss = sh.wrap(part, mesh, L.with_(L.rep, dp=_grad_of(L, L.rows)[
+        L.dp[0]]))
+    return loss.redistribute(mesh, L.rep).to_local()
+
+
+def _lm_decode_sharded(params, cfg: LMConfig, cache, tokens, pos):
+    """``lm_decode_step`` on a mesh: each rank decodes its batch rows
+    whole (the cache is batch-sharded over the DP axes, replicated over
+    'model'); the FFN and the logits are tensor-parallel. Returns
+    (logits on ``(Replicate.., Shard(2) over 'model')``, cache)."""
+    from torch.distributed.tensor import Shard
+    L = _layouts(tokens)
+    mesh = L.mesh
+    dt = cfg.torch_dtype
+    pos = sh.local(pos, mesh, L.rep).to(torch.int32)
+    kc, vc = sh.local(cache["k"], mesh, cache["k"].placements), sh.local(
+        cache["v"], mesh, cache["v"].placements)
+    b_l, W = kc.shape[1], kc.shape[2]
+    slot = torch.remainder(pos, W)
+    positions = pos.reshape(1, 1).expand(b_l, 1)
+    j = torch.arange(W, dtype=torch.int32, device=pos.device)
+    kv_pos = pos - torch.remainder(slot - j, W)
+    kv_pos_b = kv_pos[None].expand(b_l, W)
+    valid_b = (kv_pos >= 0)[None].expand(b_l, W)
+    x = _embed_sharded(params, tokens, L, dt)
+    for i, lp in enumerate(_layer_slices_sharded(params)):
+        w = _gathered({"attn": lp["attn"], "ln1": lp["ln1"]}, L, None)
+        kv_state = {"k": kc[i], "v": vc[i], "slot": slot, "pos": kv_pos_b,
+                    "valid": valid_b}
+        y, _ = _attn_block(sh.local(x, mesh, L.rows), w, cfg, positions,
+                           kv_state)
+        x = _ffn_sharded(sh.wrap(y, mesh, L.rows), lp, cfg, L, L.rows)
+    x = _norm_sharded(x, params["final_norm"], L)
+    head, _ = lm_head_local(params, L)
+    logits = sh.local(x, mesh, L.rows) @ head.to(dt)
+    logits = sh.wrap(logits, mesh, L.with_(L.rows, model=Shard(2)))
+    return logits.redistribute(mesh, L.with_(L.rep, model=Shard(2))), cache

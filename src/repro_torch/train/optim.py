@@ -132,7 +132,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update_(grads, state, params):
-        step = state["step"]
+        step = _local(state["step"])
         step.add_(1)
         stepf = step.float()
         b1t = 1.0 - torch.pow(b1, stepf)
@@ -142,6 +142,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                   else [None] * len(flat_p))
         for g, m, v, p, w in zip(tree_leaves(grads), tree_leaves(state["mu"]),
                                  tree_leaves(state["nu"]), flat_p, flat_w):
+            g, m, v, p, w, write_back = _state_layout(g, m, v, p, w)
             g = g.reshape(-1)
             m, v, p = m.view(-1), v.view(-1), p.view(-1)
             w = None if w is None else w.view(-1)
@@ -149,6 +150,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 sl = slice(i, i + SLICE)
                 _adamw_slice(g[sl], m[sl], v[sl], p[sl],
                              None if w is None else w[sl], b1t, b2t)
+            if write_back is not None:
+                write_back()
 
     def _adamw_slice(g, m, v, p, w, b1t, b2t):
         # the functional form's arithmetic, operation for operation; the
@@ -243,6 +246,38 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
             p.add_((-lr * u).to(p.dtype))
 
     return Optimizer(init, update, update_)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (writes to it write the DTensor), or ``t``."""
+    from repro_torch.dist.sharding import is_dtensor
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _state_layout(g, m, v, p, w):
+    """One leaf's update operands as local tensors in the optimizer state's
+    layout (``m``'s placements), and what writes ``p`` back afterwards.
+
+    Plain tensors pass through. On a mesh the gradient — often ``Partial``
+    — is reduced into the state's layout; a param laid out otherwise (a
+    ZeRO-1 state shards it further) is updated in a copy in the state's
+    layout, then redistributed to its own and copied back: ZeRO-1's
+    gather of the updated params."""
+    from repro_torch.dist.sharding import is_dtensor, wrap
+    if not is_dtensor(p):
+        return g, m, v, p, w, None
+    mesh, pl = m.device_mesh, tuple(m.placements)
+    g = g.redistribute(mesh, pl) if tuple(g.placements) != pl else g
+    w_l = None if w is None else w.to_local()
+    if tuple(p.placements) == pl:
+        return g.to_local(), m.to_local(), v.to_local(), p.to_local(), w_l, None
+    p_z = p.redistribute(mesh, pl).to_local().clone()
+
+    def write_back():
+        full_p = wrap(p_z, mesh, pl, p.shape).redistribute(mesh, p.placements)
+        p.to_local().copy_(full_p.to_local())
+
+    return g.to_local(), m.to_local(), v.to_local(), p_z, w_l, write_back
 
 
 def _leaf_states(template: PyTree, states: PyTree) -> list:

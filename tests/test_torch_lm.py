@@ -185,12 +185,33 @@ def test_moe_ffn_matches_reference_with_capacity_drops(arch, T):
            jt.moe_ffn(jnp.asarray(x), ffn_j, jcfg))
 
 
-def test_moe_ffn_refuses_a_tensor_parallel_axis():
+@pytest.fixture
+def torch_mesh():
+    """A one-rank gloo mesh (1, 1), its process group destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh as t_make_host_mesh
+    yield t_make_host_mesh((1, 1), device="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_moe_ffn_sums_a_tensor_parallel_axis_over_the_mesh(torch_mesh):
+    """``tp_axis`` sums the partial output over that axis of the active
+    mesh (one rank here: the reference's value); with no mesh active it
+    raises."""
+    from repro_torch.launch.mesh import mesh_context
     jcfg, tcfg = _cfgs("granite-moe-3b-a800m")
-    _, tp = _params(jcfg)
+    jp, tp = _params(jcfg)
+    ffn_j = {k: v[0] for k, v in jp["layers"]["ffn"].items()}
     ffn = {k: v[0] for k, v in tp["layers"]["ffn"].items()}
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tt.moe_ffn(torch.zeros(4, tcfg.d_model), ffn, tcfg, tp_axis="model")
+    x = np.random.default_rng(3).standard_normal(
+        (16, jcfg.d_model)).astype(np.float32)
+    with mesh_context(torch_mesh):
+        got = tt.moe_ffn(_t(x), ffn, tcfg, tp_axis="model")
+    _close(got, jt.moe_ffn(jnp.asarray(x), ffn_j, jcfg))
+    with pytest.raises(ValueError, match="mesh"):
+        tt.moe_ffn(_t(x), ffn, tcfg, tp_axis="model")
 
 
 # -- the five archs end to end ------------------------------------------------
@@ -355,24 +376,46 @@ def test_policy_is_thread_local():
     assert seen == {"main": "main", "other": "other"}
 
 
-def test_policy_constrain_passes_unset_and_refuses_set_keys():
+def test_policy_constrain_passes_unset_and_lays_out_set_keys(torch_mesh):
+    """An unset key passes ``x``; a set key ``(mesh, placements)``
+    redistributes a DTensor and refuses a plain tensor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist import sharding as sh
     x = torch.ones(3)
     assert policy.constrain(x, "residual") is x
-    with policy.use(residual="P(dp, 'model', None)"):
-        with pytest.raises(NotImplementedError, match="sharding rule sets"):
+    d = sh.distribute({"x": torch.arange(4.0)[None]}, torch_mesh,
+                      {"x": sh.P("data", None)})["x"]
+    with policy.use(residual=(torch_mesh, (Replicate(), Shard(1)))):
+        with pytest.raises(TypeError, match="plain"):
             policy.constrain(x, "residual")
+        y = policy.constrain(d, "residual")
+        assert tuple(y.placements) == (Replicate(), Shard(1))
         assert policy.constrain(x, "other") is x
 
 
-def test_model_refuses_sharding_policies():
+def test_model_runs_sharding_policies_on_a_mesh(torch_mesh):
+    """'moe_local' and 'seq_par' act on DTensors: the sharded forward
+    under each equals the plain forward (one rank), on plain tensors they
+    raise, and nothing leaks out of the blocks."""
+    from repro_torch.dist import sharding as sh
     jcfg, tcfg = _cfgs("granite-moe-3b-a800m")
     _, tp = _params(jcfg)
-    toks = _t(_tokens(jcfg, 1, 8, 0))
+    toks = _t(_tokens(jcfg, 2, 8, 0))
+    want = tt.lm_forward(tp, tcfg, toks)
+    dp = sh.distribute(tp, torch_mesh, sh.lm_param_pspecs(tcfg))
+    dtoks = sh.distribute({"t": toks}, torch_mesh,
+                          {"t": sh.lm_batch_pspec(torch_mesh)})["t"]
+    seq = (torch_mesh, sh.placements(torch_mesh, sh.P("data", "model",
+                                                      None)))
+    for kv in ({}, {"moe_shard_axes": ("data",)}, {"residual": seq}):
+        with policy.use(**kv):
+            _close(tt.lm_forward(dp, tcfg, dtoks).full_tensor(), want)
     with policy.use(moe_shard_axes=("data",)):
-        with pytest.raises(NotImplementedError, match="moe_shard_axes"):
+        with pytest.raises(TypeError, match="moe_shard_axes"):
             tt.lm_logits(tp, tcfg, toks)
-    with policy.use(residual="seq_par"):
-        with pytest.raises(NotImplementedError, match="residual"):
+    with policy.use(residual=seq):
+        with pytest.raises(TypeError, match="residual"):
             tt.lm_logits(tp, tcfg, toks)
     tt.lm_logits(tp, tcfg, toks)          # nothing leaks out of the blocks
 
@@ -496,27 +539,40 @@ def test_build_cell_matches_reference(arch, shape):
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
-def test_build_cell_refuses_train_shapes(arch):
-    """Since the training cells' slice a train shape builds; what it still
-    refuses is a mesh or a sharding option, naming that slice."""
+def test_build_cell_lays_train_shapes_on_a_mesh(arch, torch_mesh):
+    """A train shape builds without a mesh as before, and on a mesh with
+    the reference's state and batch specs (Megatron params, ZeRO-1
+    moments and master) and the options' policy entries."""
+    from test_torch_train_cells import spec_paths
     prog = build_cell(arch, "train_4k")
     assert prog.kind == "train" and prog.donate_argnums == (0,)
-    for kw in (dict(opts=("moe_local",)), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharding rule sets"):
-            build_cell(arch, "train_4k", **kw)
+    assert prog.mesh is None and prog.in_shardings is None
+    jmesh = make_host_mesh()
+    for opts in ((), ("moe_local", "seq_par")):
+        jp = j_build_cell(arch, "train_4k", jmesh, opts=opts)
+        tp = build_cell(arch, "train_4k", torch_mesh, opts)
+        assert tp.mesh is torch_mesh and tp.donate_argnums == (0,)
+        assert spec_paths(tp.in_shardings) == spec_paths(jp.in_shardings)
+        assert spec_paths(tp.out_shardings) == spec_paths(jp.out_shardings)
+        assert set(tp.policy_kv) == set(jp.policy_kv)
 
 
-def test_build_cell_refuses_other_families_and_sharding():
+def test_build_cell_lays_other_families_and_kinds_on_a_mesh(torch_mesh):
+    """Serve, GNN, decode and prefill cells build on a mesh with the
+    reference's specs, the option-free programs unchanged without one."""
+    from test_torch_train_cells import spec_paths
     assert build_cell("din", "serve_p99").kind == "serve"
-    with pytest.raises(NotImplementedError, match="sharding rule sets"):
-        build_cell("din", "serve_p99", opts=("serve_full_dp",))
     assert build_cell("schnet", "full_graph_sm").kind == "train"
-    with pytest.raises(NotImplementedError, match="sharding rule sets"):
-        build_cell("schnet", "full_graph_sm", mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding rule sets"):
-        build_cell("mixtral-8x7b", "decode_32k", opts=("moe_local",))
-    with pytest.raises(NotImplementedError, match="sharding rule sets"):
-        build_cell("yi-9b", "prefill_32k", mesh=object())
+    jmesh = make_host_mesh()
+    for arch, shape, opts in (("din", "serve_p99", ("serve_full_dp",)),
+                              ("schnet", "full_graph_sm", ()),
+                              ("mixtral-8x7b", "decode_32k", ("moe_local",)),
+                              ("yi-9b", "prefill_32k", ("seq_par",))):
+        jp = j_build_cell(arch, shape, jmesh, opts=opts)
+        tp = build_cell(arch, shape, torch_mesh, opts)
+        assert tp.kind == jp.kind and tp.meta["captured"] is False
+        assert spec_paths(tp.in_shardings) == spec_paths(jp.in_shardings)
+        assert spec_paths(tp.out_shardings) == spec_paths(jp.out_shardings)
 
 
 def _smoke_prog(kind, arch="granite-moe-3b-a800m"):

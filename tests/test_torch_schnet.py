@@ -39,7 +39,7 @@ from repro_torch.train.losses import softmax_xent as t_xent
 from test_torch_gpu import SMALL_GNN_SPECS as SMALL_SPECS
 from test_torch_gpu import small_gnn_batch as _gnn_batch
 from test_torch_train_cells import (_assert_adam_close, _assert_tree_close,
-                                    _get, _grad_close, _np, _t)
+                                    _get, _grad_close, _np, _t, spec_paths)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 SEEDS = (0, 1, 7)
@@ -431,10 +431,28 @@ def test_gnn_cell_args_match_reference(shape):
                 jnp.dtype(leaf.dtype)), path
 
 
-def test_gnn_cells_refuse_a_mesh_naming_the_sharding_slice():
-    for kw in (dict(mesh=object()), dict(opts=("table_md",))):
-        with pytest.raises(NotImplementedError, match="sharding rule sets"):
-            steps.build_cell("schnet", "molecule", **kw)
+@pytest.fixture
+def torch_mesh():
+    """A one-rank gloo mesh (1, 1), its process group destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    yield make_host_mesh((1, 1), device="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", ["molecule", "full_graph_sm"])
+def test_gnn_cells_on_a_mesh_take_the_references_layout(torch_mesh, shape):
+    """On a mesh a GNN cell's state is replicated and its edge arrays lie
+    over the DP axes, spec for spec as the reference's ``_gnn_train``; an
+    option that the family does not read changes nothing."""
+    jp = jsteps.build_cell("schnet", shape, make_host_mesh())
+    for opts in ((), ("table_md",)):
+        tp = steps.build_cell("schnet", shape, torch_mesh, opts)
+        assert tp.mesh is torch_mesh and tp.meta["captured"] is False
+        assert spec_paths(tp.in_shardings) == spec_paths(jp.in_shardings)
+        assert spec_paths(tp.out_shardings) == spec_paths(jp.out_shardings)
 
 
 @pytest.mark.parametrize("mode", ["full", "molecule"])

@@ -510,11 +510,35 @@ def test_recsys_serve_matches_reference(arch, opts):
     assert serve.compilations == 1
 
 
-def test_build_cell_covers_every_train_and_serve_cell():
+def spec_paths(tree, pre: str = "") -> dict:
+    """A tree of specs (the port's ``P``, or the reference's
+    ``NamedSharding`` / ``PartitionSpec``) as {path: spec tuple}."""
+    if isinstance(tree, dict):
+        return {p: v for k in tree
+                for p, v in spec_paths(tree[k], f"{pre}/{k}").items()}
+    if type(tree) in (tuple, list):
+        return {p: v for i, t in enumerate(tree)
+                for p, v in spec_paths(t, f"{pre}/{i}").items()}
+    return {pre: tuple(getattr(tree, "spec", tree))}
+
+
+@pytest.fixture
+def torch_mesh():
+    """A one-rank gloo mesh (1, 1), its process group destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh as t_make_host_mesh
+    yield t_make_host_mesh((1, 1), device="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_build_cell_covers_every_train_and_serve_cell(torch_mesh):
     """Every train and serve shape of the five LM and five recsys configs
     that the reference does not skip builds, with the reference's kind and
     donated arguments; skipped cells raise as the reference's do; the
-    sharding options and a mesh raise naming their slice."""
+    sharding options build on a mesh, each with the layout the
+    reference's builder gives it."""
     mesh = make_host_mesh()
     built = 0
     for arch in LM_ARCHS + RECSYS_ARCHS:
@@ -532,9 +556,18 @@ def test_build_cell_covers_every_train_and_serve_cell():
             assert len(tp.args) == len(jp.args)
             built += 1
     assert built == 5 * 1 + 5 * 4
-    for opt in ("table_md", "serve_full_dp", "moe_local", "seq_par"):
-        with pytest.raises(NotImplementedError, match="sharding rule sets"):
-            steps.build_cell("din", "train_batch", opts=(opt,))
+    for arch, shape, opt in (("din", "train_batch", "table_md"),
+                             ("din", "serve_p99", "serve_full_dp"),
+                             ("mixtral-8x7b", "train_4k", "moe_local"),
+                             ("mixtral-8x7b", "train_4k", "seq_par")):
+        jp = jsteps.build_cell(arch, shape, mesh, opts=(opt,))
+        tp = steps.build_cell(arch, shape, torch_mesh, opts=(opt,))
+        assert tp.mesh is torch_mesh and set(tp.policy_kv) == set(
+            jp.policy_kv)
+        assert spec_paths(tp.in_shardings) == spec_paths(jp.in_shardings)
+        assert spec_paths(tp.out_shardings) == spec_paths(jp.out_shardings)
+        assert {k: v for k, v in tp.meta.items() if k != "captured"} == \
+            jp.meta
 
 
 # -- the LM launcher ----------------------------------------------------------
