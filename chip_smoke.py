@@ -21,7 +21,16 @@
    beside ``addmm`` at every ``mari_dense`` shape of the served models, in
    each init mode, at B = 4096 and 2048 (``mari_matmul_shapes``); its
    per-call host costs are the ``mari_matmul_host`` line, its bf16 entry
-   is held at 2e-2.
+   is held at 2e-2, at the same shapes with a broadcast init at the
+   ``serve_bf16`` cells' batches 512 / 262,144 / 1M
+   (``mari_matmul_bf16_shapes``). ``din_attention`` also runs past the 920 keys a block
+   once held (``by_length``: 921, 2048 and 10,000 keys at B = 512, in fp32
+   at 2e-4 and bf16 at 2e-2). Every other kernel's bf16 entry
+   (``<kernel>/.../bf16``: bf16 in and out, f32 inside) is held at 2e-2
+   and timed at its fp32 entry's shape beside the bf16 library call;
+   those that widen into the fp32 pipeline (``dot_interaction``,
+   ``gather_einsum``, ``embedding_bag``) also bit for bit against the fp32
+   kernel on the widened operands.
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -152,12 +161,20 @@
    batches, 2e-4), ``recsys_paper_serve`` (512 / 262,144 / 1,000,000
    candidates) and ``recsys_din_serve`` with ``attn_reparam`` (512 /
    262,144) through the kernels against the same program's
-   ``use_pallas=False`` runs, compiled and eager (2e-4). Per cell: step ms
-   (p50 of 5 calls after the first), rows or tokens a second, the bound
-   by bytes and by operations (serving and recsys FLOPs counted by
-   ``FlopCounterMode`` over a plain run; fp32 SIMT peak, TF32 off), peak
-   memory, and for training the in-place update's own extra peak (held to
-   2 x the largest leaf's f32 size).
+   ``use_pallas=False`` runs, compiled and eager (2e-4); then with
+   ``serve_bf16`` (params and float feeds in bf16, held at 2e-2):
+   ``recsys_paper_serve_bf16`` (512 / 262,144 / 1M), ``recsys_din_serve_bf16``
+   (default options, so the whole DIN unit is ``din_attention``; 512 /
+   262,144) and ``recsys_dlrm_serve_bf16`` (``dlrm-mlperf`` with all
+   187,767,399 table rows, 48.07 GB drawn in bf16 on the card; 512 /
+   262,144, and 1M where the probe of the shapes before says it fits in
+   ``CELL_MEM_SHARE``), each shape held to launch its bf16 entries. Per
+   cell: step ms (p50 of 5 calls after the first), rows or tokens a
+   second, the bound by bytes and by operations (serving and recsys FLOPs
+   counted by ``FlopCounterMode`` over a plain run; fp32 SIMT peak, TF32
+   off; bf16 cells at the bf16 peak), peak memory, and for training the
+   in-place update's own extra peak (held to 2 x the largest leaf's f32
+   size).
 12. SchNet's four training cells (``gnn``) through ``build_cell("schnet",
    shape).compiled()`` at full published width (d_hidden 64, n_rbf 300,
    3 interactions, cutoff 10), Adam, random weights from a seed:
@@ -267,6 +284,9 @@ MARI_SHAPES = (("paper expert*_fc0", 1064, 512, "relu"),
                ("din mlp_0", 48, 200, "relu"),
                ("dlrm top_mlp_0", 351, 1024, "relu"),
                ("deepfm deep_mlp_0", 190, 400, "relu"))
+# the serve_bf16 cells' batches (phase 11), at which mari_matmul's bf16
+# entry is held at every MARI_SHAPES stream
+MARI_BF16_BATCHES = (512, 262_144, 1_000_000)
 PEAK_BYTES_S = 3.35e12                # H100 SXM HBM3
 POOLS = (1000, 3000, 5000)            # straddle max_batch = 4096
 SERVED = ("dlrm-mlperf", "deepfm", "fm")
@@ -274,6 +294,8 @@ DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
 TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
 TRAIN_COMPARE = 10                    # captured vs eager steps, same batches
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
+# din_attention past the 920 keys one block once held, at DIN width
+DIN_LONG_L, DIN_LONG_B = (921, 2048, 10_000), 512
 # builds of a kernel's source with one part left out, timed beside it
 VARIANTS = {"gather_einsum": ("GATHER_EINSUM_NO_ROW_SORT",),
             "din_attention": ("DIN_ATTENTION_GUARDED_ONLY",),
@@ -351,10 +373,25 @@ SHARD_GRANITE_LAYERS, SHARD_GRANITE_BATCH = 2, 2
 SHARD_DLRM_SCALE_TABLES, SHARD_STEPS, SHARD_DRYRUN_TIMEOUT = 0.05, 2, 600
 SHARD_DRYRUNS = (("fm", "serve_p99", ()),
                  ("granite-moe-3b-a800m", "train_4k", ("moe_local",)))
+# phase 11's serve cells: (name, arch, opts, shapes, the shapes run only
+# where the probe says they fit, the kernel entries each shape's serving
+# calls must launch). serve_bf16 puts params and float feeds in bf16:
+# dlrm-mlperf's 26 tables whole (187,767,399 published rows, 48.07 GB)
 CELL_SERVES = (("recsys_paper_serve", "paper-ranking", (),
-                ("serve_p99", "serve_bulk", "retrieval_cand")),
+                ("serve_p99", "serve_bulk", "retrieval_cand"), (),
+                ("mari_matmul/broadcast",)),
                ("recsys_din_serve", "din", ("attn_reparam",),
-                ("serve_p99", "serve_bulk")))
+                ("serve_p99", "serve_bulk"), (), ("mari_matmul/broadcast",)),
+               ("recsys_paper_serve_bf16", "paper-ranking", ("serve_bf16",),
+                ("serve_p99", "serve_bulk", "retrieval_cand"), (),
+                ("mari_matmul/bf16",)),
+               ("recsys_din_serve_bf16", "din", ("serve_bf16",),
+                ("serve_p99", "serve_bulk"), (),
+                ("mari_matmul/bf16", "din_attention/bf16")),
+               ("recsys_dlrm_serve_bf16", "dlrm-mlperf", ("serve_bf16",),
+                ("serve_p99", "serve_bulk", "retrieval_cand"),
+                ("retrieval_cand",),
+                ("mari_matmul/bf16", "dot_interaction/bf16")))
 
 
 def log(tag: str, **kv) -> None:
@@ -800,7 +837,8 @@ def serve_bytes(arch: str, params: dict, feeds: dict, out) -> int:
     from repro_torch.common import tree_bytes
     from repro_torch.configs import get_config
     graph, _ = get_config(arch).BUILD()
-    nbytes = tree_bytes(params) + tree_bytes(feeds) + out.numel() * 4
+    nbytes = (tree_bytes(params) + tree_bytes(feeds)
+              + out.numel() * out.element_size())
     for n in graph.param_nodes():
         if n.op == "embedding" and n.inputs[0] in feeds:
             table = params[n.name]["table"]
@@ -1143,15 +1181,39 @@ def cells_phase(dev, counting) -> None:
     recsys_train_cell("recsys_din_train_emb_bf16", "din", ("emb_bf16",))
 
     # -- recsys serve cells, through the kernels ------------------------------
-    for name, arch, opts, shapes in CELL_SERVES:
+    # a probed shape runs only if the bytes a row of the shape before
+    # reserved (the most of the kernels' captured call, the plain captured
+    # call and the plain eager call: a capture's private pool is reserved
+    # beside the memory its warm-up run left cached), grown as a captured
+    # pool grows, fit in CELL_MEM_SHARE of the card beside what is live
+    from repro_torch.models.recsys import DLRM_TABLE_ROWS
+    for name, arch, opts, shapes, probed, must_launch in CELL_SERVES:
         fresh()
-        params = None
+        bf16 = "serve_bf16" in opts
+        tol = BF16_TOL if bf16 else TOL
+        params, per_row, t_init = None, 0.0, time.perf_counter()
         for shape in shapes:
             prog = build_cell(arch, shape, opts=opts)
             if params is None:
                 params = prog.init(seed=0, device=dev)
+                torch.cuda.synchronize()
+                t_init = time.perf_counter() - t_init
+                init_peak = torch.cuda.max_memory_allocated(dev)
             metas = prog.args[1]
             B = max(m.shape[0] for m in metas.values())
+            fresh()
+            live = torch.cuda.memory_reserved(dev)
+            need = live + CELL_POOL_GROWTH * per_row * B
+            if shape in probed and need > CELL_MEM_SHARE * props.total_memory:
+                log(f"cell_{name}", arch=arch, shape=shape, rows=B,
+                    opts=list(opts), skipped=True,
+                    reason=f"probe: {need / gb:.2f} GB planned (live "
+                           f"{live / gb:.2f} + {CELL_POOL_GROWTH} x "
+                           f"{per_row / 1e3:.2f} kB a row at the shape "
+                           f"before) > "
+                           f"{CELL_MEM_SHARE} of {props.total_memory / gb:.2f}"
+                           f" GB", params_gb=tree_bytes(params) / gb)
+                continue
             feeds = device_feeds(arch, metas, gen(400))
             torch.cuda.reset_peak_memory_stats(dev)
             serve = prog.compiled(dev)
@@ -1162,29 +1224,46 @@ def cells_phase(dev, counting) -> None:
                 torch.cuda.synchronize()
                 launched = {k: v for k, v in read_launches().items() if v}
             peak = torch.cuda.max_memory_allocated(dev)
+            reserved = [torch.cuda.max_memory_reserved(dev)]
             del serve
             fresh()
             plain = prog.compiled(dev, use_pallas=False)
             want_c, _ = timed(lambda: plain(params, feeds))
             plain_ms = [timed(lambda: plain(params, feeds))[1]
                         for _ in range(CELL_REPLAYS)]
+            peak_plain = torch.cuda.max_memory_allocated(dev)
+            reserved.append(torch.cuda.max_memory_reserved(dev))
             del plain
             fresh()
             with FlopCounterMode(display=False) as fc:
                 want = prog.step_fn(params, feeds)
             eager_ms = [timed(lambda: prog.step_fn(params, feeds))[1]
                         for _ in range(CELL_REPLAYS)]
+            peak_eager = torch.cuda.max_memory_allocated(dev)
+            reserved.append(torch.cuda.max_memory_reserved(dev))
+            per_row = (max(reserved) - live) / B
             if (tuple(got.shape) != tuple(want.shape)
                     or not bool(torch.isfinite(got).all())
-                    or not torch.allclose(got, want, **TOL)
-                    or not torch.allclose(want_c, want, **TOL)):
+                    or not torch.allclose(got.float(), want.float(), **tol)
+                    or not torch.allclose(got.float(), want_c.float(), **tol)
+                    or not torch.allclose(want_c.float(), want.float(),
+                                          **tol)):
                 raise AssertionError(
                     f"{name} {shape}: kernels vs plain "
-                    f"{float((got - want).abs().max()):.3e}")
-            if launched.get("mari_matmul/broadcast", 0) == 0:
-                raise AssertionError(f"{name} {shape}: no mari_matmul "
-                                     f"launch: {launched}")
+                    f"{float((got.float() - want.float()).abs().max()):.3e}")
+            missing = [k for k in must_launch if not launched.get(k)]
+            if missing:
+                raise AssertionError(f"{name} {shape}: no launch of "
+                                     f"{missing}: {launched}")
             c50, e50 = p50(cap_ms), p50(eager_ms)
+            extra = {}
+            if arch == "dlrm-mlperf":
+                extra = dict(table_rows=sum(
+                    p_["table"].shape[0] for p_ in params.values()
+                    if isinstance(p_, dict) and "table" in p_),
+                    published_table_rows=sum(DLRM_TABLE_ROWS),
+                    params_gb=tree_bytes(params) / gb,
+                    init_s=t_init, init_peak_gb=init_peak / gb)
             log(f"cell_{name}", arch=arch, shape=shape, rows=B,
                 opts=list(opts), reduced=[],
                 captured_ms=c50, first_call_ms=first_ms,
@@ -1192,13 +1271,23 @@ def cells_phase(dev, counting) -> None:
                 eager_over_captured=e50["p50"] / c50["p50"],
                 rows_per_s_captured=B * 1e3 / c50["p50"],
                 **bound(serve_bytes(arch, params, feeds, got),
-                        fc.get_total_flops(), PEAK_FP32_FLOPS),
-                peak_gb=peak / gb, feed_gb=tree_bytes(feeds) / gb,
-                launches=launched,
+                        fc.get_total_flops(),
+                        PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS),
+                peak_gb=peak / gb, peak_plain_gb=peak_plain / gb,
+                peak_eager_plain_gb=peak_eager / gb,
+                peak_reserved_gb=max(reserved) / gb,
+                reserved_gb_by_program=dict(zip(
+                    ("kernels_captured", "plain_captured", "plain_eager"),
+                    (r / gb for r in reserved))),
+                reserved_kb_per_row=per_row / 1e3,
+                feed_gb=tree_bytes(feeds) / gb, launches=launched,
                 max_abs_kernels_vs_eager_plain=float(
-                    (got - want).abs().max()),
+                    (got.float() - want.float()).abs().max()),
+                max_abs_kernels_vs_compiled_plain=float(
+                    (got.float() - want_c.float()).abs().max()),
                 max_abs_compiled_plain_vs_eager_plain=float(
-                    (want_c - want).abs().max()), tol=TOL)
+                    (want_c.float() - want.float()).abs().max()), tol=tol,
+                dtype="bfloat16" if bf16 else "float32", **extra)
             del feeds, got, want, want_c
         del params
     fresh()
@@ -2036,8 +2125,8 @@ def main() -> int:
              "torch.addmm at the main shape")
     del x351
 
-    # the bf16 entry (no path runs it: cast nodes keep plain torch), held
-    # to its plain version at the reference's bf16 tolerance
+    # the bf16 entry (the serve_bf16 cells' path, phase 11), held to its
+    # plain version at the reference's bf16 tolerance
     xb, wb = x.bfloat16(), w.bfloat16()
     pwb = mm.prepare_mari_weight(wb)
     ub = u_of["broadcast"]
@@ -2066,6 +2155,31 @@ def main() -> int:
         shape=dict(B=B, K=K, N=N, u_rows=1, act="relu", dtype="bfloat16"),
         library="torch.addmm in bf16 (no activation)")
     del xb, wb, pwb
+
+    # the bf16 entry at every mari_dense shape of the served models, with
+    # a broadcast init (what the serve_bf16 cells run), at the cells'
+    # batches (K = 351 and 500 rows take the stride copy in bf16)
+    sweep_bf16 = []
+    for layer, Ks, Ns, act in MARI_SHAPES:
+        ws_ = (randn(Ks, Ns) * 0.05).bfloat16()
+        pws, us = mm.prepare_mari_weight(ws_), randn(1, Ns)
+        for Bs in MARI_BF16_BATCHES:
+            xs_ = randn(Bs, Ks).bfloat16()
+            err = max_err(mm.mari_matmul(xs_, pws, us, None, act),
+                          mm.mari_matmul_plain(xs_, ws_, us, None, act),
+                          BF16_TOL)
+            b_ms, _ = mari_bound(Bs, Ks, Ns, 1, "broadcast", torch.bfloat16)
+            sweep_bf16.append(dict(
+                layer=layer, B=Bs, K=Ks, N=Ns, act=act, max_abs_err=err,
+                stride_copy=not mm.ops.tma_ready(xs_),
+                ms=time_ms(lambda: mm.mari_matmul(xs_, pws, us, None, act)),
+                bound_ms=b_ms))
+            del xs_
+        del ws_, pws
+    log("mari_matmul_bf16_shapes", tol=BF16_TOL, init="broadcast",
+        rows=sweep_bf16)
+    entries["mari_matmul/bf16"]["all_path_shapes_max_abs_err"] = max(
+        r["max_abs_err"] for r in sweep_bf16)
 
     # DIN decomposed attention at a full bucket: D=18, L=100, H=80, U=8
     L, D, H = 100, 18, 80
@@ -2213,22 +2327,26 @@ def main() -> int:
                 randn(h1, h2) * 0.2, randn(h2) * 0.1,
                 randn(h2, 1) * 0.2, randn(1) * 0.1)
 
-    def din_bound(Bq, Lq, Dq, h1, h2):
+    def din_bound(Bq, Lq, Dq, h1, h2, bf16=False):
         """The least work of the unit: [k, q, k-q, k*q] W1 = k (W1a + W1c)
         + q (W1b - W1c) + (k*q) W1d, so only (k*q) W1d is per (b, l) pair;
-        the key part is per l, the query part (with b1) per b."""
+        the key part is per l, the query part (with b1) per b. bf16: two
+        bytes a value, the two per-pair products once at the bf16 peak."""
         pair = (Dq + 2 * Dq * h1 + 2 * h1        # k*q, (k*q) W1d, + parts
                 + 2 * h1 * h2 + h2 + 2 * h2 + 1  # layer 2 + b2, layer 3 + b3
                 + 3 + 2 * Dq)                    # softmax, pooled sum
         flops = (Bq * Lq * pair + 2 * Dq * h1         # fold W1's blocks
                  + 2 * Lq * Dq * h1 + Bq * (2 * Dq * h1 + h1))
-        nbytes = 4 * (2 * Bq * Dq + Lq * Dq + 4 * Dq * h1 + h1 + h1 * h2
-                      + 2 * h2 + 1) + Lq          # the mask is bool
+        nbytes = (2 if bf16 else 4) * (
+            2 * Bq * Dq + Lq * Dq + 4 * Dq * h1 + h1 + h1 * h2 + 2 * h2
+            + 1) + Lq                             # the mask is bool
         # the kernel's route: the two per-pair products ((k*q) W1d, layer
-        # 2) as 3xTF32 on the tensor cores, the rest on the CUDA cores
-        mma = 3 * 2 * (Dq * h1 + h1 * h2) * Bq * Lq
+        # 2) as 3xTF32 on the tensor cores (bf16: once, at its peak), the
+        # rest on the CUDA cores
+        mma = (1 if bf16 else 3) * 2 * (Dq * h1 + h1 * h2) * Bq * Lq
         simt = flops - 2 * (Dq * h1 + h1 * h2) * Bq * Lq
-        b3x = max(bound(nbytes, 0)[0], mma / PEAK_TF32_FLOPS * 1e3,
+        b3x = max(bound(nbytes, 0)[0],
+                  mma / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS) * 1e3,
                   simt / PEAK_FP32_FLOPS * 1e3)
         by = "bytes" if b3x == bound(nbytes, 0)[0] else "operations"
         return (b3x, by), flops, bound(nbytes, flops)[0]
@@ -2253,13 +2371,37 @@ def main() -> int:
             bound_fp32_simt_ms=simt_ms, share_of_bound_fp32_simt=simt_ms / ms,
             guarded_instance_ms=guarded_ms, gflop=flops / 1e9)
         del dargs
-    # ... and histories of several 112-key chunks, up to the longest one a
-    # block holds at DIN width
+    # ... and histories of several 112-key chunks, and the widest unit of
+    # the register tiles (32-key chunks)
     for shp in ((4, 5, 8, 16, 8), (33, 20, 18, 16, 8), (128, 100, 18, 16, 8),
                 (1, 7, 6, 12, 5), (300, 37, 33, 128, 64),
-                (40, 300, 18, 80, 40), (64, 920, 18, 80, 40)):
+                (40, 300, 18, 80, 40), (64, 920, 18, 80, 40),
+                (20, 3000, 64, 128, 64)):
         a = din_args(*shp)
         errs.append(max_err(da.din_attention(*a), da.din_attention_plain(*a)))
+
+    def din_by_length(bf16):
+        """DIN width past the 920 keys a block once held, at B =
+        DIN_LONG_B: ms, plain ms, bound, max |d| per history length."""
+        rows = {}
+        for Lx in DIN_LONG_L:
+            a = din_args(DIN_LONG_B, Lx, Dq, H1, H2)
+            if bf16:
+                a = tuple(t.bfloat16() if t.is_floating_point() else t
+                          for t in a)
+            err = max_err(da.din_attention(*a), da.din_attention_plain(*a),
+                          BF16_TOL if bf16 else TOL)
+            (b_ms, b_by), _, _ = din_bound(DIN_LONG_B, Lx, Dq, H1, H2, bf16)
+            ms = time_ms(lambda: da.din_attention(*a))
+            rows[Lx] = dict(ms=ms, plain_ms=time_ms(
+                lambda: da.din_attention_plain(*a), iters=3),
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                max_abs_err=err)
+            del a
+        return rows
+
+    timed_long = din_by_length(False)
+    errs += [r["max_abs_err"] for r in timed_long.values()]
     entries["din_attention/shared_keys"] = dict(
         route="cuda", source="src/repro_torch/csrc/din_attention.cu",
         replaces="src/repro/kernels/din_attention/kernel.py:47",
@@ -2271,13 +2413,18 @@ def main() -> int:
                    also=[[B, Lq, Dq, H1, H2], [4, 5, 8, 16, 8],
                          [33, 20, 18, 16, 8], [128, 100, 18, 16, 8],
                          [1, 7, 6, 12, 5], [300, 37, 33, 128, 64],
-                         [40, 300, 18, 80, 40], [64, 920, 18, 80, 40]]),
+                         [40, 300, 18, 80, 40], [64, 920, 18, 80, 40],
+                         [20, 3000, 64, 128, 64]],
+                   chunk_keys=da.ops._lib().din_attention_chunk_keys(
+                       Dq, H1, H2)),
         bound_note="3xTF32: the least work's two per-pair products as "
                    "3xTF32 at 495 TFLOP/s, the rest at 67 TFLOP/s fp32; "
                    "bound_fp32_simt_ms: all of it at 67",
         timing="guarded_instance_ms: the build without the unguarded "
                "instance for these tile counts",
         at_full_bucket=dict(B=B, **timed[B]),
+        by_length={Lx: dict(B=DIN_LONG_B, **r)
+                   for Lx, r in timed_long.items()},
         library="none: no single PyTorch call computes the unit")
     # EmbeddingBag at the multi-hot DLRM path's largest bag: the sparse_20
     # table at scale_tables=0.1 (2,564,352 x 128), B = 4096, H = 100, sum;
@@ -2379,15 +2526,173 @@ def main() -> int:
                    "bound adds the int64 segment ids read"),
         library="torch.nn.functional.embedding_bag (mode='sum', offsets)")
     del tab, bag_ids, flat, segs, offs, flat_sh, segs_sh
+
+    # ---- the bf16 entries (the TPU kernels' numerics: bf16 in and out,
+    # f32 inside), each at its fp32 entry's shape, held to its plain
+    # version at BF16_TOL; where the entry widens into the fp32 pipeline
+    # (dot_interaction, gather_einsum, embedding_bag), bit for bit the
+    # fp32 kernel on the widened operands, rounded once. Bounds: two
+    # bytes a value, products at the bf16 peak.
+    def bf16_entry(name, like, fn, plain, library_fn, nbytes, flops, errs,
+                   **extra):
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        ms = time_ms(fn)
+        entries[name] = dict(
+            route="cuda", source=entries[like]["source"],
+            replaces=entries[like]["replaces"], max_abs_err=max(errs),
+            tol=BF16_TOL, ms=ms, plain_ms=time_ms(plain), bound_ms=b_ms,
+            bound_by=b_by, share_of_bound=b_ms / ms,
+            library_ms=time_ms(library_fn) if library_fn else None,
+            fp32_entry_ms=entries[like]["ms"], **extra)
+
+    def same_bits(got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: the bf16 entry differs from the "
+                                 f"fp32 kernel on the widened operands")
+
+    idx = randidx(B, U)
+    for spec, (xs, ts, xrs, trs, flops, nfloats) in cases.items():
+        xg, tg = randn(*xs).bfloat16(), randn(*ts).bfloat16()
+        runs = torch.sort(randidx(B, U)).values
+        xr, tr = randn(*xrs).bfloat16(), randn(*trs).bfloat16()
+        ir = randidx(xrs[0], trs[0] + 3, lo=-2)
+        errs = []
+        for a in ((xg, tg, idx), (xg, tg, runs), (xr, tr, ir)):
+            got = ge.gather_einsum(spec, *a)
+            errs.append(max_err(got, ge.gather_einsum_plain(spec, *a),
+                                BF16_TOL))
+            same_bits(got, ge.gather_einsum(
+                spec, a[0].float(), a[1].float(), a[2]).bfloat16(),
+                f"gather_einsum {spec}")
+        rows = tg.index_select(0, idx)
+        row_spec = ge.parse_spec(spec)[3]
+        bf16_entry(f"gather_einsum/{spec}/bf16", f"gather_einsum/{spec}",
+                   lambda: ge.gather_einsum(spec, xg, tg, idx),
+                   lambda: ge.gather_einsum_plain(spec, xg, tg, idx),
+                   lambda: torch.einsum(row_spec, xg, rows),
+                   2 * nfloats + 4 * B, flops, errs,
+                   ms_runs=time_ms(lambda: ge.gather_einsum(spec, xg, tg,
+                                                            runs)),
+                   shape=dict(x=list(xs), table=list(ts), dtype="bfloat16"),
+                   library="torch.einsum on pre-gathered rows, bf16")
+        del xg, tg, rows
+
+    Fd, Dd = 27, 128
+    P = di.n_pairs(Fd)
+    xd = randn(B, Fd, Dd).bfloat16()
+    errs = []
+    for xb in (xd, randn(1000, 5, 16).bfloat16(),
+               randn(130, 7, 33).bfloat16(),
+               randn(64 * Fd * Dd + 1).bfloat16()[1:].view(64, Fd, Dd)):
+        got = di.dot_interaction(xb)
+        errs.append(max_err(got, di.dot_interaction_plain(xb), BF16_TOL))
+        same_bits(got, di.dot_interaction(xb.float()).bfloat16(),
+                  "dot_interaction")
+    iu, ju = torch.triu_indices(Fd, Fd, offset=1, device=dev)
+    bf16_entry("dot_interaction/bf16", "dot_interaction/triu",
+               lambda: di.dot_interaction(xd),
+               lambda: di.dot_interaction_plain(xd),
+               lambda: torch.bmm(xd, xd.transpose(1, 2))[:, iu, ju],
+               2 * (B * Fd * Dd + B * P), 2 * B * P * Dd, errs,
+               shape=dict(B=B, F=Fd, D=Dd, P=P, keep_self=False,
+                          copy_route=di.copy_route(xd)),
+               library="torch.bmm (cuBLAS) in bf16 then a triangle index "
+                       "gather: two PyTorch calls")
+    del xd
+
+    errs = []
+    dargs = tuple(t.bfloat16() if t.is_floating_point() else t
+                  for t in din_args(SINGLE_CALL_B, Lq, Dq, H1, H2))
+    for shp in ((4, 5, 8, 16, 8), (300, 37, 33, 128, 64),
+                (64, 920, 18, 80, 40)):
+        a = tuple(t.bfloat16() if t.is_floating_point() else t
+                  for t in din_args(*shp))
+        errs.append(max_err(da.din_attention(*a), da.din_attention_plain(*a),
+                            BF16_TOL))
+    errs.append(max_err(da.din_attention(*dargs),
+                        da.din_attention_plain(*dargs), BF16_TOL))
+    long_bf16 = din_by_length(True)
+    errs += [r["max_abs_err"] for r in long_bf16.values()]
+    (b_ms, b_by), _, _ = din_bound(SINGLE_CALL_B, Lq, Dq, H1, H2, True)
+    ms = time_ms(lambda: da.din_attention(*dargs))
+    entries["din_attention/bf16"] = dict(
+        route="cuda", source="src/repro_torch/csrc/din_attention.cu",
+        replaces="src/repro/kernels/din_attention/kernel.py:47",
+        max_abs_err=max(errs), tol=BF16_TOL, ms=ms,
+        plain_ms=time_ms(lambda: da.din_attention_plain(*dargs)),
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+        library_ms=None,
+        fp32_entry_ms=entries["din_attention/shared_keys"]["ms"],
+        shape=dict(B=SINGLE_CALL_B, L=Lq, D=Dq, h1=H1, h2=H2,
+                   dtype="bfloat16"),
+        by_length={Lx: dict(B=DIN_LONG_B, **r)
+                   for Lx, r in long_bf16.items()},
+        bound_note="bf16: two bytes a value; the per-pair products once "
+                   "at 989 TFLOP/s, the rest at 67 (the kernel widens to "
+                   "its 3xTF32 fp32 pipeline)",
+        library="none: no single PyTorch call computes the unit")
+    del dargs
+
+    Vb, Bb, Hb, Db = pad_vocab(int(DLRM_TABLE_ROWS[20] * 0.1)), B, 100, 128
+    tab = randn(Vb, Db).bfloat16()
+    bag_ids = torch.randint(0, Vb, (Bb, Hb), generator=gen, device=dev,
+                            dtype=torch.int32)
+    flat = bag_ids.reshape(-1)
+    segs = torch.arange(Bb, device=dev).repeat_interleave(Hb)
+    offs = torch.arange(0, Bb * Hb, Hb, device=dev)
+    rows_read = int(torch.unique(flat).numel())
+    errs = {"fixed": [], "csr": []}
+    for t_, i_, wts, comb in ((tab, bag_ids, None, "sum"),
+                              (randn(1000, 18).bfloat16(),
+                               randidx(64 * 27, 1000).reshape(64, 27),
+                               torch.rand(64, 27, generator=gen, device=dev),
+                               "mean")):
+        S_ = i_.shape[0]
+        s_ = torch.arange(S_, device=dev).repeat_interleave(i_.shape[1])
+        w_ = None if wts is None else wts.reshape(-1)
+        got = eb.embedding_bag_fixed(t_, i_, comb, wts)
+        errs["fixed"].append(max_err(
+            got, eb.embedding_bag_fixed_plain(t_, i_, comb, wts), BF16_TOL))
+        same_bits(got, eb.embedding_bag_fixed(t_.float(), i_, comb,
+                                              wts).bfloat16(),
+                  "embedding_bag/fixed")
+        got = eb.embedding_bag(t_, i_.reshape(-1), s_, S_, comb, w_)
+        errs["csr"].append(max_err(
+            got, eb.embedding_bag_plain(t_, i_.reshape(-1), s_, S_, comb,
+                                        w_), BF16_TOL))
+        same_bits(got, eb.embedding_bag(t_.float(), i_.reshape(-1), s_, S_,
+                                        comb, w_).bfloat16(),
+                  "embedding_bag/csr")
+    for variant_, fn, plain, extra in (
+            ("fixed", lambda: eb.embedding_bag_fixed(tab, bag_ids),
+             lambda: eb.embedding_bag_fixed_plain(tab, bag_ids), 0),
+            ("csr", lambda: eb.embedding_bag(tab, flat, segs, Bb),
+             lambda: eb.embedding_bag_plain(tab, flat, segs, Bb),
+             8 * Bb * Hb)):
+        bf16_entry(f"embedding_bag/{variant_}/bf16",
+                   f"embedding_bag/{variant_}", fn, plain,
+                   lambda: F.embedding_bag(flat, tab, offs, mode="sum"),
+                   Db * 2 * rows_read + 4 * Bb * Hb + 2 * Bb * Db + extra,
+                   Bb * Hb * Db, errs[variant_],
+                   shape=dict(bag_shape, dtype="bfloat16",
+                              distinct_rows_read=rows_read),
+                   library="torch.nn.functional.embedding_bag (mode='sum', "
+                           "offsets), bf16")
+    del tab, bag_ids, flat, segs, offs
     # "blh,uh->bl" is a spec the kernel supports but the executor's
     # decomposed attention never reaches, no served model keeps the gram's
     # diagonal, no path calls the CSR entry of embedding_bag (the
-    # executor's bags have a fixed hotness), and none runs mari_matmul in
-    # bf16 (mixed-precision nodes keep plain torch): checked and timed
-    # above, they are listed in the kernels line with on_path false
+    # executor's bags have a fixed hotness), and no bf16 path reaches
+    # gather_einsum (the coalesced DIN engine serves fp32) or
+    # embedding_bag (single-hot DLRM gathers with index_select): checked
+    # and timed above, they are listed in the kernels line with on_path
+    # false
     OFF_PATH = ("gather_einsum/blh,uh->bl", "dot_interaction/triu_keep_self",
-                "embedding_bag/csr", "mari_matmul/bf16")
-    log("kernels_vs_plain", tol=TOL,
+                "embedding_bag/csr", "embedding_bag/fixed/bf16",
+                "embedding_bag/csr/bf16") + tuple(
+                    f"gather_einsum/{s}/bf16" for s in ge.KERNEL_SPECS)
+    log("kernels_vs_plain", tol=TOL, bf16_tol=BF16_TOL,
         max_abs_err={k: v["max_abs_err"] for k, v in entries.items()},
         ms={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                   "library_ms")}
@@ -4070,7 +4375,8 @@ def main() -> int:
     # single calls; table1 is only printed
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
-                          and k not in OFF_PATH]}
+                          and k not in OFF_PATH
+                          and not k.endswith("/bf16")]}
     held["device_twin"] = ["mari_matmul/gather"] + [
         k for k in held["paper+din"] if k.startswith("gather_einsum/")]
     held["service"] = held["service_default_hedging"] = [
@@ -4088,7 +4394,8 @@ def main() -> int:
     held["dist"] = ["mari_matmul/gather"]
     held["reorg"] = ["mari_matmul/gather"]
     held["table3"] = ["mari_matmul/broadcast"]
-    held["cells"] = ["mari_matmul/broadcast"]
+    held["cells"] = ["mari_matmul/broadcast", "mari_matmul/bf16",
+                     "din_attention/bf16", "dot_interaction/bf16"]
     held["sharded"] = ["mari_matmul/broadcast"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]

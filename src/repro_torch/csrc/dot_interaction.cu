@@ -1,4 +1,4 @@
-// DLRM dot interaction for Hopper, fp32.
+// DLRM dot interaction for Hopper, fp32 and bf16.
 //
 //   out[b, p] = sum_d x[b, i_p, d] * x[b, j_p, d]
 //
@@ -52,7 +52,18 @@
 //  * Out. The slot is released once read; the triangle, staged per warp in
 //    shared memory (scalar stores, at most ceil(T / 2)-way conflicts), is
 //    written with coalesced stores.
+//
+// bf16 (dot_interaction_bf16): the TPU kernel's numerics, bf16 x, every
+// product and sum in f32, the output rounded to bf16 once. The producer
+// warp widens the row to fp32 as it copies it (16-byte loads of 8 bf16
+// where D % 8 == 0 and x is 16-byte aligned, else 2-byte loads), stores
+// it into the same swizzled fp32 slot and arrives on `full` (count 32)
+// after its stores: the consumers run the fp32 pipeline unchanged, so a
+// bf16 row's result is the fp32 kernel's on the widened row, rounded. Its
+// bound halves x's bytes, and the producer's loads are no longer
+// asynchronous (what a 64-column bf16 TMA box, D % 64 == 0, would cure).
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -228,12 +239,50 @@ __device__ __forceinline__ void tile_dots(const unsigned char* slot, int t,
     }
 }
 
-template <bool KEEP_SELF, bool TMA, int MAX_NC>
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// a bf16 (the low 16 bits of w first) widened exactly: its bits are the
+// float's top 16
+__device__ __forceinline__ float4 widen4(uint32_t w0, uint32_t w1) {
+  return make_float4(__uint_as_float(w0 << 16),
+                     __uint_as_float(w0 & 0xffff0000u),
+                     __uint_as_float(w1 << 16),
+                     __uint_as_float(w1 & 0xffff0000u));
+}
+
+// the bf16 producer: row `src` widened into `dst` (VEC8: 8 bf16 a load)
+__device__ __forceinline__ void widen_row(unsigned char* dst,
+                                          const __nv_bfloat16* src, int F,
+                                          int D, bool vec8, int lane) {
+  if (vec8) {
+#pragma unroll 4
+    for (int e = lane; e < F * D / 8; e += 32) {
+      const int f = (e * 8) / D, d = e * 8 - f * D;
+      const uint4 r = *reinterpret_cast<const uint4*>(src + (size_t)e * 8);
+      *reinterpret_cast<float4*>(dst + slot_offset(f, d, F)) =
+          widen4(r.x, r.y);
+      *reinterpret_cast<float4*>(dst + slot_offset(f, d + 4, F)) =
+          widen4(r.z, r.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = lane; e < F * D; e += 32) {
+      const int f = e / D, d = e - f * D;
+      *reinterpret_cast<float*>(dst + slot_offset(f, d, F)) =
+          __bfloat162float(src[e]);
+    }
+  }
+}
+
+template <typename Elem, bool KEEP_SELF, bool TMA, int MAX_NC>
 __global__ void __launch_bounds__(32 * (MAX_NC + 1), 1)
     dot_interaction_kernel(const __grid_constant__ CUtensorMap xmap,
-                           const float* __restrict__ x,
-                           float* __restrict__ out, int B, int F, int D,
-                           int P, Plan pl) {
+                           const Elem* __restrict__ x, Elem* __restrict__ out,
+                           int B, int F, int D, int P, Plan pl, int vec8) {
+  constexpr bool kBF16 = sizeof(Elem) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nslots = pl.nc * pl.spw;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -281,8 +330,13 @@ __global__ void __launch_bounds__(32 * (MAX_NC + 1), 1)
           mbar_expect_tx(&full[w], (uint32_t)(pl.nq * F * 128));
           tma_load_3d(dst, &xmap, &full[w], 0, b * F, 0);
         }
+      } else if constexpr (kBF16) {
+        widen_row(dst, reinterpret_cast<const __nv_bfloat16*>(x) +
+                           (size_t)b * F * D, F, D, vec8, lane);
+        mbar_arrive(&full[w]);             // every lane: count 32
       } else {
-        const float* src = x + (size_t)b * F * D;
+        const float* src = reinterpret_cast<const float*>(x) +
+                           (size_t)b * F * D;
         const uint32_t base = smem_u32(dst);
         int f = 0, d = lane;
         while (d >= D) {
@@ -315,9 +369,9 @@ __global__ void __launch_bounds__(32 * (MAX_NC + 1), 1)
         tile_dots<KEEP_SELF>(slot, t0 + lane, T, F, pl.nq, stage);
     mbar_arrive(&empty[w]);                  // every lane: count 32
     __syncwarp();
-    float* ob = out + ((size_t)blockIdx.x + (size_t)k * grid) * P;
+    Elem* ob = out + ((size_t)blockIdx.x + (size_t)k * grid) * P;
     for (int p0 = 0; p0 < P; p0 += 32)
-      if (p0 + lane < P) ob[p0 + lane] = stage[p0 + lane];
+      if (p0 + lane < P) st(ob + p0 + lane, stage[p0 + lane]);
     __syncwarp();
   }
 }
@@ -369,28 +423,73 @@ int encode(CUtensorMap* m, const float* x, int B, int F, int D) {
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-template <bool KEEP_SELF, bool TMA, int MAX_NC>
-int launch(const CUtensorMap& xm, const float* x, float* out, int B, int F,
-           int D, int P, const Plan& pl, int blocks, cudaStream_t stream) {
-  auto kernel = dot_interaction_kernel<KEEP_SELF, TMA, MAX_NC>;
+template <typename T, bool KEEP_SELF, bool TMA, int MAX_NC>
+int launch(const CUtensorMap& xm, const T* x, T* out, int B, int F, int D,
+           int P, const Plan& pl, int blocks, int vec8, cudaStream_t stream) {
+  auto kernel = dot_interaction_kernel<T, KEEP_SELF, TMA, MAX_NC>;
   if (pl.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<blocks, 32 * (pl.nc + 1), pl.smem, stream>>>(xm, x, out, B, F, D,
-                                                         P, pl);
+                                                         P, pl, vec8);
   return (int)cudaGetLastError();
 }
 
-template <bool KEEP_SELF, int MAX_NC>
-int launch_any(const CUtensorMap& xm, const float* x, float* out, int B,
-               int F, int D, int P, const Plan& pl, int blocks, int tma,
-               cudaStream_t stream) {
-  return tma ? launch<KEEP_SELF, true, MAX_NC>(xm, x, out, B, F, D, P, pl,
-                                                blocks, stream)
-              : launch<KEEP_SELF, false, MAX_NC>(xm, x, out, B, F, D, P, pl,
-                                                 blocks, stream);
+// the TMA instance for fp32 rows that take it; cp.async (fp32) or the
+// widening copy (bf16) otherwise
+template <typename T, int MAX_NC>
+int launch_any(const CUtensorMap& xm, const T* x, T* out, int B, int F,
+               int D, int P, const Plan& pl, int blocks, int tma, int vec8,
+               int keep_self, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    if (tma)
+      return keep_self ? launch<T, true, true, MAX_NC>(xm, x, out, B, F, D, P,
+                                                        pl, blocks, vec8, s)
+                       : launch<T, false, true, MAX_NC>(xm, x, out, B, F, D,
+                                                         P, pl, blocks, vec8, s);
+  }
+  return keep_self ? launch<T, true, false, MAX_NC>(xm, x, out, B, F, D, P,
+                                                     pl, blocks, vec8, s)
+                   : launch<T, false, false, MAX_NC>(xm, x, out, B, F, D, P,
+                                                      pl, blocks, vec8, s);
+}
+
+template <typename T>
+int run(const T* x, T* out, int B, int F, int D, int keep_self, int tma,
+        void* stream) {
+  const int P = keep_self ? F * (F + 1) / 2 : F * (F - 1) / 2;
+  Plan pl;
+  if (B <= 0 || D <= 0 || P <= 0 || !make_plan(F, D, P, 1, 1, &pl) ||
+      (tma && (sizeof(T) != 4 || D % 32 != 0 || F > 256 ||
+               (uintptr_t)x % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xm;
+  memset(&xm, 0, sizeof xm);
+  if (tma) {
+    const int rc = encode(&xm, reinterpret_cast<const float*>(x), B, F, D);
+    if (rc) return rc;
+  }
+  const int vec8 = D % 8 == 0 && (uintptr_t)x % 16 == 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = B < sms ? B : sms;
+  const int rows = (B + blocks - 1) / blocks;    // rows of a block, at most
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifndef DOT_INTERACTION_RING_ONLY   // a build chip_smoke.py times beside it
+  if (rows > kRingConsumers && rows <= kWideConsumers &&
+      make_plan(F, D, P, kWideConsumers, 1, &pl) && pl.nc >= rows)
+    return launch_any<T, kWideConsumers>(xm, x, out, B, F, D, P, pl, blocks,
+                                         tma, vec8, keep_self, s);
+#endif
+  if (!make_plan(F, D, P, kRingConsumers, 2, &pl))
+    make_plan(F, D, P, kRingConsumers, 1, &pl);
+  return launch_any<T, kRingConsumers>(xm, x, out, B, F, D, P, pl, blocks,
+                                       tma, vec8, keep_self, s);
 }
 
 }  // namespace
@@ -408,39 +507,14 @@ extern "C" {
 // for a refused shape or a TMA call it cannot take, or an encode error.
 int dot_interaction_f32(const float* x, float* out, int B, int F, int D,
                         int keep_self, int tma, void* stream) {
-  const int P = keep_self ? F * (F + 1) / 2 : F * (F - 1) / 2;
-  Plan pl;
-  if (B <= 0 || D <= 0 || P <= 0 || !make_plan(F, D, P, 1, 1, &pl) ||
-      (tma && (D % 32 != 0 || F > 256 || (uintptr_t)x % 16 != 0)))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap xm;
-  memset(&xm, 0, sizeof xm);
-  if (tma) {
-    const int rc = encode(&xm, x, B, F, D);
-    if (rc) return rc;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = B < sms ? B : sms;
-  const int rows = (B + blocks - 1) / blocks;    // rows of a block, at most
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#ifndef DOT_INTERACTION_RING_ONLY   // a build chip_smoke.py times beside it
-  if (rows > kRingConsumers && rows <= kWideConsumers &&
-      make_plan(F, D, P, kWideConsumers, 1, &pl) && pl.nc >= rows)
-    return keep_self ? launch_any<true, kWideConsumers>(xm, x, out, B, F, D,
-                                                        P, pl, blocks, tma, s)
-                     : launch_any<false, kWideConsumers>(
-                           xm, x, out, B, F, D, P, pl, blocks, tma, s);
-#endif
-  if (!make_plan(F, D, P, kRingConsumers, 2, &pl))
-    make_plan(F, D, P, kRingConsumers, 1, &pl);
-  return keep_self ? launch_any<true, kRingConsumers>(xm, x, out, B, F, D, P,
-                                                      pl, blocks, tma, s)
-                   : launch_any<false, kRingConsumers>(xm, x, out, B, F, D, P,
-                                                       pl, blocks, tma, s);
+  return run(x, out, B, F, D, keep_self, tma, stream);
+}
+
+// The same for bf16 x and out (f32 products and sums, out rounded once):
+// the widening copy, any D, any view.
+int dot_interaction_bf16(const __nv_bfloat16* x, __nv_bfloat16* out, int B,
+                         int F, int D, int keep_self, void* stream) {
+  return run(x, out, B, F, D, keep_self, 0, stream);
 }
 
 const char* repro_error_string(int e) {

@@ -1,4 +1,4 @@
-// EmbeddingBag for Hopper, fp32: a CSR-offset segmented reduction.
+// EmbeddingBag for Hopper, fp32 and bf16: a CSR-offset segmented reduction.
 //
 //   out[s, :] = combine_{i in [off[s], off[s+1])} w[i] * table[clamp(ids[i]), :]
 //
@@ -26,6 +26,14 @@
 // D % 4 != 0 (DIN's D = 18) or a table not 16-byte aligned takes the
 // scalar path: one float per lane. Columns are tiled over blockIdx.y in
 // 32 * VEC floats, so any D works.
+//
+// bf16 (embedding_bag_bf16): a bf16 table and output, fp32 per-id
+// weights. Rows are widened to fp32 as they are loaded (8 bytes a lane on
+// the vector path) and summed in fp32 registers as above; each bag's
+// result is rounded to bf16 once. The TPU kernel accumulates in the
+// table's dtype, one row at a time (o_ref += row_ref), so it rounds after
+// every row: this entry is nearer the exact sum, within the reference's
+// bf16 tolerance of it.
 //
 // Index contract: ids outside [0, V) clamp to [0, V - 1] (the port's
 // index rule, as jnp.take(mode="clip")): no id ever makes the kernel read
@@ -62,6 +70,7 @@
 // them, and the bag kernel's result is bitwise that of the sort-based
 // preparation. The tile plan (kernels/embedding_bag/ops.py csr_plan) keeps
 // the counts at n_tiles * (S + 1) <= max(2^22, S + 1) int32.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,15 +115,48 @@ struct Vec<1> {
   __device__ static void scale(T& acc, float s) { acc *= s; }
 };
 
+// VEC columns of a table row widened to fp32, and of an output rounded
+// from fp32: fp32 as they are, bf16 by its bits (the float's top 16)
+__device__ __forceinline__ void load(float4& v, const float* p) {
+  v = *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void load(float& v, const float* p) { v = *p; }
+__device__ __forceinline__ void load(float4& v, const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  v = make_float4(__uint_as_float(r.x << 16),
+                  __uint_as_float(r.x & 0xffff0000u),
+                  __uint_as_float(r.y << 16),
+                  __uint_as_float(r.y & 0xffff0000u));
+}
+__device__ __forceinline__ void load(float& v, const __nv_bfloat16* p) {
+  v = __bfloat162float(*p);
+}
+__device__ __forceinline__ void store(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, const float4& v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // One warp per (bag, column tile). FIXED: bag s spans ids [s * H, s * H + H);
-// otherwise [offsets[s], offsets[s + 1]).
-template <typename Idx, int VEC, bool FIXED, bool WEIGHTED>
+// otherwise [offsets[s], offsets[s + 1]). E: the table's and output's
+// element type (float or bf16).
+template <typename E, typename Idx, int VEC, bool FIXED, bool WEIGHTED>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-    embedding_bag_kernel(const float* __restrict__ table,
+    embedding_bag_kernel(const E* __restrict__ table,
                          const Idx* __restrict__ ids,
                          const int64_t* __restrict__ offsets,
                          const float* __restrict__ weights,
-                         float* __restrict__ out, int S, int D, int64_t V,
+                         E* __restrict__ out, int S, int D, int64_t V,
                          int H, int mean) {
   using V_ = Vec<VEC>;
   using T = typename V_::T;
@@ -150,8 +192,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       for (int u = 0; u < kUnroll; ++u) {
         const int64_t id = __shfl_sync(0xffffffffu, my_id, j + u);
         if (WEIGHTED) w[u] = __shfl_sync(0xffffffffu, my_w, j + u);
-        v[u] = active ? *reinterpret_cast<const T*>(table + id * D + col)
-                      : V_::zero();
+        v[u] = V_::zero();
+        if (active) load(v[u], table + id * D + col);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -165,7 +207,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       const int64_t id = __shfl_sync(0xffffffffu, my_id, j);
       const float w = WEIGHTED ? __shfl_sync(0xffffffffu, my_w, j) : 1.f;
       if (active) {
-        const T v = *reinterpret_cast<const T*>(table + id * D + col);
+        T v;
+        load(v, table + id * D + col);
         if (WEIGHTED)
           V_::fma(acc, v, w);
         else
@@ -178,43 +221,50 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
     const int64_t count = end - start;
     V_::scale(acc, 1.f / (float)(count > 1 ? count : 1));
   }
-  *reinterpret_cast<T*>(out + (int64_t)s * D + col) = acc;
+  store(out + (int64_t)s * D + col, acc);
 }
 
-template <typename Idx, int VEC>
-int launch(const float* table, const Idx* ids, const int64_t* offsets,
-           const float* weights, float* out, int S, int D, int64_t V, int H,
+template <typename E, typename Idx, int VEC>
+int launch(const E* table, const Idx* ids, const int64_t* offsets,
+           const float* weights, E* out, int S, int D, int64_t V, int H,
            int mean, cudaStream_t stream) {
   const dim3 grid((S + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (D + 32 * VEC - 1) / (32 * VEC));
   const dim3 block(32 * kWarpsPerBlock);
   const bool fixed = offsets == nullptr;
-  if (fixed && weights)
-    embedding_bag_kernel<Idx, VEC, true, true><<<grid, block, 0, stream>>>(
-        table, ids, offsets, weights, out, S, D, V, H, mean);
-  else if (fixed)
-    embedding_bag_kernel<Idx, VEC, true, false><<<grid, block, 0, stream>>>(
-        table, ids, offsets, weights, out, S, D, V, H, mean);
-  else if (weights)
-    embedding_bag_kernel<Idx, VEC, false, true><<<grid, block, 0, stream>>>(
-        table, ids, offsets, weights, out, S, D, V, H, mean);
-  else
-    embedding_bag_kernel<Idx, VEC, false, false><<<grid, block, 0, stream>>>(
-        table, ids, offsets, weights, out, S, D, V, H, mean);
+  auto kernel = fixed ? (weights ? embedding_bag_kernel<E, Idx, VEC, true, true>
+                                 : embedding_bag_kernel<E, Idx, VEC, true, false>)
+                      : (weights ? embedding_bag_kernel<E, Idx, VEC, false, true>
+                                 : embedding_bag_kernel<E, Idx, VEC, false, false>);
+  kernel<<<grid, block, 0, stream>>>(table, ids, offsets, weights, out, S, D,
+                                     V, H, mean);
   return (int)cudaGetLastError();
 }
 
-template <typename Idx>
-int dispatch_vec(const float* table, const Idx* ids, const int64_t* offsets,
-                 const float* weights, float* out, int S, int D, int64_t V,
+template <typename E, typename Idx>
+int dispatch_vec(const E* table, const Idx* ids, const int64_t* offsets,
+                 const float* weights, E* out, int S, int D, int64_t V,
                  int H, int mean, cudaStream_t stream) {
-  // float4 loads need every row start 16-byte aligned
-  const bool vec4 = D % 4 == 0 && ((uintptr_t)table % 16 == 0) &&
-                    ((uintptr_t)out % 16 == 0);
-  return vec4 ? launch<Idx, 4>(table, ids, offsets, weights, out, S, D, V, H,
-                               mean, stream)
-              : launch<Idx, 1>(table, ids, offsets, weights, out, S, D, V, H,
-                               mean, stream);
+  // 4-column loads need every row start aligned to 4 values
+  const uintptr_t a = 4 * sizeof(E);
+  const bool vec4 = D % 4 == 0 && ((uintptr_t)table % a == 0) &&
+                    ((uintptr_t)out % a == 0);
+  return vec4 ? launch<E, Idx, 4>(table, ids, offsets, weights, out, S, D, V,
+                                  H, mean, stream)
+              : launch<E, Idx, 1>(table, ids, offsets, weights, out, S, D, V,
+                                  H, mean, stream);
+}
+
+template <typename E>
+int dispatch_ids(const E* table, const void* ids, int ids_int64,
+                 const int64_t* offsets, const float* weights, E* out, int S,
+                 int D, int64_t V, int H, int mean, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ids_int64
+             ? dispatch_vec(table, static_cast<const int64_t*>(ids), offsets,
+                            weights, out, S, D, V, H, mean, st)
+             : dispatch_vec(table, static_cast<const int32_t*>(ids), offsets,
+                            weights, out, S, D, V, H, mean, st);
 }
 
 // ---- CSR preparation: a stable counting sort by segment ------------------
@@ -634,16 +684,18 @@ int embedding_bag_f32(const float* table, const void* ids, int ids_int64,
                       const int64_t* offsets, const float* weights,
                       float* out, int S, int D, int64_t V, int H, int mean,
                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ids_int64
-             ? dispatch_vec<int64_t>(table,
-                                     static_cast<const int64_t*>(ids),
-                                     offsets, weights, out, S, D, V, H, mean,
-                                     st)
-             : dispatch_vec<int32_t>(table,
-                                     static_cast<const int32_t*>(ids),
-                                     offsets, weights, out, S, D, V, H, mean,
-                                     st);
+  return dispatch_ids(table, ids, ids_int64, offsets, weights, out, S, D, V,
+                      H, mean, stream);
+}
+
+// The same for a bf16 table and out (fp32 weights, f32 sums, each bag
+// rounded once).
+int embedding_bag_bf16(const __nv_bfloat16* table, const void* ids,
+                       int ids_int64, const int64_t* offsets,
+                       const float* weights, __nv_bfloat16* out, int S, int D,
+                       int64_t V, int H, int mean, void* stream) {
+  return dispatch_ids(table, ids, ids_int64, offsets, weights, out, S, D, V,
+                      H, mean, stream);
 }
 
 // CSR preparation for embedding_bag_f32: segment ids (nnz,) int32

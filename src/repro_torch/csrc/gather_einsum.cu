@@ -1,4 +1,5 @@
-// Gather-aware einsum for Hopper, fp32: einsum(spec, x, table[clamp(idx)])
+// Gather-aware einsum for Hopper, fp32 and bf16:
+// einsum(spec, x, table[clamp(idx)])
 // with the per-row gather folded into the operand load.
 //
 // Replaces the TPU Pallas kernel gather_einsum_kernel
@@ -58,6 +59,16 @@
 // leaves column d's sum in lane d. The order over l is fixed (per lane,
 // then the tree), whatever B. SPEC_ROWS_VEC (on no path): one thread per
 // (row, l), looping over H.
+//
+// bf16 (gather_einsum_bf16): x, table and out in bf16, every product and
+// sum in f32 (the TPU kernel's preferred_element_type), the output rounded
+// once. The same kernels, instantiated for bf16: each operand is widened
+// to fp32 as it is loaded, into the same shared-memory buffers and
+// registers (the staged copies then go through registers instead of
+// cp.async, so a step's loads no longer overlap the step before). The
+// arithmetic and its order are the fp32 kernel's, so a bf16 call gives the
+// fp32 kernel's result on the widened operands, rounded.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,15 +119,68 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// loads of an operand, widened to fp32: 1, 2 or 4 consecutive values (2
+// and 4 aligned to their size)
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
+// copies of an operand into fp32 shared memory: fp32 asynchronously
+// (cp.async), bf16 widened through registers
+__device__ __forceinline__ void stage1(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void stage1(float* dst, const __nv_bfloat16* src) {
+  *dst = ld(src);
+}
+__device__ __forceinline__ void stage4(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src) {
+  *reinterpret_cast<float4*>(dst) = ld4(src);
+}
+
+// stores of an output: fp32 as it is, bf16 rounded once
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 // one staged step of SPEC_Q_T: T[user, l(e), d, h(e)] of the tile's nk
 // users for QT_KC values of d and ntc tiles of QT_COLS columns (slot
 // tc * nk + k),
 // and the rows' x for the same d, copied asynchronously (16 bytes where H
 // is a multiple of 4, so that a quad of columns lies in one l; zeros past
 // D and L*H)
+template <typename T>
 __device__ __forceinline__ void qt_stage(
-    float* sT, float* sX, const float* __restrict__ x,
-    const float* __restrict__ t, const int* sUser, int row0, int nrows,
+    float* sT, float* sX, const T* __restrict__ x,
+    const T* __restrict__ t, const int* sUser, int row0, int nrows,
     int e0, int ntc, int nk, int d0, int D, int H, int LH, int vec_t) {
   for (int i = threadIdx.x; i < ntc * nk * QT_KC * (QT_COLS / 4);
        i += THREADS) {
@@ -125,16 +189,16 @@ __device__ __forceinline__ void qt_stage(
     const int tc = slot / nk, k = slot - tc * nk;
     const int d = d0 + dd, e = e0 + tc * QT_COLS + 4 * q;
     float* dst = sT + (slot * QT_KC + dd) * QT_COLS + 4 * q;
-    const float* tu = t + (size_t)sUser[k] * LH * D;
+    const T* tu = t + (size_t)sUser[k] * LH * D;
     if (vec_t && d < D && e < LH) {
       const int l = e / H, h = e - l * H;
-      cp_async16(dst, tu + ((size_t)l * D + d) * H + h);
+      stage4(dst, tu + ((size_t)l * D + d) * H + h);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int l = (e + j) / H, h = e + j - l * H;
         if (d < D && e + j < LH)
-          cp_async4(dst + j, tu + ((size_t)l * D + d) * H + h);
+          stage1(dst + j, tu + ((size_t)l * D + d) * H + h);
         else
           dst[j] = 0.f;
       }
@@ -143,7 +207,7 @@ __device__ __forceinline__ void qt_stage(
   for (int i = threadIdx.x; i < QT_ROWS * QT_KC; i += THREADS) {
     const int r = i / QT_KC, dd = i - r * QT_KC;
     if (r < nrows && d0 + dd < D)
-      cp_async4(sX + i, x + (size_t)(row0 + r) * D + d0 + dd);
+      stage1(sX + i, x + (size_t)(row0 + r) * D + d0 + dd);
     else
       sX[i] = 0.f;
   }
@@ -168,7 +232,8 @@ __device__ __forceinline__ void qt_fma_row(float* acc, const float* xr,
 // a lane's (QT_KC x 2) slice of T from global memory (L2): columns e, e + 1
 // for d0 .. d0 + QT_KC - 1, zeros past D and L*H (8 bytes where H is a
 // multiple of 4, so that both columns lie in one l)
-__device__ __forceinline__ void qt_load(float2* tv, const float* tu, int e,
+template <typename T>
+__device__ __forceinline__ void qt_load(float2* tv, const T* tu, int e,
                                         int d0, int D, int H, int LH,
                                         int vec_t) {
   const int l0 = e / H, h0 = e - l0 * H;
@@ -178,10 +243,10 @@ __device__ __forceinline__ void qt_load(float2* tv, const float* tu, int e,
     const int d = d0 + dd;
     float2 v = make_float2(0.f, 0.f);
     if (d < D && vec_t && e < LH) {
-      v = *reinterpret_cast<const float2*>(tu + ((size_t)l0 * D + d) * H + h0);
+      v = ld2(tu + ((size_t)l0 * D + d) * H + h0);
     } else if (d < D) {
-      if (e < LH) v.x = tu[((size_t)l0 * D + d) * H + h0];
-      if (e + 1 < LH) v.y = tu[((size_t)l1 * D + d) * H + h1];
+      if (e < LH) v.x = ld(tu + ((size_t)l0 * D + d) * H + h0);
+      if (e + 1 < LH) v.y = ld(tu + ((size_t)l1 * D + d) * H + h1);
     }
     tv[dd] = v;
   }
@@ -190,8 +255,9 @@ __device__ __forceinline__ void qt_load(float2* tv, const float* tu, int e,
 // a warp's 8 rows of one column tile from column c, then acc zeroed: lanes
 // 2m / 2m+1 swap halves so each writes 4 columns of one row (the even lane
 // the warp's row i, the odd lane row i + 1), 16 bytes where aligned
+template <typename T>
 __device__ __forceinline__ void qt_store(float (*acc)[2], const int* rows,
-                                         int nrows, float* out, int LH, int c,
+                                         int nrows, T* out, int LH, int c,
                                          bool vec_out, int lane) {
   const bool odd = lane & 1;
   const int c0 = c + 4 * (lane >> 1);
@@ -205,14 +271,14 @@ __device__ __forceinline__ void qt_store(float (*acc)[2], const int* rows,
                          : make_float4(acc[i][0], acc[i][1], gx, gy);
     const int r = odd ? rows[i + 1] : rows[i];
     if (r < nrows) {
-      float* o = out + (size_t)r * LH + c0;
+      T* o = out + (size_t)r * LH + c0;
       if (vec_out && c0 + 3 < LH) {
-        *reinterpret_cast<float4*>(o) = v;
+        st4(o, v);
       } else {
         const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (c0 + j < LH) o[j] = vs[j];
+          if (c0 + j < LH) st(o + j, vs[j]);
       }
     }
     acc[i][0] = acc[i][1] = acc[i + 1][0] = acc[i + 1][1] = 0.f;
@@ -220,9 +286,10 @@ __device__ __forceinline__ void qt_store(float (*acc)[2], const int* rows,
 }
 
 // out[b, l, h] = sum_d x[b, d] * t[u_b, l, d, h]
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-q_t_kernel(const float* __restrict__ x, const float* __restrict__ t,
-           const int* __restrict__ idx, float* __restrict__ out, int B,
+q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
+           const int* __restrict__ idx, T* __restrict__ out, int B,
            int U, int L, int D, int H, int vec_t, int vec_out) {
   // two buffers of (QT_SLOTS x QT_KC x QT_COLS) T and (QT_ROWS x QT_KC) x
   extern __shared__ __align__(16) float smem[];
@@ -324,7 +391,7 @@ q_t_kernel(const float* __restrict__ x, const float* __restrict__ t,
           for (int i = tid; i < QT_ROWS * QT_KC; i += THREADS) {
             const int r = i / QT_KC, dd = i - r * QT_KC;
             sX[i] = r < nrows && d0 + dd < D
-                        ? x[(size_t)(row0 + r) * D + d0 + dd] : 0.f;
+                        ? ld(x + (size_t)(row0 + r) * D + d0 + dd) : 0.f;
           }
           __syncthreads();
         }
@@ -440,9 +507,10 @@ __device__ __forceinline__ void scatter_half(float* acc, int lane) {
 }
 
 // out[b, d] = sum_l w[b, l] * t[u_b, l, d]
+template <typename T>
 __global__ void __launch_bounds__(32 * WK_WARPS)
-w_keys_kernel(const float* __restrict__ x, const float* __restrict__ t,
-              const int* __restrict__ idx, float* __restrict__ out, int B,
+w_keys_kernel(const T* __restrict__ x, const T* __restrict__ t,
+              const int* __restrict__ idx, T* __restrict__ out, int B,
               int U, int L, int D) {
   // per warp, two buffers of 32 key rows of up to 32 columns and their 32
   // weights; the unguarded sums of the last row read into the weights,
@@ -452,27 +520,28 @@ w_keys_kernel(const float* __restrict__ x, const float* __restrict__ t,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int b = blockIdx.x * WK_WARPS + warp; b < B;
        b += gridDim.x * WK_WARPS) {
-    const float* xr = x + (size_t)b * L;
-    const float* tu = t + (size_t)clamp_slot(idx[b], U) * L * D;
+    const T* xr = x + (size_t)b * L;
+    const T* tu = t + (size_t)clamp_slot(idx[b], U) * L * D;
     for (int d0 = 0; d0 < D; d0 += WK_D) {
       const int nd = min(WK_D, D - d0);
-      // chunk c's keys and weights, copied asynchronously: 16 bytes where
-      // the chunk is one aligned run (D <= 32 and 4 | 32 * D)
+      // chunk c's keys and weights, copied asynchronously (bf16: widened
+      // through registers): 4 values at once where the chunk is one
+      // aligned run (D <= 32 and 4 | 32 * D)
       auto stage = [&](int c) {
         float* sk = sbuf[warp][c & 1];
         const int l0 = c * 32, nl = min(32, L - l0), n = nl * nd;
-        const float* src = tu + (size_t)l0 * D + d0;
+        const T* src = tu + (size_t)l0 * D + d0;
         if (nd == D && n % 4 == 0 &&
-            (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+            (reinterpret_cast<uintptr_t>(src) & (4 * sizeof(T) - 1)) == 0) {
           for (int i = lane; i < n / 4; i += 32)
-            cp_async16(sk + 4 * i, src + 4 * i);
+            stage4(sk + 4 * i, src + 4 * i);
         } else {
           for (int i = lane; i < n; i += 32) {
             const int l = i / nd;
-            cp_async4(sk + i, src + (size_t)l * D + (i - l * nd));
+            stage1(sk + i, src + (size_t)l * D + (i - l * nd));
           }
         }
-        if (lane < nl) cp_async4(sk + 32 * WK_D + lane, xr + l0 + lane);
+        if (lane < nl) stage1(sk + 32 * WK_D + lane, xr + l0 + lane);
         cp_async_commit();
       };
       float acc[WK_D];
@@ -508,25 +577,26 @@ w_keys_kernel(const float* __restrict__ x, const float* __restrict__ t,
       scatter_half<4>(acc, lane);
       scatter_half<2>(acc, lane);
       scatter_half<1>(acc, lane);
-      if (lane < nd) out[(size_t)b * D + d0 + lane] = acc[0];
+      if (lane < nd) st(out + (size_t)b * D + d0 + lane, acc[0]);
     }
   }
 }
 
 // out[b, l] = sum_h x[b, l, h] * t[u_b, h]
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-rows_vec_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                const int* __restrict__ idx, float* __restrict__ out,
+rows_vec_kernel(const T* __restrict__ x, const T* __restrict__ t,
+                const int* __restrict__ idx, T* __restrict__ out,
                 int B, int U, int L, int H) {
   const size_t n = (size_t)B * L;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     const int b = (int)(e / L);
-    const float* xp = x + e * H;
-    const float* tp = t + (size_t)clamp_slot(idx[b], U) * H;
+    const T* xp = x + e * H;
+    const T* tp = t + (size_t)clamp_slot(idx[b], U) * H;
     float acc = 0.f;
-    for (int h = 0; h < H; ++h) acc = fmaf(xp[h], tp[h], acc);
-    out[e] = acc;
+    for (int h = 0; h < H; ++h) acc = fmaf(ld(xp + h), ld(tp + h), acc);
+    st(out + e, acc);
   }
 }
 
@@ -535,8 +605,48 @@ int grid_1d(size_t n, int per_block) {
   return (int)(blocks < 1048576 ? blocks : 1048576);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+// whether p starts a run of 4 values of T (16 bytes of fp32, 8 of bf16)
+template <typename T>
+bool aligned4(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+}
+
+template <typename T>
+int run(int spec, const T* x, const T* t, const int* idx, T* out, int B,
+        int U, int d1, int d2, int d3, void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (spec) {
+    case SPEC_Q_T: {
+      const int L = d1, D = d2, H = d3;
+      const int LH = L * H;
+      const int row_tiles = (B + QT_ROWS - 1) / QT_ROWS;
+      const int span = QT_COLS * QT_TILES;
+      if (row_tiles > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+      const size_t smem = 2 * sizeof(float) *
+                          (QT_SLOTS * QT_KC * QT_COLS + QT_ROWS * QT_KC);
+      cudaError_t e = cudaFuncSetAttribute(
+          q_t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      const dim3 grid((LH + span - 1) / span, row_tiles);
+      q_t_kernel<T><<<grid, THREADS, smem, s>>>(
+          x, t, idx, out, B, U, L, D, H, H % 4 == 0 && aligned4(t),
+          LH % 4 == 0 && aligned4(out));
+      break;
+    }
+    case SPEC_W_KEYS:
+      w_keys_kernel<T><<<grid_1d((size_t)B, WK_WARPS), 32 * WK_WARPS, 0, s>>>(
+          x, t, idx, out, B, U, d1, d2);
+      break;
+    case SPEC_ROWS_VEC:
+      rows_vec_kernel<T><<<grid_1d((size_t)B * d2, THREADS), THREADS, 0, s>>>(
+          x, t, idx, out, B, U, d2, d1);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -551,38 +661,16 @@ extern "C" {
 int gather_einsum_f32(int spec, const float* x, const float* t,
                       const int* idx, float* out, int B, int U, int d1,
                       int d2, int d3, void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (spec) {
-    case SPEC_Q_T: {
-      const int L = d1, D = d2, H = d3;
-      const int LH = L * H;
-      const int row_tiles = (B + QT_ROWS - 1) / QT_ROWS;
-      const int span = QT_COLS * QT_TILES;
-      if (row_tiles > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-      const size_t smem = 2 * sizeof(float) *
-                          (QT_SLOTS * QT_KC * QT_COLS + QT_ROWS * QT_KC);
-      cudaError_t e = cudaFuncSetAttribute(
-          q_t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      const dim3 grid((LH + span - 1) / span, row_tiles);
-      q_t_kernel<<<grid, THREADS, smem, s>>>(
-          x, t, idx, out, B, U, L, D, H, H % 4 == 0 && aligned16(t),
-          LH % 4 == 0 && aligned16(out));
-      break;
-    }
-    case SPEC_W_KEYS:
-      w_keys_kernel<<<grid_1d((size_t)B, WK_WARPS), 32 * WK_WARPS, 0, s>>>(
-          x, t, idx, out, B, U, d1, d2);
-      break;
-    case SPEC_ROWS_VEC:
-      rows_vec_kernel<<<grid_1d((size_t)B * d2, THREADS), THREADS, 0, s>>>(
-          x, t, idx, out, B, U, d2, d1);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return run(spec, x, t, idx, out, B, U, d1, d2, d3, stream);
+}
+
+// The same for bf16 x / table / out (f32 products and sums, out rounded
+// once).
+int gather_einsum_bf16(int spec, const __nv_bfloat16* x,
+                       const __nv_bfloat16* t, const int* idx,
+                       __nv_bfloat16* out, int B, int U, int d1, int d2,
+                       int d3, void* stream) {
+  return run(spec, x, t, idx, out, B, U, d1, d2, d3, stream);
 }
 
 const char* repro_error_string(int e) {

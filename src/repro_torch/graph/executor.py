@@ -493,15 +493,16 @@ class Executor:
         if not (n.attrs.get("decomposed") and "w_kd" in p["layer_0"]):
             # one (L, D) key block for the whole batch (the single-call UOI
             # / MaRI executor; VanI tiles it and serving gathers it per
-            # row) through a three-layer unit: the fused kernel, if it fits
+            # row) through a three-layer unit with biases: the fused
+            # kernel, at any history length (on CUDA it raises on a unit
+            # wider than its register tiles)
             if (self.use_pallas and keys.shape[0] == 1 and mask.shape[0] == 1
                     and nlayers == 3
                     and all("b" in p[f"layer_{li}"] for li in range(3))):
-                args = (q, keys[0], mask[0],
-                        *(p[f"layer_{li}"][k] for li in range(3)
-                          for k in ("w", "b")))
-                if din_kernel.fits(*args):
-                    return din_kernel.din_attention(*args)
+                return din_kernel.din_attention(
+                    q, keys[0], mask[0], *(p[f"layer_{li}"][k]
+                                           for li in range(3)
+                                           for k in ("w", "b")))
 
             def mlp_apply(x):
                 for li in range(nlayers):

@@ -4,7 +4,9 @@
 
 Each kernel module holds the wrapper (CPU tensor -> plain PyTorch version;
 CUDA tensor -> the kernel, or an error), the plain version, and a
-``LAUNCHES`` count of kernel launches. No kernel has a backward: on a CUDA
+``LAUNCHES`` count of kernel launches. Every kernel takes fp32 or bf16
+tensors of one dtype (bf16: f32 products and sums, the output rounded
+once, as the TPU kernels), counted under ``.../bf16``. No kernel has a backward: on a CUDA
 tensor each wrapper raises when grad mode is on and an input requires
 grad."""
 

@@ -95,19 +95,31 @@ def build_all(names=SOURCES, defines=()) -> dict[str, Path]:
     return paths
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
+def load(name: str, defines=(), signatures=None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
-    building it if needed. Every source exports ``repro_error_string(int)``
-    beside its launchers."""
+    building it if needed, with ``signatures`` bound (``bind``). Every
+    source exports ``repro_error_string(int)`` beside its launchers."""
     key = (name, tuple(defines))
     with _lock:
         lib = _loaded.get(key)
         if lib is None:
             lib = ctypes.CDLL(str(build_all((name,), defines)[name]))
-            lib.repro_error_string.argtypes = [ctypes.c_int]
-            lib.repro_error_string.restype = ctypes.c_char_p
+            bind(lib, {"repro_error_string": ([ctypes.c_int],
+                                              ctypes.c_char_p)})
             _loaded[key] = lib
+        if signatures:
+            bind(lib, signatures)
         return lib
+
+
+def bind(lib: ctypes.CDLL, signatures) -> None:
+    """Set ``argtypes`` / ``restype`` of each exported function named in
+    ``signatures`` (name -> (argtypes, restype)) that has none yet: a
+    pointer or stream as ``c_void_p``, never the default 32-bit int."""
+    for fn, (argtypes, restype) in signatures.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes, f.restype = list(argtypes), restype
 
 
 _recording = threading.local()
@@ -158,6 +170,23 @@ def refuse_autograd(what: str, *tensors) -> None:
             f"{what}: the CUDA kernel has no backward, and an input "
             f"requires grad; run under torch.no_grad() / "
             f"torch.inference_mode(), or with use_pallas=False to train")
+
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def one_dtype(what: str, **tensors) -> torch.dtype:
+    """The one dtype of ``tensors`` (None skipped), float32 or bfloat16;
+    ``TypeError`` on a mix or on another type, as the kernels take either
+    type throughout (accumulating in f32) and nothing in between."""
+    dts = {n: t.dtype for n, t in tensors.items() if t is not None}
+    kinds = set(dts.values())
+    if len(kinds) != 1 or next(iter(kinds)) not in KERNEL_DTYPES:
+        got = ", ".join(f"{n} {str(d).removeprefix('torch.')}"
+                        for n, d in dts.items())
+        raise TypeError(f"{what} CUDA kernel takes float32 or bfloat16 "
+                        f"tensors of one dtype, got {got}")
+    return kinds.pop()
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

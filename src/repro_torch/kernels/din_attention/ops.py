@@ -6,9 +6,12 @@ wrapper and its plain PyTorch version (port of
 (B, D), keys (L, D) shared by every row, mask (L,) and the unit's MLP
 4D -> h1 -> h2 -> 1, and returns the (B, D) pooled interest. A CPU tensor
 goes to ``din_attention_plain``; a CUDA tensor launches
-``csrc/din_attention.cu`` or raises. The reference's batch padding to a
-multiple of its tile is gone: the kernel guards its last rows.
-``LAUNCHES`` counts kernel launches.
+``csrc/din_attention.cu`` (fp32 or bf16, any history length L) or
+raises: a unit wider than the kernel's register tiles (D > 64, h1 > 128,
+h2 > 64) is refused, never sent to the plain version. The reference's
+batch padding to a multiple of its tile is gone: the kernel guards its
+last rows. ``LAUNCHES`` counts kernel launches (fp32 under
+``shared_keys``, bf16 under ``bf16``).
 """
 from __future__ import annotations
 
@@ -23,9 +26,7 @@ from repro_torch.nn.attention import NEG_INF
 Tensor = torch.Tensor
 
 # kernel launches (one per launch, counted nowhere else)
-LAUNCHES = {"shared_keys": 0}
-
-MAX_SMEM_BYTES = 232448          # a Hopper block's dynamic shared memory
+LAUNCHES = {"shared_keys": 0, "bf16": 0}
 
 
 def reset_launches() -> None:
@@ -50,62 +51,41 @@ def _shape_error(query, keys, mask, w1, b1, w2, b2, w3, b3) -> str | None:
             f"form a 4D -> h1 -> h2 -> 1 unit")
 
 
-def _limit_error(L: int, D: int, h1: int, h2: int) -> str | None:
-    """Why the kernel cannot take a unit of these widths, or None. The
-    kernel's source decides its shared-memory layout and register tiles."""
-    need = _lib().din_attention_smem_bytes(L, D, h1, h2)
-    if 0 < need <= MAX_SMEM_BYTES:
-        return None
-    why = ("L, D, h1, h2 must be positive and D, h1, h2 within its "
-           "register tiles (D <= 64, h1 <= 128, h2 <= 64)" if need < 0 else
-           f"it would stage {need} bytes of shared memory, a block holds "
-           f"{MAX_SMEM_BYTES}")
-    return (f"din_attention kernel cannot take h1={h1}, h2={h2}, L={L}, "
-            f"D={D}: {why}")
-
-
-def fits(query: Tensor, keys: Tensor, mask: Tensor, w1: Tensor, b1: Tensor,
-         w2: Tensor, b2: Tensor, w3: Tensor, b3: Tensor) -> bool:
-    """Whether ``din_attention`` takes these arguments: one 4D -> h1 -> h2
-    -> 1 unit over a shared (L, D) key block and, on CUDA tensors, within
-    the kernel's register tiles and a block's shared memory (the plain
-    version, which CPU tensors take, has no limits)."""
-    args = (query, keys, mask, w1, b1, w2, b2, w3, b3)
-    if _shape_error(*args) is not None:
-        return False
-    return query.device.type != "cuda" or _limit_error(
-        keys.shape[0], keys.shape[1], w1.shape[1], w2.shape[1]) is None
-
-
 def din_attention_plain(query: Tensor, keys: Tensor, mask: Tensor,
                         w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                         w3: Tensor, b3: Tensor) -> Tensor:
     """Plain PyTorch version (the reference's ``din_attention_ref``): it
-    materializes the (B, L, 4D) feature block."""
+    materializes the (B, L, 4D) feature block. In bf16 it keeps the TPU
+    kernel's numerics: the features formed in bf16, every product of bf16
+    operands accumulated and kept in f32, p rounded to bf16 for the pool,
+    the output rounded once (fp32 inputs: plain fp32 throughout)."""
     B, D = query.shape
     L = keys.shape[0]
     k = keys[None].expand(B, L, D)
     q = query[:, None, :].expand(B, L, D)
     feats = torch.cat([k, q, k - q, k * q], dim=-1)
-    h = torch.relu(feats @ w1 + b1)
-    h = torch.relu(h @ w2 + b2)
-    scores = (h @ w3 + b3)[..., 0]
+    h = torch.relu(feats.float() @ w1.float() + b1.float())
+    h = torch.relu(h @ w2.float() + b2.float())
+    scores = (h @ w3.float() + b3.float())[..., 0]
     scores = torch.where(mask[None, :].bool(), scores,
                          torch.full_like(scores, NEG_INF))
-    w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bl,ld->bd", w, keys)
+    w = torch.softmax(scores, dim=-1).to(keys.dtype)
+    return torch.einsum("bl,ld->bd", w.float(), keys.float()).to(query.dtype)
+
+
+_UNIT = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIGNATURES = {
+    "din_attention_f32": (_UNIT, ctypes.c_int),
+    "din_attention_bf16": (_UNIT, ctypes.c_int),
+    "din_attention_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_long),
+    "din_attention_chunk_keys": ([ctypes.c_int] * 3, ctypes.c_int),
+    "din_attention_max_widths": ([ctypes.c_void_p], ctypes.c_int),
+}
 
 
 def _lib(defines=()) -> ctypes.CDLL:
     """The kernel's library; ``defines`` name a variant build (``build``)."""
-    lib = build.load("din_attention", defines)
-    if lib.din_attention_f32.argtypes is None:
-        lib.din_attention_f32.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.din_attention_f32.restype = ctypes.c_int
-        lib.din_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.din_attention_smem_bytes.restype = ctypes.c_long
-    return lib
+    return build.load("din_attention", defines, _SIGNATURES)
 
 
 def _launch(query, keys, mask, w1, b1, w2, b2, w3, b3) -> Tensor:
@@ -115,31 +95,36 @@ def _launch(query, keys, mask, w1, b1, w2, b2, w3, b3) -> Tensor:
         if t.device != query.device:
             raise ValueError(f"din_attention: an input on {t.device}, query "
                              f"on {query.device}")
-    for t in (query, keys) + weights:
-        if t.dtype != torch.float32:
-            raise TypeError(f"din_attention CUDA kernel takes float32 only, "
-                            f"got {t.dtype} (bf16 is not ported yet)")
+    dtype = build.one_dtype("din_attention", query=query, keys=keys, w1=w1,
+                            b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
     B, D = query.shape
     L = keys.shape[0]
     h1, h2 = w1.shape[1], w2.shape[1]
-    err = _limit_error(L, D, h1, h2)
-    if err:
-        raise ValueError(err)
-    out = torch.empty((B, D), dtype=torch.float32, device=query.device)
+    lib = _lib()
+    if D > 0 and lib.din_attention_chunk_keys(D, h1, h2) < 0:
+        most = (ctypes.c_int * 3)()
+        lib.din_attention_max_widths(most)
+        raise ValueError(f"din_attention kernel cannot take D={D}, h1={h1}, "
+                         f"h2={h2}: beyond its register tiles (D <= "
+                         f"{most[0]}, h1 <= {most[1]}, h2 <= {most[2]})")
+    out = torch.empty((B, D), dtype=dtype, device=query.device)
     if B == 0:
         return out                        # nothing to launch
+    if L == 0 or D == 0:
+        raise ValueError(f"din_attention: an empty unit (L={L}, D={D})")
     query, keys = query.contiguous(), keys.contiguous()
     weights = tuple(t.contiguous() for t in weights)
     mask_i = mask.to(torch.int32).contiguous()
-    lib = _lib()
+    entry = (lib.din_attention_f32 if dtype == torch.float32
+             else lib.din_attention_bf16)
     with torch.cuda.device(query.device):    # launch in the tensors' context
-        rc = lib.din_attention_f32(
-            query.data_ptr(), keys.data_ptr(), mask_i.data_ptr(),
-            *(t.data_ptr() for t in weights), out.data_ptr(),
-            B, L, D, h1, h2,
-            torch.cuda.current_stream(query.device).cuda_stream)
+        rc = entry(query.data_ptr(), keys.data_ptr(), mask_i.data_ptr(),
+                   *(t.data_ptr() for t in weights), out.data_ptr(),
+                   B, L, D, h1, h2,
+                   torch.cuda.current_stream(query.device).cuda_stream)
     build.check(lib, rc, "din_attention")
-    build.count_launch(LAUNCHES, "shared_keys")
+    build.count_launch(LAUNCHES, "shared_keys" if dtype == torch.float32
+                       else "bf16")
     return out
 
 

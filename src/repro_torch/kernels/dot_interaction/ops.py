@@ -9,9 +9,11 @@ upper triangle of each row's F x F gram, in ``torch.triu_indices`` order
 multiple of its tile is gone: persistent blocks walk the rows, a producer
 warp copying them into shared-memory slots while consumer warps compute
 earlier ones, a lane per 4 x 4 tile of the gram. ``copy_route`` picks the
-kernel's instance: one TMA copy per row where x is 16-byte aligned,
-D % 32 == 0 and F <= 256, 4-byte ``cp.async`` otherwise. ``LAUNCHES``
-counts kernel launches per triangle variant.
+kernel's instance: for fp32 one TMA copy per row where x is 16-byte
+aligned, D % 32 == 0 and F <= 256, 4-byte ``cp.async`` otherwise; bf16 x
+(f32 products and sums, the output in bf16) is widened to fp32 by the
+producer as it copies. ``LAUNCHES`` counts kernel launches per triangle
+variant in fp32, and every bf16 launch under ``bf16``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ Tensor = torch.Tensor
 
 VARIANTS = ("triu", "triu_keep_self")
 # kernel launches per variant (one per launch, counted nowhere else)
-LAUNCHES = dict.fromkeys(VARIANTS, 0)
+LAUNCHES = dict.fromkeys(VARIANTS + ("bf16",), 0)
 
 MAX_SMEM_BYTES = 232448          # a Hopper block's dynamic shared memory
 
@@ -59,10 +61,13 @@ def smem_bytes(f: int, d: int, keep_self: bool = False, consumers: int = 1,
 
 
 def copy_route(x: Tensor) -> str:
-    """The kernel instance x takes: ``"tma"`` (one TMA copy per row, with
-    the 128-byte swizzle) where D % 32 == 0, F <= 256 and x starts 16-byte
-    aligned, else ``"cp.async"`` (4-byte copies into the same layout)."""
+    """The kernel instance x takes: for fp32 ``"tma"`` (one TMA copy per
+    row, with the 128-byte swizzle) where D % 32 == 0, F <= 256 and x
+    starts 16-byte aligned, else ``"cp.async"`` (4-byte copies into the
+    same layout); for bf16 ``"widen"`` (the producer's loads, widened)."""
     _, f, d = x.shape
+    if x.dtype == torch.bfloat16:
+        return "widen"
     aligned = d % 32 == 0 and f <= 256 and x.data_ptr() % 16 == 0
     return "tma" if aligned else "cp.async"
 
@@ -76,20 +81,21 @@ def dot_interaction_plain(x: Tensor, keep_self: bool = False) -> Tensor:
     return z[..., iu, ju]
 
 
+_SIGNATURES = {
+    "dot_interaction_f32": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                            + [ctypes.c_void_p], ctypes.c_int),
+    "dot_interaction_bf16": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p], ctypes.c_int),
+}
+
+
 def _lib(defines=()) -> ctypes.CDLL:
-    lib = build.load("dot_interaction", defines)
-    if lib.dot_interaction_f32.argtypes is None:
-        lib.dot_interaction_f32.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.dot_interaction_f32.restype = ctypes.c_int
-    return lib
+    return build.load("dot_interaction", defines, _SIGNATURES)
 
 
 def _launch(x: Tensor, keep_self: bool) -> Tensor:
     build.refuse_autograd("dot_interaction", x)
-    if x.dtype != torch.float32:
-        raise TypeError(f"dot_interaction CUDA kernel takes float32 only, "
-                        f"x is {x.dtype} (bf16 is not ported yet)")
+    dtype = build.one_dtype("dot_interaction", x=x)
     B, F, D = x.shape
     need = smem_bytes(F, D, keep_self)
     if need > MAX_SMEM_BYTES:
@@ -97,7 +103,7 @@ def _launch(x: Tensor, keep_self: bool) -> Tensor:
                          f"needs {need} bytes of shared memory, more than "
                          f"a block's {MAX_SMEM_BYTES}")
     P = n_pairs(F, keep_self)
-    out = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, P), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out                        # nothing to launch
     if D == 0:
@@ -105,13 +111,18 @@ def _launch(x: Tensor, keep_self: bool) -> Tensor:
     # stack_features' output may be a view over expanded inputs
     x = x.contiguous()
     lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):    # launch in the tensor's context
-        rc = lib.dot_interaction_f32(
-            x.data_ptr(), out.data_ptr(), B, F, D, int(keep_self),
-            int(copy_route(x) == "tma"),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if dtype == torch.float32:
+            rc = lib.dot_interaction_f32(
+                x.data_ptr(), out.data_ptr(), B, F, D, int(keep_self),
+                int(copy_route(x) == "tma"), stream)
+        else:
+            rc = lib.dot_interaction_bf16(x.data_ptr(), out.data_ptr(), B, F,
+                                          D, int(keep_self), stream)
     build.check(lib, rc, "dot_interaction")
-    build.count_launch(LAUNCHES, VARIANTS[int(keep_self)])
+    build.count_launch(LAUNCHES, VARIANTS[int(keep_self)]
+                       if dtype == torch.float32 else "bf16")
     return out
 
 

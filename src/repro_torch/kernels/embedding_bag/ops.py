@@ -25,7 +25,9 @@ the same in the kernel and the plain versions: ids outside ``[0, V)``
 clamp to ``[0, V - 1]`` (no id ever reads outside the table), and
 segment ids outside ``[0, num_segments)`` are dropped, as
 ``jax.ops.segment_sum`` drops them. Ids may be int32 (the reference's
-type) or int64. ``LAUNCHES`` counts kernel launches per entry.
+type) or int64. The table (and the output) may be fp32 or bf16 (summed
+in f32, each bag rounded once); per-id weights stay fp32. ``LAUNCHES``
+counts kernel launches per entry, bf16 under ``<entry>/bf16``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ Tensor = torch.Tensor
 VARIANTS = ("csr", "fixed")
 COMBINERS = ("sum", "mean")
 # kernel launches per entry (one per launch, counted nowhere else)
-LAUNCHES = dict.fromkeys(VARIANTS, 0)
+LAUNCHES = dict.fromkeys(VARIANTS + tuple(f"{v}/bf16" for v in VARIANTS), 0)
 CSR_TILE = 4096                 # segment ids per tile of the counting sort
 CSR_MAX_SCRATCH = 1 << 22       # bound on tiles * (S + 1) int32 counts
 
@@ -65,36 +67,40 @@ def embedding_bag_plain(table: Tensor, ids: Tensor, segment_ids: Tensor,
                         num_segments: int, combiner: str = "sum",
                         weights: Tensor | None = None) -> Tensor:
     """Plain PyTorch version: gather the rows, weight them, ``index_add_``
-    them into their segments."""
+    them into their segments, in f32 (a bf16 table's bags rounded once,
+    as the kernel's)."""
     _check_combiner(combiner)
     keep = (segment_ids >= 0) & (segment_ids < num_segments)
     seg = segment_ids[keep].long()
     rows = torch.index_select(table, 0,
-                              _clamp_ids(ids[keep], table.shape[0]))
+                              _clamp_ids(ids[keep], table.shape[0])).float()
     if weights is not None:
         rows = rows * weights[keep][:, None]
-    out = table.new_zeros((num_segments, table.shape[1]))
+    out = rows.new_zeros((num_segments, table.shape[1]))
     out.index_add_(0, seg, rows)
     if combiner == "mean":
-        counts = table.new_zeros((num_segments,)).index_add_(
-            0, seg, table.new_ones(seg.shape))
+        counts = rows.new_zeros((num_segments,)).index_add_(
+            0, seg, rows.new_ones(seg.shape))
         out = out / counts.clamp(min=1.0)[:, None]
-    return out
+    return out.to(table.dtype)
 
 
 def embedding_bag_fixed_plain(table: Tensor, ids: Tensor,
                               combiner: str = "sum",
                               weights: Tensor | None = None) -> Tensor:
     """Plain PyTorch version of the fixed-hotness entry: ids (B, H) ->
-    (B, D), the H rows of each bag summed (or averaged)."""
+    (B, D), the H rows of each bag summed (or averaged) in f32 (a bf16
+    table's bags rounded once, as the kernel's)."""
     _check_combiner(combiner)
     B, H = ids.shape
     rows = torch.index_select(table, 0, _clamp_ids(ids, table.shape[0])
                               .reshape(-1)).reshape(B, H, table.shape[1])
+    rows = rows.float()
     if weights is not None:
         rows = rows * weights[..., None]
     out = rows.sum(dim=1)
-    return out / max(H, 1) if combiner == "mean" else out
+    out = out / max(H, 1) if combiner == "mean" else out
+    return out.to(table.dtype)
 
 
 def csr_plan(nnz: int, num_segments: int) -> tuple[int, int]:
@@ -124,20 +130,21 @@ def csr_prep_plain(segment_ids: Tensor, num_segments: int
     return order, offsets
 
 
+_BAG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_SIGNATURES = {
+    "embedding_bag_f32": (_BAG, ctypes.c_int),
+    "embedding_bag_bf16": (_BAG, ctypes.c_int),
+    "embedding_bag_csr_prep": (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 5, ctypes.c_int),
+}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load("embedding_bag")
-    if lib.embedding_bag_f32.argtypes is None:
-        lib.embedding_bag_f32.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-            + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.embedding_bag_f32.restype = ctypes.c_int
-        lib.embedding_bag_csr_prep.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 5)
-        lib.embedding_bag_csr_prep.restype = ctypes.c_int
-    return lib
+    return build.load("embedding_bag", (), _SIGNATURES)
 
 
 def csr_prep(segment_ids: Tensor, ids: Tensor, weights: Tensor | None,
@@ -181,10 +188,10 @@ def csr_prep(segment_ids: Tensor, ids: Tensor, weights: Tensor | None,
 def _check_launch(table: Tensor, ids: Tensor, weights: Tensor | None,
                   offsets: Tensor | None = None) -> None:
     build.refuse_autograd("embedding_bag", table, weights)
-    if table.dtype != torch.float32 or (
-            weights is not None and weights.dtype != torch.float32):
-        raise TypeError(f"embedding_bag CUDA kernel takes float32 only, "
-                        f"table is {table.dtype}")
+    build.one_dtype("embedding_bag", table=table)
+    if weights is not None and weights.dtype != torch.float32:
+        raise TypeError(f"embedding_bag CUDA kernel takes float32 weights, "
+                        f"got {weights.dtype}")
     if ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"embedding_bag ids must be int32 or int64, got "
                         f"{ids.dtype}")
@@ -200,7 +207,7 @@ def _launch(variant: str, table: Tensor, ids: Tensor,
             H: int, combiner: str) -> Tensor:
     _check_launch(table, ids, weights, offsets)
     V, D = table.shape
-    out = torch.empty((S, D), dtype=torch.float32, device=table.device)
+    out = torch.empty((S, D), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out                        # nothing to launch
     if V == 0:
@@ -209,15 +216,17 @@ def _launch(variant: str, table: Tensor, ids: Tensor,
     ids = ids.contiguous()
     weights = weights.contiguous() if weights is not None else None
     lib = _lib()
+    bf16 = table.dtype == torch.bfloat16
+    entry = lib.embedding_bag_bf16 if bf16 else lib.embedding_bag_f32
     with torch.cuda.device(table.device):   # launch in the tensor's context
-        rc = lib.embedding_bag_f32(
+        rc = entry(
             table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
             offsets.data_ptr() if offsets is not None else None,
             weights.data_ptr() if weights is not None else None,
             out.data_ptr(), S, D, V, H, int(combiner == "mean"),
             torch.cuda.current_stream(table.device).cuda_stream)
     build.check(lib, rc, "embedding_bag")
-    build.count_launch(LAUNCHES, variant)
+    build.count_launch(LAUNCHES, f"{variant}/bf16" if bf16 else variant)
     return out
 
 

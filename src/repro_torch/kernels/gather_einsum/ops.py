@@ -6,9 +6,10 @@ version, and ``parse_spec`` (port of ``repro.kernels.gather_einsum``).
 ``"b...,u...->b..."``. A CPU tensor goes to ``gather_einsum_plain`` (any
 spec ``parse_spec`` accepts). A CUDA tensor launches
 ``csrc/gather_einsum.cu`` for the three ``KERNEL_SPECS`` — the gathered
-``(B, ...)`` operand never materializes — and raises
-``NotImplementedError`` for any other spec. ``LAUNCHES`` counts kernel
-launches per spec.
+``(B, ...)`` operand never materializes — in fp32 or bf16 (f32 products
+and sums, the output in bf16), and raises ``NotImplementedError`` for any
+other spec. ``LAUNCHES`` counts kernel launches per spec, fp32 under the
+spec and bf16 under ``<spec>/bf16``.
 
 Index contract (shared with ``mari_matmul``'s gather init): ``user_index``
 is ``(B,)`` integer, row ``b`` reads ``table[user_index[b]]``, and
@@ -30,7 +31,8 @@ Tensor = torch.Tensor
 KERNEL_SPECS = ("bd,uldh->blh", "bl,uld->bd", "blh,uh->bl")
 
 # kernel launches per spec (one per launch, counted nowhere else)
-LAUNCHES = dict.fromkeys(KERNEL_SPECS, 0)
+LAUNCHES = dict.fromkeys(KERNEL_SPECS
+                         + tuple(f"{s}/bf16" for s in KERNEL_SPECS), 0)
 
 
 def reset_launches() -> None:
@@ -96,15 +98,13 @@ def gather_einsum_plain(spec: str, x: Tensor, table: Tensor,
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+_SIGNATURES = {"gather_einsum_f32": (_ARGTYPES, ctypes.c_int),
+               "gather_einsum_bf16": (_ARGTYPES, ctypes.c_int)}
 
 
 def _lib(defines=()) -> ctypes.CDLL:
     """The kernel's library; ``defines`` name a variant build (``build``)."""
-    lib = build.load("gather_einsum", defines)
-    if lib.gather_einsum_f32.argtypes is None:
-        lib.gather_einsum_f32.argtypes = _ARGTYPES
-        lib.gather_einsum_f32.restype = ctypes.c_int
-    return lib
+    return build.load("gather_einsum", defines, _SIGNATURES)
 
 
 def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
@@ -118,25 +118,24 @@ def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
         if t.device != x.device:
             raise ValueError(f"gather_einsum: {name} on {t.device}, x on "
                              f"{x.device}")
-    if x.dtype != torch.float32 or table.dtype != torch.float32:
-        raise TypeError(f"gather_einsum CUDA kernel takes float32 only, got "
-                        f"{x.dtype} / {table.dtype}")
+    dtype = build.one_dtype("gather_einsum", x=x, table=table)
     x, table = x.contiguous(), table.contiguous()
     idx = user_index.to(torch.int32).contiguous()
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(shape, dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out                        # nothing to launch
     dims = list(table.shape[1:]) + [0] * (4 - table.ndim)
     if spec == "blh,uh->bl":
         dims[1] = x.shape[1]            # the kernel also needs L
     lib = _lib()
+    bf16 = dtype == torch.bfloat16
+    entry = lib.gather_einsum_bf16 if bf16 else lib.gather_einsum_f32
     with torch.cuda.device(x.device):    # launch in the tensors' context
-        rc = lib.gather_einsum_f32(
-            KERNEL_SPECS.index(spec), x.data_ptr(), table.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), x.shape[0], table.shape[0],
-            *dims, torch.cuda.current_stream(x.device).cuda_stream)
+        rc = entry(KERNEL_SPECS.index(spec), x.data_ptr(), table.data_ptr(),
+                   idx.data_ptr(), out.data_ptr(), x.shape[0], table.shape[0],
+                   *dims, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, f"gather_einsum {spec!r}")
-    build.count_launch(LAUNCHES, spec)
+    build.count_launch(LAUNCHES, f"{spec}/bf16" if bf16 else spec)
     return out
 
 

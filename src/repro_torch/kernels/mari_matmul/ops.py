@@ -260,15 +260,13 @@ _ENCODE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                     + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2)
 
 
+_SIGNATURES = {"mari_matmul_f32": (_ARGTYPES, ctypes.c_int),
+               "mari_matmul_bf16": (_ARGTYPES, ctypes.c_int),
+               "mari_encode_map": (_ENCODE_ARGTYPES, ctypes.c_int)}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load("mari_matmul")
-    if lib.mari_matmul_f32.argtypes is None:
-        for fn in (lib.mari_matmul_f32, lib.mari_matmul_bf16):
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        lib.mari_encode_map.argtypes = _ENCODE_ARGTYPES
-        lib.mari_encode_map.restype = ctypes.c_int
-    return lib
+    return build.load("mari_matmul", (), _SIGNATURES)
 
 
 def encode_map(out_addr: int, t: Tensor, box_inner: int,

@@ -11,7 +11,10 @@ TF32 pass is shown to miss that tolerance at DIN width. A numpy model of
 ``mma.sync.m16n8k8`` tf32 fragments (the PTX ISA's layouts) checks the
 kernel's fragment indexing: GEMM 1's A fragment formed from k and q, the B
 fragments' order in shared memory, and GEMM 1's C fragment reused as GEMM
-2's A fragment against W2's permuted rows.
+2's A fragment against W2's permuted rows. ``_online`` repeats the
+kernel's chunked online softmax (keys streamed in chunks, a running max,
+sum and pooled sum rescaled as the max rises), held against
+``din_attention_ref`` past the 920 keys one block once held.
 """
 import numpy as np
 import pytest
@@ -56,6 +59,27 @@ def _emulate(query, keys, mask, w1, b1, w2, b2, w3, b3, passes=3):
     scores = (h @ w3)[..., 0] + b3
     masked = torch.where(mask[None], scores, torch.full_like(scores, -1e30))
     return scores, torch.softmax(masked, -1) @ keys
+
+
+def _online(scores, mask, keys, chunk):
+    """The kernel's softmax and pool over chunks of ``chunk`` keys, in its
+    order: per chunk the masked scores' max m, the running sum and pooled
+    keys rescaled by exp(m_old - m), then the chunk's exp(score - m) and
+    their pooled keys; the output is pooled / sum."""
+    s = torch.where(mask[None], scores, torch.full_like(scores, -1e30))
+    B, L = s.shape
+    m = torch.full((B, 1), float("-inf"))
+    total = torch.zeros(B, 1)
+    acc = torch.zeros(B, keys.shape[1])
+    for c0 in range(0, L, chunk):
+        sc = s[:, c0:c0 + chunk]
+        m_new = torch.maximum(m, sc.max(1, keepdim=True).values)
+        scale = torch.exp(m - m_new)        # 0 for the first chunk
+        e = torch.exp(sc - m_new)
+        total = total * scale + e.sum(1, keepdim=True)
+        acc = acc * scale + e @ keys[c0:c0 + chunk]
+        m = m_new
+    return acc / total
 
 
 def _torch(args):
@@ -195,3 +219,34 @@ def test_mma_fragments_compute_the_two_products(L, D, h1, h2, l0):
     want = _scores_fp64(q, k, None, w1, b1, w2, b2, w3, b3)[0].numpy()
     np.testing.assert_allclose(sa, want[la[::4]], rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(sb, want[lb[::4]], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("chunk", [112, 32])
+@pytest.mark.parametrize("L", [921, 2000])
+def test_online_softmax_matches_reference_past_one_block(L, chunk):
+    """The kernel's chunks (112 keys at DIN width, 32 at its widest tiles)
+    over histories past the 920 keys a block once held: the emulated
+    scores through ``_online`` within fp32 2e-4 of the JAX reference."""
+    args = _case(8, L, 18, 80, 40, seed=L)
+    t = _torch(args)
+    scores, _ = _emulate(*t)
+    got = _online(scores, t[2], t[1], chunk)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(din_attention_ref(*args)), **TOL)
+
+
+def test_online_softmax_masked_chunks():
+    """A history whose first chunks are all masked (their -1e30 scores
+    leave the sums once a real score raises the max), and one masked
+    throughout (every key weighs the same, as the reference's softmax over
+    -1e30 gives)."""
+    args = list(_case(4, 500, 18, 16, 8, seed=2))
+    args[2][:300] = False
+    t = _torch(args)
+    scores, _ = _emulate(*t)
+    np.testing.assert_allclose(_online(scores, t[2], t[1], 112).numpy(),
+                               np.asarray(din_attention_ref(*args)), **TOL)
+    none = torch.zeros_like(t[2])
+    np.testing.assert_allclose(
+        _online(scores, none, t[1], 112).numpy(),
+        t[1].mean(0).expand(4, -1).numpy(), **TOL)

@@ -146,7 +146,9 @@ def test_plain_versions_count_no_launch():
     table, ids, segs, _ = _bag_inputs(20, 4, 3, 10, seed=1)
     teb.embedding_bag(_t(table), _t(ids), _t(segs), 3)
     teb.embedding_bag_fixed(_t(table), _t(ids).reshape(2, 5))
-    assert teb.LAUNCHES == {"csr": 0, "fixed": 0}
+    teb.embedding_bag(_t(table).bfloat16(), _t(ids), _t(segs), 3)
+    assert teb.LAUNCHES == {"csr": 0, "fixed": 0, "csr/bf16": 0,
+                            "fixed/bf16": 0}
 
 
 # -- nn/embedding.py --------------------------------------------------------

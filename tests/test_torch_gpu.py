@@ -340,9 +340,9 @@ def test_dot_interaction_kernel_triangle_order_and_rows(cuda):
 
 
 def test_dot_interaction_kernel_refuses_what_it_cannot_take(cuda):
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         di.dot_interaction(torch.zeros(4, 3, 8, device=cuda,
-                                       dtype=torch.bfloat16))
+                                       dtype=torch.float16))
     with pytest.raises(ValueError, match="shared memory"):
         di.dot_interaction(torch.zeros(2, 64, 1024, device=cuda))
 
@@ -504,45 +504,221 @@ def test_din_attention_kernel_rows_and_masks(cuda):
     torch.testing.assert_close(got, args[1].mean(0).expand_as(got), **TOL)
 
 
-def test_din_attention_kernel_longest_history(cuda):
-    """At DIN width a block holds every key, its rows' scores and 112 keys'
-    first-layer parts at a time: up to 920 keys. The kernel takes 920 (nine
-    chunks) and holds the plain version, a row slice gives the same bits,
-    and 921 is refused, so the executor routes it to the plain version."""
+@pytest.mark.parametrize("L", [921, 2048, 4000, 10_000])
+def test_din_attention_kernel_longest_history(cuda, L):
+    """The keys stream through shared memory in chunks of 112 at DIN width
+    (an online softmax carries each row across them), so a block's shared
+    memory no longer grows with L: 921 keys (one past what a block once
+    held), 2048, 4000 and 10,000 hold the plain version, and a row slice
+    gives the same bits."""
     lib = da.ops._lib()
-    assert (lib.din_attention_smem_bytes(920, 18, 80, 40)
-            <= da.ops.MAX_SMEM_BYTES
-            < lib.din_attention_smem_bytes(921, 18, 80, 40))
-    args = _din_case(cuda, 64, 920, 18, 80, 40, seed=5)
-    assert da.fits(*args)
+    assert lib.din_attention_chunk_keys(18, 80, 40) == 112
+    assert (lib.din_attention_smem_bytes(L, 18, 80, 40)
+            == lib.din_attention_smem_bytes(112, 18, 80, 40) == 112832)
+    args = _din_case(cuda, 64, L, 18, 80, 40, seed=L)
     full = da.din_attention(*args)
     torch.testing.assert_close(full, da.din_attention_plain(*args), **TOL)
     part = da.din_attention(args[0][21:30].contiguous(), *args[1:])
     assert torch.equal(full[21:30], part)
-    longer = _din_case(cuda, 8, 921, 18, 80, 40)
-    assert not da.fits(*longer)
-    with pytest.raises(ValueError, match="shared memory"):
-        da.din_attention(*longer)
 
 
 def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
+    """bf16 is taken, mixed dtypes are not; units wider than the register
+    tiles raise on CUDA, naming the tiles the library reports (the
+    executor never sends them to the plain version); the widest unit
+    within the tiles takes 32-key chunks and 10,000 keys."""
     args = _din_case(cuda, 8, 10, 6, 16, 8)
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="query bfloat16, keys float32"):
         da.din_attention(args[0].bfloat16(), *args[1:])
-    wide = _din_case(cuda, 8, 10, 6, 200, 8)
-    with pytest.raises(ValueError, match="register tiles"):
-        da.din_attention(*wide)
-    long = _din_case(cuda, 8, 4000, 18, 16, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        da.din_attention(*long)
-    # the executor's routing asks the same predicate
-    assert da.fits(*args) and da.fits(*_din_case(cuda, 8, 100, 18, 80, 40))
-    assert not da.fits(*wide) and not da.fits(*long)
-    assert not da.fits(*_din_case(cuda, 8, 10, 6, 16, 65))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        da.din_attention(*(a.half() if a.is_floating_point() else a
+                           for a in args))
+    lib = da.ops._lib()
+    for h1, h2, D in ((200, 8, 6), (16, 65, 6), (16, 8, 65)):
+        wide = _din_case(cuda, 8, 10, D, h1, h2)
+        assert lib.din_attention_smem_bytes(10, D, h1, h2) == -1
+        assert lib.din_attention_chunk_keys(D, h1, h2) == -1
+        with pytest.raises(ValueError, match=r"register tiles \(D <= 64, "
+                                             r"h1 <= 128, h2 <= 64\)"):
+            da.din_attention(*wide)
+    assert lib.din_attention_chunk_keys(64, 128, 64) == 32
+    assert lib.din_attention_smem_bytes(10_000, 64, 128, 64) <= 232448
+    widest = _din_case(cuda, 20, 10_000, 64, 128, 64, seed=2)
+    torch.testing.assert_close(da.din_attention(*widest),
+                               da.din_attention_plain(*widest), **TOL)
     # DIN at configs/din.py width stages 106832 bytes: two blocks an SM
-    assert da.ops._lib().din_attention_smem_bytes(100, 18, 80, 40) == 106832
+    assert lib.din_attention_smem_bytes(100, 18, 80, 40) == 106832
     with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
         da.din_attention(args[0], args[1], args[2], args[3][:-1], *args[4:])
+
+
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _bf16(args):
+    return tuple(a.bfloat16() if a.is_floating_point() else a for a in args)
+
+
+@pytest.mark.parametrize("B,L,D,h1,h2", [(2048, 100, 18, 80, 40),
+                                         (64, 921, 18, 80, 40),
+                                         (8, 2048, 18, 80, 40),
+                                         (300, 37, 33, 128, 64),
+                                         (1, 7, 6, 12, 5)])
+def test_din_attention_bf16_kernel_matches_plain(cuda, B, L, D, h1, h2):
+    """The bf16 entry: bf16 in and out, f32 inside (k*q rounded to bf16
+    as the TPU kernel forms it), within the reference's bf16 tolerance of
+    the plain version, and of the fp32 kernel on the same (widened)
+    values; a row's bits do not depend on B."""
+    args = _bf16(_din_case(cuda, B, L, D, h1, h2, seed=B + L))
+    before = da.LAUNCHES["bf16"]
+    got = da.din_attention(*args)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["bf16"] == before + 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(),
+                               da.din_attention_plain(*args).float(),
+                               **BF16_TOL)
+    wide = tuple(a.float() if a.is_floating_point() else a for a in args)
+    torch.testing.assert_close(got.float(), da.din_attention(*wide),
+                               **BF16_TOL)
+    if B > 1:
+        part = da.din_attention(args[0][B // 2:].contiguous(), *args[1:])
+        assert torch.equal(got[B // 2:], part)
+
+
+@pytest.mark.parametrize("keep_self", [False, True])
+@pytest.mark.parametrize("B,F,D,shift", [(4096, 27, 128, 0), (1000, 5, 16, 0),
+                                         (130, 7, 33, 0), (64, 27, 128, 1),
+                                         (1, 27, 16, 0)])
+def test_dot_interaction_bf16_kernel_matches_plain(cuda, B, F, D, shift,
+                                                   keep_self):
+    """The bf16 entry widens each row as the producer copies it (16-byte
+    loads where D % 8 == 0 and x is aligned, 2-byte otherwise: D = 33, a
+    view 2 bytes in) into the fp32 pipeline: bit for bit the fp32 kernel
+    on the widened x, rounded once, and within 2e-2 of the plain version."""
+    base = _randn(_gen(cuda, B + F), B * F * D + shift).bfloat16()
+    x = base[shift:].view(B, F, D)
+    before = di.LAUNCHES["bf16"]
+    got = di.dot_interaction(x, keep_self)
+    torch.cuda.synchronize()
+    assert di.LAUNCHES["bf16"] == before + 1 and got.dtype == torch.bfloat16
+    assert di.copy_route(x) == "widen"
+    assert torch.equal(got, di.dot_interaction(x.float(), keep_self)
+                       .bfloat16())
+    torch.testing.assert_close(got.float(),
+                               di.dot_interaction_plain(x, keep_self).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("order", ["random", "runs", "random64"])
+@pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
+def test_gather_einsum_bf16_kernel_matches_plain(cuda, spec, order):
+    """The bf16 entry: each spec, user_index in random order over 8 and 64
+    slots (the L2 route) and in runs (the staged route), clamped ids: bit
+    for bit the fp32 kernel on the widened operands, rounded once, and
+    within 2e-2 of the plain version."""
+    g = _gen(cuda, len(spec))
+    U = 64 if order == "random64" else 8
+    x, table = _ge_operands(g, spec, 301, U, 100, 18, 80)
+    x, table = x.bfloat16(), table.bfloat16()
+    idx = torch.randint(-3, U + 3, (301,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    if order == "runs":
+        idx = torch.sort(idx).values
+    before = ge.LAUNCHES[f"{spec}/bf16"]
+    got = ge.gather_einsum(spec, x, table, idx)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES[f"{spec}/bf16"] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ge.gather_einsum(spec, x.float(), table.float(),
+                                             idx).bfloat16())
+    torch.testing.assert_close(
+        got.float(), ge.gather_einsum_plain(spec, x, table, idx).float(),
+        **BF16_TOL)
+    with pytest.raises(TypeError, match="x bfloat16, table float32"):
+        ge.gather_einsum(spec, x, table.float(), idx)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("V,D,S,H", [(2_564_352, 128, 4096, 100),
+                                     (1000, 18, 97, 7), (500, 130, 33, 1)])
+def test_embedding_bag_bf16_kernel_matches_plain(cuda, V, D, S, H, combiner):
+    """Both bf16 entries (fixed hotness and CSR, fp32 weights or none):
+    bit for bit the fp32 kernel on the widened table, rounded once, and
+    within 2e-2 of the plain versions (f32 sums, one rounding)."""
+    g = _gen(cuda, V + H)
+    table = (_randn(g, V, D) * V ** -0.5).bfloat16()
+    ids = torch.randint(0, V, (S, H), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(S, H, generator=g, device=cuda)
+    flat, segs = ids.reshape(-1), torch.arange(S, device=cuda
+                                               ).repeat_interleave(H)
+    before = (eb.LAUNCHES["fixed/bf16"], eb.LAUNCHES["csr/bf16"])
+    for weights in (None, w):
+        got = eb.embedding_bag_fixed(table, ids, combiner, weights)
+        got_csr = eb.embedding_bag(table, flat, segs, S, combiner,
+                                   None if weights is None
+                                   else weights.reshape(-1))
+        assert got.dtype == got_csr.dtype == torch.bfloat16
+        want = eb.embedding_bag_fixed(table.float(), ids, combiner, weights)
+        assert torch.equal(got, want.bfloat16())
+        assert torch.equal(got_csr, got)
+        torch.testing.assert_close(
+            got.float(),
+            eb.embedding_bag_fixed_plain(table, ids, combiner, weights)
+            .float(), **BF16_TOL)
+    torch.cuda.synchronize()
+    assert (eb.LAUNCHES["fixed/bf16"], eb.LAUNCHES["csr/bf16"]) == (
+        before[0] + 2, before[1] + 2)
+    with pytest.raises(TypeError, match="float32 weights"):
+        eb.embedding_bag_fixed(table, ids, combiner, w.bfloat16())
+
+
+@pytest.mark.parametrize("arch", ["paper-ranking", "din", "dlrm-mlperf"])
+def test_serve_bf16_programs_run_through_the_kernels(cuda, arch):
+    """The recsys ``serve_bf16`` program (smoke build) through the kernels
+    on the card against the same program with ``use_pallas=False``, at
+    the reference's bf16 tolerance, captured and eager; each arch launches
+    the bf16 entries on its path (mari_matmul; DIN's unit over batch-1
+    keys; DLRM's interaction)."""
+    import types
+
+    from repro_torch.data.features import _vocab_for_input
+    from repro_torch.kernels import read_launches, reset_launches
+    from repro_torch.launch.steps import _recsys_serve
+
+    mod = types.SimpleNamespace(BUILD=get_config(arch).smoke_build(),
+                                FAMILY="recsys")
+    prog = _recsys_serve(mod, 48, opts=frozenset({"serve_bf16"}))
+    params = prog.init(seed=0, device=cuda)
+    graph = mod.BUILD()[0]
+    g = _gen(cuda, 5)
+    feeds = {}
+    for name, m in prog.args[1].items():
+        if m.dtype.is_floating_point:
+            feeds[name] = torch.randn(m.shape, generator=g, device=cuda,
+                                      dtype=m.dtype)
+        else:
+            feeds[name] = torch.randint(
+                0, _vocab_for_input(graph, name) or 1000, m.shape,
+                generator=g, device=cuda, dtype=m.dtype)
+    want = prog.compiled(cuda, use_pallas=False)(params, feeds)
+    reset_launches()
+    serve = prog.compiled(cuda)
+    got = serve(params, feeds)
+    out = Executor(serve.graph, "uoi", use_pallas=True, device=cuda).run(
+        mm.prepare_mari_params(serve.graph, params), feeds)
+    eager = torch.cat([out[o] for o in serve.graph.outputs], dim=-1)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    for x in (got, eager):
+        torch.testing.assert_close(x.float(), want.float(), **BF16_TOL)
+    assert launched["mari_matmul/bf16"] > 0
+    if arch == "din":
+        assert launched["din_attention/bf16"] > 0
+    if arch == "dlrm-mlperf":
+        assert launched["dot_interaction/bf16"] > 0
+    assert not any(n for k, n in launched.items() if not k.endswith("bf16"))
 
 
 def _autograd_cases(dev):
@@ -675,16 +851,17 @@ def test_embedding_bag_fixed_kernel_matches_plain(cuda, V, B, H, D,
 
 
 def test_embedding_bag_kernel_rows_and_refusals(cuda):
-    """A bag's result does not depend on B; non-fp32 tables are refused;
-    ``EmbeddingBag`` and ``embedding_bag_lookup`` launch the kernel."""
+    """A bag's result does not depend on B; tables other than fp32 and
+    bf16 are refused; ``EmbeddingBag`` and ``embedding_bag_lookup`` launch
+    the kernel."""
     g = _gen(cuda, 3)
     table = _randn(g, 5000, 128)
     ids = torch.randint(0, 5000, (300, 27), generator=g, device=cuda)
     full = eb.embedding_bag_fixed(table, ids)
     assert torch.equal(full[100:140],
                        eb.embedding_bag_fixed(table, ids[100:140]))
-    with pytest.raises(TypeError, match="float32 only"):
-        eb.embedding_bag_fixed(table.bfloat16(), ids)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        eb.embedding_bag_fixed(table.half(), ids)
     bag = EmbeddingBag(vocab=5000, dim=128, combiner="mean")
     params = {"table": table}
     flat, segs = ids.reshape(-1), torch.arange(300, device=cuda
@@ -694,7 +871,8 @@ def test_embedding_bag_kernel_rows_and_refusals(cuda):
     b = bag.apply_dense(params, ids)
     c = embedding_bag_lookup(table, flat, segs, 300, combiner="mean")
     torch.cuda.synchronize()
-    assert eb.LAUNCHES == {"csr": 2, "fixed": 1}
+    assert eb.LAUNCHES == {"csr": 2, "fixed": 1, "csr/bf16": 0,
+                           "fixed/bf16": 0}
     for x in (a, c):
         torch.testing.assert_close(x, b, **TOL)
 

@@ -253,19 +253,25 @@ def test_din_attention_shape_checks_and_limits():
         da.din_attention(*args[:7], args[7][:, :1].repeat(1, 2), args[8])
     with pytest.raises(ValueError, match="unsupported device"):
         da.din_attention(*(a.to("meta") for a in args))
-    assert da.fits(*args)
-    assert not da.fits(args[0], args[1][:, :7], *args[2:])
-    assert not da.fits(args[0][0], *args[1:])
+    with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
+        da.din_attention(args[0][0], *args[1:])
 
     def unit(B, L, D, h1, h2):
         return [torch.empty(s, device="meta") for s in (
             (B, D), (L, D), (L,), (4 * D, h1), (h1,), (h1, h2), (h2,),
             (h2, 1), (1,))]
 
-    # off CUDA the plain version takes any unit; the kernel's own limits
-    # (register tiles, shared memory) are held on the card
+    # a unit's shapes are checked before its device: a meta unit of
+    # consistent shapes reaches the device check, one of mixed widths not
+    for good in (unit(4096, 100, 18, 80, 40), unit(8, 100, 18, 200, 40)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            da.din_attention(*good)
+    with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
+        da.din_attention(*unit(8, 100, 18, 80, 40)[:3],
+                         *unit(8, 100, 17, 80, 40)[3:])
+    # off CUDA the plain version takes any unit, wider than the kernel's
+    # register tiles too; the kernel's own limits are held on the card
     # (tests/test_torch_gpu.py)
-    assert da.fits(*unit(4096, 100, 18, 80, 40))
-    assert da.fits(*unit(8, 100, 18, 200, 40))
-    assert not da.fits(*unit(8, 100, 18, 80, 40)[:3], *unit(8, 100, 17, 80,
-                                                             40)[3:])
+    wide = [_t(a) for a in _din_case(3, 5, 8, h1=200, h2=70, seed=1)]
+    assert torch.equal(da.din_attention(*wide),
+                       da.din_attention_plain(*wide))

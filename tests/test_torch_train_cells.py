@@ -454,7 +454,10 @@ SERVE_CASES = [("paper-ranking", ()), ("paper-ranking", ("serve_uoi",)),
                ("paper-ranking", ("serve_vani",)),
                ("paper-ranking", ("serve_bf16",)),
                ("din", ()), ("din", ("attn_reparam",)),
-               ("din", ("serve_uoi",)), ("din", ("serve_vani",))]
+               ("din", ("serve_uoi",)), ("din", ("serve_vani",)),
+               ("din", ("serve_bf16",)), ("din", ("attn_reparam",
+                                                  "serve_bf16")),
+               ("dlrm-mlperf", ()), ("dlrm-mlperf", ("serve_bf16",))]
 
 
 def _serve_feeds(jgraph, batch, seed):
