@@ -28,9 +28,14 @@
    at 2e-4 and bf16 at 2e-2). Every other kernel's bf16 entry
    (``<kernel>/.../bf16``: bf16 in and out, f32 inside) is held at 2e-2
    and timed at its fp32 entry's shape beside the bf16 library call;
-   those that widen into the fp32 pipeline (``dot_interaction``,
-   ``gather_einsum``, ``embedding_bag``) also bit for bit against the fp32
-   kernel on the widened operands.
+   those that widen into the fp32 pipeline (``gather_einsum``,
+   ``embedding_bag``) also bit for bit against the fp32 kernel on the
+   widened operands. ``dot_interaction``'s and ``din_attention``'s run on
+   the bf16 tensor cores: ``dot_interaction``'s is held to the fp32
+   kernel on the widened rows within one bf16 ulp, or where a sum
+   cancels within the f32 reordering bound (``bf16_vs_widened``), and
+   ``din_attention``'s is timed beside its build through the fp32
+   pipeline (``tf32_pipeline_ms``).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -296,10 +301,14 @@ TRAIN_COMPARE = 10                    # captured vs eager steps, same batches
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
 # din_attention past the 920 keys one block once held, at DIN width
 DIN_LONG_L, DIN_LONG_B = (921, 2048, 10_000), 512
-# builds of a kernel's source with one part left out, timed beside it
-VARIANTS = {"gather_einsum": ("GATHER_EINSUM_NO_ROW_SORT",),
-            "din_attention": ("DIN_ATTENTION_GUARDED_ONLY",),
-            "dot_interaction": ("DOT_INTERACTION_RING_ONLY",)}
+# builds of a kernel's source with one part left out or swapped, timed
+# beside it: name -> (source, macros)
+VARIANTS = {"gather_einsum": ("gather_einsum", ("GATHER_EINSUM_NO_ROW_SORT",)),
+            "din_attention": ("din_attention", ("DIN_ATTENTION_GUARDED_ONLY",)),
+            "din_attention_bf16_tf32": ("din_attention",
+                                        ("DIN_ATTENTION_BF16_TF32",)),
+            "dot_interaction": ("dot_interaction",
+                                ("DOT_INTERACTION_RING_ONLY",))}
 AUC_TOL = 1e-3
 # phase 7, the memory tier (the reference's benchmarks/memtier.py setup):
 # Zipf(1.1) universes, the head warmed up to 0.92 of the mass, 3000
@@ -421,6 +430,37 @@ def naive_attention(q, k, v, q_pos, kv_pos, window=None):
         mask &= dist < window
     logits = logits.masked_fill(~mask[:, None], -1e30)
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), vv)
+
+
+def bf16_vs_widened(got, want32, abs_sums, depth: int) -> dict:
+    """A bf16 result whose f32 sums run in another order (the bf16
+    tensor-core ``dot_interaction``) against the fp32 kernel's result on
+    the widened operands, ``want32``. Counts the elements that are its
+    rounding bit for bit, one bf16 ulp apart, and further apart. Further
+    apart is a sum that cancels: the result is small beside the sum of
+    its terms' magnitudes, ``abs_sums``, and bf16's ulp there is finer
+    than the error of either f32 order, so such an element is held to
+    one ulp plus the two orders' bound 2 * depth * 2^-24 * abs_sums.
+    Raises if any element lies beyond that."""
+    import torch
+    torch.cuda.synchronize()
+    got, want = got.float(), want32.bfloat16().float()
+    err = (got - want).abs()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    far = err > ulp
+    reorder = 2 * depth * 2.0 ** -24 * abs_sums.float()
+    if bool((err > ulp + reorder).any()) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(
+            f"bf16 result off the widened fp32 kernel's beyond one ulp and "
+            f"the f32 reordering bound: max |d| {float(err.max()):.3e}")
+    return dict(elements=got.numel(), same_bits=int((err == 0).sum()),
+                one_ulp=int(((err > 0) & ~far).sum()), further=int(far.sum()),
+                max_ulps=float((err / ulp).max()),
+                max_further_over_reorder_bound=float(
+                    (err[far] / reorder[far]).max()) if bool(far.any())
+                else 0.0)
 
 
 def moe_loop_oracle(x, ffn, cfg):
@@ -1911,12 +1951,13 @@ def main() -> int:
     # ---- build -------------------------------------------------------------
     # every source, and beside them the variants timed against the kernels
     # as built (the row sort of gather_einsum left out; din_attention's
-    # guarded instance at DIN's width; dot_interaction's ring plan at
-    # every batch): all nvcc processes at once
+    # guarded instance at DIN's width, and its bf16 entry through the fp32
+    # pipeline; dot_interaction's ring plan at every batch): all nvcc
+    # processes at once
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1 + len(VARIANTS)) as pool:
         variant_builds = [pool.submit(build.build_all, (n,), d)
-                          for n, d in VARIANTS.items()]
+                          for n, d in VARIANTS.values()]
         libs = build.build_all()
         for f in variant_builds:
             f.result()
@@ -1926,8 +1967,7 @@ def main() -> int:
         lines = logf.read_text().splitlines() if logf.exists() else []
         ptxas[name] = [ln.strip() for ln in lines
                        if "registers" in ln or "spill" in ln
-                       or "warning" in ln][:16 if name == "mari_matmul"
-                                           else 8]
+                       or "warning" in ln][:32]
     log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
     # ---- phase 1: kernels against their plain versions ---------------------
@@ -1974,7 +2014,7 @@ def main() -> int:
         """The kernel's wrapper launches the variant build of its source
         (``VARIANTS[name]``) inside the block."""
         saved = ops_mod._lib
-        ops_mod._lib = lambda: saved(VARIANTS[name])
+        ops_mod._lib = lambda: saved(VARIANTS[name][1])
         try:
             yield
         finally:
@@ -2530,9 +2570,10 @@ def main() -> int:
     # ---- the bf16 entries (the TPU kernels' numerics: bf16 in and out,
     # f32 inside), each at its fp32 entry's shape, held to its plain
     # version at BF16_TOL; where the entry widens into the fp32 pipeline
-    # (dot_interaction, gather_einsum, embedding_bag), bit for bit the
-    # fp32 kernel on the widened operands, rounded once. Bounds: two
-    # bytes a value, products at the bf16 peak.
+    # (gather_einsum, embedding_bag), bit for bit the fp32 kernel on the
+    # widened operands, rounded once (dot_interaction and din_attention
+    # run on the bf16 tensor cores). Bounds: two bytes a value, products
+    # at the bf16 peak.
     def bf16_entry(name, like, fn, plain, library_fn, nbytes, flops, errs,
                    **extra):
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
@@ -2578,17 +2619,31 @@ def main() -> int:
                    library="torch.einsum on pre-gathered rows, bf16")
         del xg, tg, rows
 
+    # dot_interaction's bf16 entry runs on the bf16 tensor cores, its f32
+    # sums in the mma's order: held to the fp32 kernel on the widened rows
+    # (bf16_vs_widened), and a row's bits to its own when the last half of
+    # the rows is launched alone; each copy route (TMA; cp.async: D % 64
+    # != 0; sync: D odd, a view 2 bytes past alignment), three m16 tiles
     Fd, Dd = 27, 128
     P = di.n_pairs(Fd)
     xd = randn(B, Fd, Dd).bfloat16()
-    errs = []
+    errs, vs_widened, routes = [], {}, {}
     for xb in (xd, randn(1000, 5, 16).bfloat16(),
                randn(130, 7, 33).bfloat16(),
-               randn(64 * Fd * Dd + 1).bfloat16()[1:].view(64, Fd, Dd)):
+               randn(64 * Fd * Dd + 1).bfloat16()[1:].view(64, Fd, Dd),
+               randn(33, 40, 64).bfloat16()):
+        name = "x".join(map(str, xb.shape)) + (
+            "+2B" if xb.data_ptr() % 4 else "")
         got = di.dot_interaction(xb)
         errs.append(max_err(got, di.dot_interaction_plain(xb), BF16_TOL))
-        same_bits(got, di.dot_interaction(xb.float()).bfloat16(),
-                  "dot_interaction")
+        vs_widened[name] = bf16_vs_widened(
+            got, di.dot_interaction(xb.float()),
+            di.dot_interaction(xb.float().abs()), xb.shape[2])
+        routes[name] = di.copy_route(xb)
+        half = xb.shape[0] // 2
+        if not torch.equal(di.dot_interaction(xb[half:]), got[half:]):
+            raise AssertionError("dot_interaction bf16: a row's result "
+                                 "depends on B")
     iu, ju = torch.triu_indices(Fd, Fd, offset=1, device=dev)
     bf16_entry("dot_interaction/bf16", "dot_interaction/triu",
                lambda: di.dot_interaction(xd),
@@ -2596,7 +2651,8 @@ def main() -> int:
                lambda: torch.bmm(xd, xd.transpose(1, 2))[:, iu, ju],
                2 * (B * Fd * Dd + B * P), 2 * B * P * Dd, errs,
                shape=dict(B=B, F=Fd, D=Dd, P=P, keep_self=False,
-                          copy_route=di.copy_route(xd)),
+                          copy_route=di.copy_route(xd), routes=routes),
+               vs_widened_fp32=vs_widened,
                library="torch.bmm (cuBLAS) in bf16 then a triangle index "
                        "gather: two PyTorch calls")
     del xd
@@ -2616,6 +2672,11 @@ def main() -> int:
     errs += [r["max_abs_err"] for r in long_bf16.values()]
     (b_ms, b_by), _, _ = din_bound(SINGLE_CALL_B, Lq, Dq, H1, H2, True)
     ms = time_ms(lambda: da.din_attention(*dargs))
+    # the bf16 entry through the fp32 pipeline with its zero products left
+    # out, the build it replaced
+    with variant(da.ops, "din_attention_bf16_tf32"):
+        tf32_ms = time_ms(lambda: da.din_attention(*dargs))
+    lib = da.ops._lib()
     entries["din_attention/bf16"] = dict(
         route="cuda", source="src/repro_torch/csrc/din_attention.cu",
         replaces="src/repro/kernels/din_attention/kernel.py:47",
@@ -2625,12 +2686,28 @@ def main() -> int:
         library_ms=None,
         fp32_entry_ms=entries["din_attention/shared_keys"]["ms"],
         shape=dict(B=SINGLE_CALL_B, L=Lq, D=Dq, h1=H1, h2=H2,
-                   dtype="bfloat16"),
+                   dtype="bfloat16",
+                   chunk_keys=lib.din_attention_bf16_chunk_keys(Dq, H1, H2),
+                   smem_bytes=lib.din_attention_bf16_smem_bytes(Lq, Dq, H1,
+                                                                H2)),
         by_length={Lx: dict(B=DIN_LONG_B, **r)
                    for Lx, r in long_bf16.items()},
+        # a 16-key tile: GEMM 1 ceil(D / 8) k8 steps x ceil16(h1) / 8 n
+        # tiles, GEMM 2 ceil16(h1) / 16 k16 steps x ceil(h2 / 8) n tiles
+        # x 2 (h1's bf16 halves); the fp32 pipeline (step (a) keeps 1 + 2
+        # of its 3 + 3 products) for comparison
+        mma_per_tile=(-(-Dq // 8) * (-(-H1 // 16) * 2)
+                      + -(-H1 // 16) * -(-H2 // 8) * 2),
+        mma_per_tile_fp32_pipeline=3 * (-(-Dq // 8) * -(-H1 // 8)
+                                        + -(-H1 // 8) * -(-H2 // 8)),
+        tf32_pipeline_ms=tf32_ms,
         bound_note="bf16: two bytes a value; the per-pair products once "
-                   "at 989 TFLOP/s, the rest at 67 (the kernel widens to "
-                   "its 3xTF32 fp32 pipeline)",
+                   "at 989 TFLOP/s (the kernel runs them on the bf16 "
+                   "tensor cores: mma.sync m16n8k8 and m16n8k16, h1 as "
+                   "two bf16 halves in the second), the rest at 67",
+        timing="tf32_pipeline_ms: the DIN_ATTENTION_BF16_TF32 build (the "
+               "bf16 entry widened into the 3xTF32 pipeline, its zero "
+               "products left out)",
         library="none: no single PyTorch call computes the unit")
     del dargs
 

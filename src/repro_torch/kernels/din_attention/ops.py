@@ -6,11 +6,13 @@ wrapper and its plain PyTorch version (port of
 (B, D), keys (L, D) shared by every row, mask (L,) and the unit's MLP
 4D -> h1 -> h2 -> 1, and returns the (B, D) pooled interest. A CPU tensor
 goes to ``din_attention_plain``; a CUDA tensor launches
-``csrc/din_attention.cu`` (fp32 or bf16, any history length L) or
-raises: a unit wider than the kernel's register tiles (D > 64, h1 > 128,
-h2 > 64) is refused, never sent to the plain version. The reference's
-batch padding to a multiple of its tile is gone: the kernel guards its
-last rows. ``LAUNCHES`` counts kernel launches (fp32 under
+``csrc/din_attention.cu`` (any history length L) or raises: a unit wider
+than the kernel's register tiles (D > 64, h1 > 128, h2 > 64) is refused,
+never sent to the plain version. fp32 runs the two per-pair products as
+3xTF32 on the tensor cores; bf16 on the bf16 tensor cores (exact bf16
+products, f32 sums, h1 split into two bf16 halves for the second
+layer). The reference's batch padding to a multiple of its tile is gone:
+the kernel guards its last rows. ``LAUNCHES`` counts kernel launches (fp32 under
 ``shared_keys``, bf16 under ``bf16``).
 """
 from __future__ import annotations
@@ -79,6 +81,8 @@ _SIGNATURES = {
     "din_attention_bf16": (_UNIT, ctypes.c_int),
     "din_attention_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_long),
     "din_attention_chunk_keys": ([ctypes.c_int] * 3, ctypes.c_int),
+    "din_attention_bf16_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_long),
+    "din_attention_bf16_chunk_keys": ([ctypes.c_int] * 3, ctypes.c_int),
     "din_attention_max_widths": ([ctypes.c_void_p], ctypes.c_int),
 }
 

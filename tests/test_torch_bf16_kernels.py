@@ -77,6 +77,66 @@ def test_din_attention_bf16_matches_reference_kernel(B, L, D, h1, h2):
     _close(da.din_attention(*tt), want)
 
 
+def _rb(a):
+    """float32 values rounded to bf16 (returned as float32)."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16(
+    ).float().numpy()
+
+
+def din_bf16_tensor_core_numerics(q, keys, mask, w1, b1, w2, b2, w3, b3):
+    """The bf16 kernel's numerics on numpy float32 arrays of bf16 values:
+    K1 = k (W1a + W1c) + b1 and Q1 = q (W1b - W1c) in f32 (the folded
+    blocks in f32), bf16(k*q) W1d with exact products and f32 sums; h1 =
+    relu(K1 + Q1 + that), split into hi = bf16(h1) and lo = bf16(h1 -
+    hi); layer 2 as b2 + hi W2 and lo W2 (bf16 W2, f32 sums), added, then
+    relu; layer 3, the masked softmax and the pool in f32, the output
+    rounded to bf16 once. Returns (out, the GEMM-2 products (hi + lo) W2
+    and h1 W2 in fp64, for their gap)."""
+    D = q.shape[1]
+    f64 = np.float64
+    wa, wb, wc, wd = (w1[i * D:(i + 1) * D] for i in range(4))
+    k1 = (keys @ (wa + wc) + b1).astype(np.float32)
+    q1 = (q @ (wb - wc)).astype(np.float32)
+    kq = _rb(keys[None] * q[:, None])                       # (B, L, D)
+    h1 = np.maximum(k1[None] + q1[:, None] + kq @ wd, 0).astype(np.float32)
+    hi = _rb(h1)
+    lo = _rb(h1 - hi)
+    c2 = b2 + hi @ w2
+    c2s = lo @ w2
+    h2 = np.maximum(c2 + c2s, 0)
+    s = (h2 @ w3)[..., 0] + b3[0]
+    s = np.where(mask[None], s, -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    out = (p @ keys) / p.sum(-1, keepdims=True)
+    w2d = w2.astype(f64)
+    return (_rb(out), (hi.astype(f64) + lo) @ w2d, h1.astype(f64) @ w2d,
+            np.abs(h1.astype(f64)) @ np.abs(w2d))
+
+
+@pytest.mark.parametrize("B,L,D,h1,h2", [(4, 5, 8, 16, 8), (33, 20, 18, 16, 8),
+                                         (64, 100, 18, 80, 40),
+                                         (16, 300, 18, 80, 40)])
+def test_din_bf16_tensor_core_numerics_match_reference_kernel(B, L, D, h1,
+                                                              h2):
+    """The bf16 kernel's numerics (``din_bf16_tensor_core_numerics``: h1
+    as two bf16 halves times bf16 W2 in layer 2) within the reference's
+    bf16 tolerance of the TPU kernel in interpret mode, on the widths of
+    ``test_din_attention_bf16_matches_reference_kernel``. The two halves
+    keep h1 to 2^-16 of itself (each bf16 rounding to 2^-8), so layer 2's
+    product lies within 2^-16 of the sum of its terms' magnitudes of the
+    product h1 W2 (largest |d| at these widths 4.2e-5, at 64 rows of 100
+    keys, D 18, 80-40: 3.0e-6 of that sum there, 5.3e-6 at most)."""
+    args = _din_case(B, L, D, h1, h2, seed=B + L)
+    jx, tt = _bf16(*args)
+    want = jax_din_attention(*jx, interpret=True)
+    rounded = [t.float().numpy() if t.is_floating_point() else t.numpy()
+               for t in tt]
+    got, split, full, terms = din_bf16_tensor_core_numerics(*rounded)
+    np.testing.assert_allclose(got, np.asarray(want).astype(np.float32),
+                               **BF16_TOL)
+    assert (np.abs(split - full) <= 2.0 ** -16 * terms).all()
+
+
 @pytest.mark.parametrize("keep_self", [False, True])
 @pytest.mark.parametrize("B,F,D", [(8, 27, 128), (5, 7, 33), (130, 4, 16)])
 def test_dot_interaction_bf16_matches_reference_kernel(B, F, D, keep_self):
@@ -257,3 +317,26 @@ def test_ctypes_signatures_match_the_sources(mod, name):
     for fn, (argtypes, _) in mod._SIGNATURES.items():
         assert [_ctype(p) for p in entries[fn]] == list(argtypes), fn
     assert {f for f in entries if f.endswith("_bf16")} <= set(mod._SIGNATURES)
+
+
+def test_compare_tools_read_each_sources_entry():
+    """The kernels' ``compare`` tools call an entry whose parameters
+    changed between sources by reading them from each source: this
+    checkout's bf16 ``dot_interaction`` entry takes a copy route (8
+    parameters, as its ``ctypes`` signature), and commit 38d4546's
+    ``din_attention`` (tests/data) the same 16 as this checkout's."""
+    from pathlib import Path
+
+    from repro_torch.kernels import turns
+    dot = (build.CSRC / "dot_interaction.cu").read_text()
+    params = turns.c_params(dot, "dot_interaction_bf16")
+    assert len(params) == len(di.ops._SIGNATURES["dot_interaction_bf16"][0])
+    assert params[6] == "int route"
+    old = (Path(__file__).parent / "data"
+           / "din_attention_38d4546.cu").read_text()
+    new = (build.CSRC / "din_attention.cu").read_text()
+    for fn in ("din_attention_f32", "din_attention_bf16"):
+        assert len(turns.c_params(old, fn)) == len(turns.c_params(new, fn)) \
+            == 16
+    with pytest.raises(ValueError, match="no extern"):
+        turns.c_params(old, "din_attention_bf16_smem_bytes")

@@ -14,7 +14,10 @@ fragments' order in shared memory, and GEMM 1's C fragment reused as GEMM
 2's A fragment against W2's permuted rows. ``_online`` repeats the
 kernel's chunked online softmax (keys streamed in chunks, a running max,
 sum and pooled sum rescaled as the max rises), held against
-``din_attention_ref`` past the 920 keys one block once held.
+``din_attention_ref`` past the 920 keys one block once held. The bf16
+instance's fragments (``mma.sync`` m16n8k8 and m16n8k16 bf16: two of
+GEMM 1's C fragments as GEMM 2's A, W2 unpermuted) are modelled the same
+way.
 """
 import numpy as np
 import pytest
@@ -250,3 +253,102 @@ def test_online_softmax_masked_chunks():
     np.testing.assert_allclose(
         _online(scores, none, t[1], 112).numpy(),
         t[1].mean(0).expand(4, -1).numpy(), **TOL)
+
+
+# ---- the bf16 tensor-core instance: m16n8k8 (GEMM 1), m16n8k16 (GEMM 2)
+
+def _mma_bf16(c, a, b):
+    """c (32, 4) += A x B for mma.sync m16n8k8 / m16n8k16 bf16 (the PTX
+    ISA's layouts): a (32, regs, 2), register r holding row G + 8 (r % 2)
+    at columns 2T + e + 8 (r // 2); b (32, regs, 2), register r holding k
+    rows 2T + e + 8 r of column G."""
+    k = 8 * a.shape[1] // 2
+    A = np.zeros((16, k))
+    for r in range(a.shape[1]):
+        for e in (0, 1):
+            A[G + 8 * (r % 2), 2 * T + e + 8 * (r // 2)] = a[:, r, e]
+    Bm = np.zeros((k, 8))
+    for r in range(b.shape[1]):
+        for e in (0, 1):
+            Bm[2 * T + e + 8 * r, G] = b[:, r, e]
+    C = np.zeros((16, 8))
+    C[G, 2 * T], C[G, 2 * T + 1], C[G + 8, 2 * T], C[G + 8, 2 * T + 1] = c.T
+    C = C + A @ Bm
+    return np.stack([C[G, 2 * T], C[G, 2 * T + 1], C[G + 8, 2 * T],
+                     C[G + 8, 2 * T + 1]], 1)
+
+
+@pytest.mark.parametrize("L,D,h1,h2,l0", [(100, 18, 80, 40, 96),
+                                          (37, 33, 128, 64, 16),
+                                          (5, 8, 16, 8, 0),
+                                          (7, 6, 12, 5, 0)])
+def test_bf16_mma_fragments_compute_the_two_products(L, D, h1, h2, l0):
+    """The bf16 instance's warp task through its fragment indexing: GEMM
+    1's A (k*q at rows la, lb, columns 8 kt + 2t, + 1), W1d's B fragments
+    (k rows 8 kt + 2t, + 1 of column 8 j + g), and two n tiles of GEMM
+    1's C packed as GEMM 2's k16 A fragment as they lie, against W2's
+    rows 16 s + 2t, + 1, + 8, + 9 unpermuted (h1 padded to 16). fp64, no
+    rounding: this checks indices, not arithmetic."""
+    q, k, _, w1, b1, w2, b2, w3, b3 = (a.astype(np.float64)
+                                       for a in _case(1, L, D, h1, h2))
+    dk, h1p, nt2 = -(-D // 8) * 8, -(-h1 // 16) * 16, -(-h2 // 8)
+    nt1, kt2 = h1p // 8, h1p // 16
+    kp = np.zeros((L, dk))
+    kp[:, :D] = k
+    qp = np.zeros(dk)
+    qp[:D] = q[0]
+    wd = np.zeros((dk, h1p))
+    wd[:D, :h1] = w1[3 * D:]
+    w2p = np.zeros((h1p, nt2 * 8))
+    w2p[:h1, :h2] = w2
+    k1 = np.zeros((L, h1p))
+    k1[:, :h1] = k @ (w1[:D] + w1[2 * D:3 * D]) + b1
+    q1 = np.zeros(h1p)
+    q1[:h1] = q[0] @ (w1[D:2 * D] - w1[2 * D:3 * D])
+    la, lb = np.minimum(l0 + G, L - 1), np.minimum(l0 + G + 8, L - 1)
+
+    a1 = []
+    for kt in range(dk // 8):
+        d = kt * 8 + 2 * T
+        a1.append(np.stack([np.stack([kp[la, d + e] * qp[d + e]
+                                      for e in (0, 1)], 1),
+                            np.stack([kp[lb, d + e] * qp[d + e]
+                                      for e in (0, 1)], 1)], 1))
+    c2 = [np.stack([np.r_[b2, np.zeros(nt2 * 8 - h2)][j * 8 + 2 * T + i]
+                    for i in (0, 1, 0, 1)], 1) for j in range(nt2)]
+    for s in range(kt2):
+        h = []
+        for u in (0, 1):
+            j = 2 * s + u
+            col = j * 8 + 2 * T
+            c1 = np.stack([k1[la, col] + q1[col], k1[la, col + 1] + q1[col + 1],
+                           k1[lb, col] + q1[col], k1[lb, col + 1] + q1[col + 1]],
+                          1)
+            for kt in range(dk // 8):     # sB1[(kt nt1 + j) 32 + lane]
+                n = j * 8 + G
+                b = np.stack([wd[kt * 8 + 2 * T + e, n] for e in (0, 1)], 1)
+                c1 = _mma_bf16(c1, a1[kt], b[:, None, :])
+            h.append(np.maximum(c1, 0.0))
+        # registers: (g, 2t..) (g + 8, 2t..) of n tile 2s, then of 2s + 1
+        a = np.stack([h[0][:, 0:2], h[0][:, 2:4], h[1][:, 0:2],
+                      h[1][:, 2:4]], 1)
+        for j in range(nt2):              # sB2[(s nt2 + j) 32 + lane]
+            n = j * 8 + G
+            r0 = 16 * s + 2 * T
+            b = np.stack([np.stack([w2p[r0 + e, n] for e in (0, 1)], 1),
+                          np.stack([w2p[r0 + 8 + e, n] for e in (0, 1)], 1)],
+                         1)
+            c2[j] = _mma_bf16(c2[j], a, b)
+    w3p = np.r_[w3[:, 0], np.zeros(nt2 * 8 - h2)]
+    sa = sum(np.maximum(c2[j][:, i], 0) * w3p[j * 8 + 2 * T + i % 2]
+             for j in range(nt2) for i in (0, 1))
+    sb = sum(np.maximum(c2[j][:, i], 0) * w3p[j * 8 + 2 * T + i % 2]
+             for j in range(nt2) for i in (2, 3))
+    sa, sb = sa.reshape(8, 4).sum(1) + b3, sb.reshape(8, 4).sum(1) + b3
+
+    q, k, w1, b1, w2, b2, w3, b3 = _torch((q, k, w1, b1, w2, b2, w3, b3))
+    want = _scores_fp64(q, k, None, w1, b1, w2, b2, w3, b3)[0].numpy()
+    np.testing.assert_allclose(sa, want[la[::4]], rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(sb, want[lb[::4]], rtol=1e-12, atol=1e-12)
+    if (D, h1, h2) == (18, 80, 40):       # mma a 16-key tile at DIN width
+        assert (dk // 8) * nt1 + kt2 * nt2 * 2 == 80

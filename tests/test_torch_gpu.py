@@ -5,6 +5,8 @@ card run ``python -m pytest -m gpu tests/test_torch_gpu.py``. Kernels are
 held against their plain PyTorch versions on the same device at fp32
 rtol = atol = 2e-4 (tests/test_kernels.py).
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -563,12 +565,15 @@ def _bf16(args):
                                          (64, 921, 18, 80, 40),
                                          (8, 2048, 18, 80, 40),
                                          (300, 37, 33, 128, 64),
-                                         (1, 7, 6, 12, 5)])
+                                         (1, 7, 6, 12, 5),
+                                         (40, 300, 64, 128, 64)])
 def test_din_attention_bf16_kernel_matches_plain(cuda, B, L, D, h1, h2):
-    """The bf16 entry: bf16 in and out, f32 inside (k*q rounded to bf16
-    as the TPU kernel forms it), within the reference's bf16 tolerance of
-    the plain version, and of the fp32 kernel on the same (widened)
-    values; a row's bits do not depend on B."""
+    """The bf16 entry on the bf16 tensor cores: bf16 in and out, f32
+    inside (k*q rounded to bf16 as the TPU kernel forms it, h1 as two
+    bf16 halves in the second layer), within the reference's bf16
+    tolerance of the plain version, and of the fp32 kernel on the same
+    (widened) values, up to the register tiles' widest unit; a row's
+    bits do not depend on B."""
     args = _bf16(_din_case(cuda, B, L, D, h1, h2, seed=B + L))
     before = da.LAUNCHES["bf16"]
     got = da.din_attention(*args)
@@ -585,28 +590,102 @@ def test_din_attention_bf16_kernel_matches_plain(cuda, B, L, D, h1, h2):
         assert torch.equal(got[B // 2:], part)
 
 
+@pytest.fixture(scope="module")
+def din_bf16_widened_source():
+    """The bf16 entry as commit 38d4546 built it (widened into the 3xTF32
+    pipeline, every product kept; its source under tests/data), built
+    with the checkout's flags."""
+    from repro_torch.kernels import turns
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = turns.load_source(
+        "din_attention", pathlib.Path(__file__).parent / "data"
+        / "din_attention_38d4546.cu")
+    build_mod = da.ops.build
+    build_mod.bind(lib, {"din_attention_bf16":
+                         da.ops._SIGNATURES["din_attention_bf16"]})
+    return lib
+
+
+@pytest.mark.parametrize("B,L,D,h1,h2", [(2048, 100, 18, 80, 40),
+                                         (512, 921, 18, 80, 40),
+                                         (300, 37, 33, 128, 64),
+                                         (20, 3000, 64, 128, 64),
+                                         (1, 7, 6, 12, 5)])
+def test_din_attention_bf16_tf32_build_is_the_widened_run_bit_for_bit(
+        cuda, din_bf16_widened_source, B, L, D, h1, h2):
+    """The DIN_ATTENTION_BF16_TF32 build leaves out the products that are
+    exact zeros in bf16 (the lo halves of bf16(k*q), W1d and W2): adding
+    an exact 0 to an f32 sum changes nothing, so its bf16 entry gives the
+    bits of the widened run it replaced (commit 38d4546's source)."""
+    args = _bf16(_din_case(cuda, B, L, D, h1, h2, seed=B + L))
+    q, keys, mask, *w = args
+    mask_i = mask.to(torch.int32)
+    want = torch.empty(B, D, dtype=torch.bfloat16, device=cuda)
+    lib = din_bf16_widened_source
+    rc = lib.din_attention_bf16(
+        q.data_ptr(), keys.data_ptr(), mask_i.data_ptr(),
+        *(t.data_ptr() for t in w), want.data_ptr(), B, L, D, h1, h2,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    da.ops.build.check(lib, rc, "din_attention (38d4546)")
+    saved = da.ops._lib
+    da.ops._lib = lambda: saved(("DIN_ATTENTION_BF16_TF32",))
+    try:
+        got = da.din_attention(*args)
+    finally:
+        da.ops._lib = saved
+    assert torch.equal(got, want)
+
+
+def test_din_attention_bf16_layout(cuda):
+    """The bf16 instance's shared memory, worked out by hand: at DIN's
+    width (L 100, D 18 -> 24 with key rows of 24 bf16, h1 80, h2 40) the
+    fragments of W1's four blocks 4 x 3 x 10 x 128 B, W2's 5 x 5 x 256,
+    K1 100 x 88 x 4, Q1 8 x 88 x 4, keys 4800 B, queries 384, b1 320, b2
+    and w3 160 each, scores 3200, mask 400: 69,200 bytes (106,832 in
+    fp32); the widest unit (D 64 -> rows of 72 bf16, h1 128 -> K1 rows of
+    136 floats, h2 64) keeps 112-key chunks: 65,536 + 16,384 + 60,928 +
+    4352 + 16,128 + 1152 + 512 + 256 + 256 + 3584 + 448 = 169,536."""
+    lib = da.ops._lib()
+    assert lib.din_attention_bf16_smem_bytes(100, 18, 80, 40) == 69200
+    assert lib.din_attention_bf16_chunk_keys(18, 80, 40) == 112
+    assert lib.din_attention_bf16_chunk_keys(64, 128, 64) == 112
+    assert lib.din_attention_bf16_smem_bytes(10_000, 64, 128, 64) == 169536
+    assert lib.din_attention_bf16_smem_bytes(10, 65, 16, 8) == -1
+
+
 @pytest.mark.parametrize("keep_self", [False, True])
-@pytest.mark.parametrize("B,F,D,shift", [(4096, 27, 128, 0), (1000, 5, 16, 0),
-                                         (130, 7, 33, 0), (64, 27, 128, 1),
-                                         (1, 27, 16, 0)])
+@pytest.mark.parametrize("B,F,D,shift,route", [
+    (4096, 27, 128, 0, "tma"), (1000, 5, 16, 0, "cp.async"),
+    (130, 7, 33, 0, "sync"), (64, 27, 128, 1, "sync"),
+    (1, 27, 16, 0, "cp.async"), (257, 40, 64, 0, "tma"),
+    (100, 40, 48, 0, "cp.async")])
 def test_dot_interaction_bf16_kernel_matches_plain(cuda, B, F, D, shift,
-                                                   keep_self):
-    """The bf16 entry widens each row as the producer copies it (16-byte
-    loads where D % 8 == 0 and x is aligned, 2-byte otherwise: D = 33, a
-    view 2 bytes in) into the fp32 pipeline: bit for bit the fp32 kernel
-    on the widened x, rounded once, and within 2e-2 of the plain version."""
+                                                   route, keep_self):
+    """The bf16 entry on the bf16 tensor cores, each copy route (TMA where
+    D % 64 == 0; cp.async where D is even and x 4-byte aligned; the
+    producer's 2-byte copies for D = 33 and a view 2 bytes in), F = 40
+    (three m16 tiles): within 2e-2 of the plain version; against the fp32
+    kernel on the widened x, its rounding or one bf16 ulp from it, and
+    where a sum cancels within the f32 reordering bound (the order of the
+    sums is the mma's, ``chip_smoke.bf16_vs_widened``); a row's bits do
+    not depend on B."""
     base = _randn(_gen(cuda, B + F), B * F * D + shift).bfloat16()
     x = base[shift:].view(B, F, D)
     before = di.LAUNCHES["bf16"]
     got = di.dot_interaction(x, keep_self)
     torch.cuda.synchronize()
     assert di.LAUNCHES["bf16"] == before + 1 and got.dtype == torch.bfloat16
-    assert di.copy_route(x) == "widen"
-    assert torch.equal(got, di.dot_interaction(x.float(), keep_self)
-                       .bfloat16())
+    assert di.copy_route(x) == route
+    _chip_smoke().bf16_vs_widened(
+        got, di.dot_interaction(x.float(), keep_self),
+        di.dot_interaction(x.float().abs(), keep_self), D)
     torch.testing.assert_close(got.float(),
                                di.dot_interaction_plain(x, keep_self).float(),
                                **BF16_TOL)
+    if B > 1:
+        assert torch.equal(di.dot_interaction(x[B // 2:], keep_self),
+                           got[B // 2:])
 
 
 @pytest.mark.parametrize("order", ["random", "runs", "random64"])
