@@ -28,14 +28,17 @@
    at 2e-4 and bf16 at 2e-2). Every other kernel's bf16 entry
    (``<kernel>/.../bf16``: bf16 in and out, f32 inside) is held at 2e-2
    and timed at its fp32 entry's shape beside the bf16 library call;
-   those that widen into the fp32 pipeline (``gather_einsum``,
+   those that widen where their FMAs read the operands
+   (``gather_einsum``'s ``bl,uld->bd`` and ``blh,uh->bl``,
    ``embedding_bag``) also bit for bit against the fp32 kernel on the
-   widened operands. ``dot_interaction``'s and ``din_attention``'s run on
-   the bf16 tensor cores: ``dot_interaction``'s is held to the fp32
-   kernel on the widened rows within one bf16 ulp, or where a sum
-   cancels within the f32 reordering bound (``bf16_vs_widened``), and
+   widened operands. ``dot_interaction``'s, ``din_attention``'s and
+   ``gather_einsum``'s ``bd,uldh->blh`` run on the bf16 tensor cores:
+   ``dot_interaction``'s and ``bd,uldh->blh``'s are held to the fp32
+   kernel on the widened operands within one bf16 ulp, or where a sum
+   cancels within the f32 reordering bound (``bf16_vs_widened``);
    ``din_attention``'s is timed beside its build through the fp32
-   pipeline (``tf32_pipeline_ms``).
+   pipeline (``tf32_pipeline_ms``). Every ``gather_einsum`` bf16 entry is
+   also checked and timed at a 64-slot table (``u64``).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -434,9 +437,10 @@ def naive_attention(q, k, v, q_pos, kv_pos, window=None):
 
 def bf16_vs_widened(got, want32, abs_sums, depth: int) -> dict:
     """A bf16 result whose f32 sums run in another order (the bf16
-    tensor-core ``dot_interaction``) against the fp32 kernel's result on
-    the widened operands, ``want32``. Counts the elements that are its
-    rounding bit for bit, one bf16 ulp apart, and further apart. Further
+    tensor-core ``dot_interaction`` and ``gather_einsum`` ``bd,uldh->blh``)
+    against the fp32 kernel's result on the widened operands, ``want32``.
+    Counts the elements that are its rounding bit for bit, one bf16 ulp
+    apart, and further apart. Further
     apart is a sum that cancels: the result is small beside the sum of
     its terms' magnitudes, ``abs_sums``, and bf16's ulp there is finer
     than the error of either f32 order, so such an element is held to
@@ -2592,32 +2596,72 @@ def main() -> int:
             raise AssertionError(f"{what}: the bf16 entry differs from the "
                                  f"fp32 kernel on the widened operands")
 
+    # gather_einsum: bl,uld->bd and blh,uh->bl widen where the FMAs read
+    # the bf16 operands (bit for bit the fp32 kernel on them, rounded);
+    # bd,uldh->blh runs on the bf16 tensor cores, its f32 sums in the
+    # mma's order (bf16_vs_widened, depth D). Every entry at 8 and 64
+    # slots in the three index orders, and a row's bits to its own when the
+    # last half of the rows is launched alone.
     idx = randidx(B, U)
     for spec, (xs, ts, xrs, trs, flops, nfloats) in cases.items():
         xg, tg = randn(*xs).bfloat16(), randn(*ts).bfloat16()
         runs = torch.sort(randidx(B, U)).values
         xr, tr = randn(*xrs).bfloat16(), randn(*trs).bfloat16()
         ir = randidx(xrs[0], trs[0] + 3, lo=-2)
-        errs = []
-        for a in ((xg, tg, idx), (xg, tg, runs), (xr, tr, ir)):
+        t64 = randn(64, *ts[1:]).bfloat16()
+        idx64, runs64 = randidx(B, 64), torch.sort(randidx(B, 64)).values
+        short64 = (torch.arange(B, device=dev) // 4 % 64).to(torch.int32)
+        errs, vs_widened = [], {}
+        mma = spec == "bd,uldh->blh"
+        for name, a in (("random", (xg, tg, idx)), ("runs", (xg, tg, runs)),
+                        ("ragged", (xr, tr, ir)),
+                        ("u64_random", (xg, t64, idx64)),
+                        ("u64_runs", (xg, t64, runs64)),
+                        ("u64_short_runs", (xg, t64, short64))):
             got = ge.gather_einsum(spec, *a)
             errs.append(max_err(got, ge.gather_einsum_plain(spec, *a),
                                 BF16_TOL))
-            same_bits(got, ge.gather_einsum(
-                spec, a[0].float(), a[1].float(), a[2]).bfloat16(),
-                f"gather_einsum {spec}")
+            wide = ge.gather_einsum(spec, a[0].float(), a[1].float(), a[2])
+            if mma:
+                vs_widened[name] = bf16_vs_widened(
+                    got, wide, ge.gather_einsum(spec, a[0].float().abs(),
+                                                a[1].float().abs(), a[2]),
+                    a[0].shape[1])
+            else:
+                same_bits(got, wide.bfloat16(), f"gather_einsum {spec}")
+            half = a[0].shape[0] // 2
+            torch.cuda.synchronize()
+            if not torch.equal(ge.gather_einsum(spec, a[0][half:], a[1],
+                                                a[2][half:]), got[half:]):
+                raise AssertionError(f"gather_einsum {spec} bf16: a row's "
+                                     f"result depends on B")
         rows = tg.index_select(0, idx)
         row_spec = ge.parse_spec(spec)[3]
+        tm = dict(
+            ms_runs=time_ms(lambda: ge.gather_einsum(spec, xg, tg, runs)),
+            u64=dict(ms=time_ms(lambda: ge.gather_einsum(spec, xg, t64,
+                                                         idx64)),
+                     ms_runs=time_ms(lambda: ge.gather_einsum(
+                         spec, xg, t64, runs64)),
+                     ms_short_runs=time_ms(lambda: ge.gather_einsum(
+                         spec, xg, t64, short64))))
+        extra = dict(vs_widened_fp32=vs_widened) if mma else {}
+        tm["u64"]["bound_ms"] = bound(
+            2 * (nfloats + (64 - U) * t64[0].numel()) + 4 * B, flops,
+            PEAK_BF16_FLOPS)[0]
         bf16_entry(f"gather_einsum/{spec}/bf16", f"gather_einsum/{spec}",
                    lambda: ge.gather_einsum(spec, xg, tg, idx),
                    lambda: ge.gather_einsum_plain(spec, xg, tg, idx),
                    lambda: torch.einsum(row_spec, xg, rows),
                    2 * nfloats + 4 * B, flops, errs,
-                   ms_runs=time_ms(lambda: ge.gather_einsum(spec, xg, tg,
-                                                            runs)),
+                   ms_runs=tm["ms_runs"], u64=tm["u64"],
                    shape=dict(x=list(xs), table=list(ts), dtype="bfloat16"),
-                   library="torch.einsum on pre-gathered rows, bf16")
-        del xg, tg, rows
+                   timing="ms: user_index in random order; ms_runs: "
+                   "contiguous runs of random length (the engine's layout); "
+                   "u64: the same at a 64-slot table, and ms_short_runs: "
+                   "runs of 4 rows (16 users a 64-row tile)",
+                   library="torch.einsum on pre-gathered rows, bf16", **extra)
+        del xg, tg, rows, t64
 
     # dot_interaction's bf16 entry runs on the bf16 tensor cores, its f32
     # sums in the mma's order: held to the fp32 kernel on the widened rows

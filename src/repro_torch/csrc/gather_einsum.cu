@@ -15,11 +15,12 @@
 // What bounds it on an H100. SPEC_Q_T writes (B, L, H) floats at 2*D = 36
 // FLOP each. At DIN width (B = 4096, U = 8, L = 100, D = 18, H = 80) the
 // output is 131 MB, 0.0406 ms at 3.35 TB/s, and the arithmetic 1.18 GFLOP,
-// 0.018 ms at 67 TFLOP/s fp32: bound by the bytes it writes. So the FMAs
-// stay exact fp32 on the CUDA cores; tensor cores would buy nothing
+// 0.018 ms at 67 TFLOP/s fp32: bound by the bytes it writes. So the fp32
+// FMAs stay exact fp32 on the CUDA cores; tensor cores would buy nothing
 // against the store stream. SPEC_W_KEYS reads (B, L), writes (B, D) and
 // does 2 * B * L * D = 15 MFLOP: its bound (0.0006 ms) is below a launch's
 // latency, so it is bound by the latency of its loads and sums.
+// SPEC_ROWS_VEC reads x once (131 MB at DIN width): bound by that stream.
 //
 // SPEC_Q_T's design: what must not happen is each row reading its user's
 // whole (L, D, H) slice (576 KB at DIN width) on its own. A block owns 64
@@ -53,26 +54,59 @@
 // guard the ragged edges).
 //
 // SPEC_W_KEYS: one warp per row, for latency: lane j sums the keys l = j,
-// j + 32, ... of its row's user (each a contiguous row of D floats, so the
+// j + 32, ... of its row's user (each a contiguous row of D values, so the
 // warp's loads are coalesced), weighted by the row's weights, into 32
 // columns in registers; then a reduce-scatter of shuffles in a fixed tree
 // leaves column d's sum in lane d. The order over l is fixed (per lane,
-// then the tree), whatever B. SPEC_ROWS_VEC (on no path): one thread per
-// (row, l), looping over H.
+// then the tree), whatever B. Each chunk of 32 keys and their weights is
+// copied to shared memory by cp.async (16 bytes where the chunk is one
+// aligned run, else 8 or 4, else value by value), one chunk ahead of the
+// one summed.
+//
+// SPEC_ROWS_VEC: a row (b, l) is H contiguous values. A warp walks a
+// contiguous range of rows, four at a time: 8 lanes a row, each taking
+// chunks of 8 values (16-byte loads: two in fp32, one in bf16) c = j, j +
+// 8, ...; a warp step issues the loads of two such passes (four in bf16,
+// the same bytes in flight) before it sums them. Lane j sums its chunks
+// in order (fmaf from 0, zeros past H), then a fixed tree of three
+// shuffles adds the 8 lanes' partials: the order depends on H alone, not
+// on B, the grid or the route. Up to H = 128 a
+// lane keeps its chunks of the user's table row in registers and reloads
+// them only where b changes (every L rows); past that it reads them per
+// row (from L1). H or a pointer off 16 bytes takes value-by-value loads
+// in the same order.
 //
 // bf16 (gather_einsum_bf16): x, table and out in bf16, every product and
 // sum in f32 (the TPU kernel's preferred_element_type), the output rounded
-// once. The same kernels, instantiated for bf16: each operand is widened
-// to fp32 as it is loaded, into the same shared-memory buffers and
-// registers (the staged copies then go through registers instead of
-// cp.async, so a step's loads no longer overlap the step before). The
-// arithmetic and its order are the fp32 kernel's, so a bf16 call gives the
-// fp32 kernel's result on the widened operands, rounded.
+// once. SPEC_W_KEYS and SPEC_ROWS_VEC are the fp32 kernels instantiated for
+// bf16: operands are read (and staged) as bf16 and widened where the FMA
+// reads them, the arithmetic and its order the fp32 kernel's, so a bf16
+// call gives the fp32 kernel's result on the widened operands, rounded.
+// SPEC_Q_T's bf16 entry runs on the bf16 tensor cores (q_t_mma_kernel):
+// its bf16 bound is the 65.5 MB it writes (0.0196 ms), which the CUDA
+// cores' 590 M exact fp32 FMAs (0.018 ms at their peak; q_t_kernel issues
+// them at about a fifth of it) cannot come near. mma.sync m16n8k16 +
+// m16n8k8 with D padded by zeros to 24 a chunk: A (m16) is 16 columns of
+// the user's staged (d, column) slice, read by ldmatrix.trans; B (n8) is
+// the warp's 8 rows of x (d contiguous). Products are exact and sums f32, in the mma's
+// order, so the result is no longer bit for bit the widened fp32 kernel's.
+// Where a warp's 8 rows hold several users, one pass per user feeds every
+// row's current sums as C and keeps the rows of that user; so each (row,
+// column) sees the same mma sequence (k16 then k8 per chunk, from zero) on
+// both routes: the staged one (slices copied as bf16 by cp.async, rows
+// ordered by user as above) and the one for more than 8 users a tile,
+// where each warp copies its users' slices from L2 into its own staging.
+// The C fragments go through shared memory so that stores are 16 bytes
+// along L*H.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 enum Spec { SPEC_Q_T = 0, SPEC_W_KEYS = 1, SPEC_ROWS_VEC = 2 };
 constexpr int THREADS = 256;
@@ -87,6 +121,17 @@ constexpr int QT_TILES = 8;                     // column tiles per block
 constexpr int QT_KC = 20;                       // d per staged chunk
 constexpr int QT_SLOTS = 8;                     // users staged at once
 
+// SPEC_Q_T bf16 on the tensor cores: d per chunk (one k16 and one k8 mma),
+// the row strides of a staged slice (d rows of 64 columns), of the staged x
+// and of a warp's output staging, in bf16 (8 past 64: the 8 rows an
+// ldmatrix reads fall in distinct banks)
+constexpr int QM_KC = 24;
+constexpr int QM_TS = QT_COLS + 8;
+constexpr int QM_XS = QM_KC;
+constexpr int QM_OS = QT_COLS + 8;
+constexpr int QM_SLICE = QM_KC * QM_TS;
+constexpr int QM_BUF = QT_SLOTS * QM_SLICE + QT_ROWS * QM_XS;
+
 // a variant without the row sort of tiles of at most QT_SLOTS users, built
 // with -DGATHER_EINSUM_NO_ROW_SORT only for chip_smoke.py to time beside
 // the default
@@ -99,17 +144,25 @@ constexpr bool kRowSort = true;
 constexpr int WK_D = 32;                        // SPEC_W_KEYS: d per pass
 constexpr int WK_WARPS = 4;                     // SPEC_W_KEYS: rows a block
 
+constexpr int RV_G = 8;                         // SPEC_ROWS_VEC: lanes a row
+constexpr int RV_V = 8;                         // values a chunk
+constexpr int RV_NC = 2;                        // chunks a lane keeps
+
 __device__ __forceinline__ int clamp_slot(int s, int U) {
   return s < 0 ? 0 : (s >= U ? U - 1 : s);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-      (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-      (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+// N bytes from global to shared memory, asynchronously (both aligned to N);
+// 16 bytes bypass L1 unless kL1
+template <int N, bool kL1 = false>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (N == 16 && !kL1)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(N) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -119,197 +172,79 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// loads of an operand, widened to fp32: 1, 2 or 4 consecutive values (2
-// and 4 aligned to their size)
+// loads of an operand, widened to fp32: 1 value, 2 or 4 consecutive fp32
+// values (aligned to their size)
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+__device__ __forceinline__ float ld(const bf16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(r.x << 16),
-                     __uint_as_float(r.x & 0xffff0000u),
-                     __uint_as_float(r.y << 16),
-                     __uint_as_float(r.y & 0xffff0000u));
+__device__ __forceinline__ bf16 bf16_zero() { return __float2bfloat16_rn(0.f); }
+
+// a copy of one value into shared memory, as it is: asynchronously, but a
+// bf16 (2 bytes, below cp.async's 4) by the thread itself
+__device__ __forceinline__ void stage1(float* dst, const float* src) {
+  cp_async<4>(dst, src);
+}
+__device__ __forceinline__ void stage1(bf16* dst, const bf16* src) {
+  *dst = *src;
 }
 
-// copies of an operand into fp32 shared memory: fp32 asynchronously
-// (cp.async), bf16 widened through registers
-__device__ __forceinline__ void stage1(float* dst, const float* src) {
-  cp_async4(dst, src);
-}
-__device__ __forceinline__ void stage1(float* dst, const __nv_bfloat16* src) {
-  *dst = ld(src);
-}
-__device__ __forceinline__ void stage4(float* dst, const float* src) {
-  cp_async16(dst, src);
-}
-__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src) {
-  *reinterpret_cast<float4*>(dst) = ld4(src);
+// n consecutive values from src to dst (16-byte aligned shared memory) by
+// the lanes of a warp, asynchronously and through L1 (the warps of a block
+// often read one user's keys): 16 bytes at once where src and n allow,
+// else 8, else 4, else value by value
+template <typename T>
+__device__ __forceinline__ void warp_stage_run(T* dst, const T* src, int n,
+                                               int lane) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const int bytes = n * (int)sizeof(T);
+  if (bytes % 16 == 0 && a % 16 == 0) {
+    for (int i = lane; i < bytes / 16; i += 32)
+      cp_async<16, true>(reinterpret_cast<char*>(dst) + 16 * i,
+                         reinterpret_cast<const char*>(src) + 16 * i);
+  } else if (bytes % 8 == 0 && a % 8 == 0) {
+    for (int i = lane; i < bytes / 8; i += 32)
+      cp_async<8>(reinterpret_cast<char*>(dst) + 8 * i,
+                  reinterpret_cast<const char*>(src) + 8 * i);
+  } else if (bytes % 4 == 0 && a % 4 == 0) {
+    for (int i = lane; i < bytes / 4; i += 32)
+      cp_async<4>(reinterpret_cast<char*>(dst) + 4 * i,
+                  reinterpret_cast<const char*>(src) + 4 * i);
+  } else {
+    for (int i = lane; i < n; i += 32) stage1(dst + i, src + i);
+  }
 }
 
 // stores of an output: fp32 as it is, bf16 rounded once
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void st(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
-// one staged step of SPEC_Q_T: T[user, l(e), d, h(e)] of the tile's nk
-// users for QT_KC values of d and ntc tiles of QT_COLS columns (slot
-// tc * nk + k),
-// and the rows' x for the same d, copied asynchronously (16 bytes where H
-// is a multiple of 4, so that a quad of columns lies in one l; zeros past
-// D and L*H)
-template <typename T>
-__device__ __forceinline__ void qt_stage(
-    float* sT, float* sX, const T* __restrict__ x,
-    const T* __restrict__ t, const int* sUser, int row0, int nrows,
-    int e0, int ntc, int nk, int d0, int D, int H, int LH, int vec_t) {
-  for (int i = threadIdx.x; i < ntc * nk * QT_KC * (QT_COLS / 4);
-       i += THREADS) {
-    const int q = i % (QT_COLS / 4), rest = i / (QT_COLS / 4);
-    const int dd = rest % QT_KC, slot = rest / QT_KC;
-    const int tc = slot / nk, k = slot - tc * nk;
-    const int d = d0 + dd, e = e0 + tc * QT_COLS + 4 * q;
-    float* dst = sT + (slot * QT_KC + dd) * QT_COLS + 4 * q;
-    const T* tu = t + (size_t)sUser[k] * LH * D;
-    if (vec_t && d < D && e < LH) {
-      const int l = e / H, h = e - l * H;
-      stage4(dst, tu + ((size_t)l * D + d) * H + h);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int l = (e + j) / H, h = e + j - l * H;
-        if (d < D && e + j < LH)
-          stage1(dst + j, tu + ((size_t)l * D + d) * H + h);
-        else
-          dst[j] = 0.f;
-      }
-    }
-  }
-  for (int i = threadIdx.x; i < QT_ROWS * QT_KC; i += THREADS) {
-    const int r = i / QT_KC, dd = i - r * QT_KC;
-    if (r < nrows && d0 + dd < D)
-      stage1(sX + i, x + (size_t)(row0 + r) * D + d0 + dd);
-    else
-      sX[i] = 0.f;
-  }
-}
+// ---- SPEC_Q_T: the rows of a block and their users ------------------------
 
-// acc (a row's 2 columns) += x row (QT_KC values) times a lane's (QT_KC x
-// 2) slice of T, d in order
-__device__ __forceinline__ void qt_fma_row(float* acc, const float* xr,
-                                           const float2* tv) {
-#pragma unroll
-  for (int dd = 0; dd < QT_KC; dd += 4) {
-    const float4 xv = *reinterpret_cast<const float4*>(xr + dd);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[0] = fmaf(xs[j], tv[dd + j].x, acc[0]);
-      acc[1] = fmaf(xs[j], tv[dd + j].y, acc[1]);
-    }
-  }
-}
-
-// a lane's (QT_KC x 2) slice of T from global memory (L2): columns e, e + 1
-// for d0 .. d0 + QT_KC - 1, zeros past D and L*H (8 bytes where H is a
-// multiple of 4, so that both columns lie in one l)
-template <typename T>
-__device__ __forceinline__ void qt_load(float2* tv, const T* tu, int e,
-                                        int d0, int D, int H, int LH,
-                                        int vec_t) {
-  const int l0 = e / H, h0 = e - l0 * H;
-  const int l1 = (e + 1) / H, h1 = e + 1 - l1 * H;
-#pragma unroll
-  for (int dd = 0; dd < QT_KC; ++dd) {
-    const int d = d0 + dd;
-    float2 v = make_float2(0.f, 0.f);
-    if (d < D && vec_t && e < LH) {
-      v = ld2(tu + ((size_t)l0 * D + d) * H + h0);
-    } else if (d < D) {
-      if (e < LH) v.x = ld(tu + ((size_t)l0 * D + d) * H + h0);
-      if (e + 1 < LH) v.y = ld(tu + ((size_t)l1 * D + d) * H + h1);
-    }
-    tv[dd] = v;
-  }
-}
-
-// a warp's 8 rows of one column tile from column c, then acc zeroed: lanes
-// 2m / 2m+1 swap halves so each writes 4 columns of one row (the even lane
-// the warp's row i, the odd lane row i + 1), 16 bytes where aligned
-template <typename T>
-__device__ __forceinline__ void qt_store(float (*acc)[2], const int* rows,
-                                         int nrows, T* out, int LH, int c,
-                                         bool vec_out, int lane) {
-  const bool odd = lane & 1;
-  const int c0 = c + 4 * (lane >> 1);
-#pragma unroll
-  for (int i = 0; i < QT_RPW; i += 2) {
-    const float sx = odd ? acc[i][0] : acc[i + 1][0];
-    const float sy = odd ? acc[i][1] : acc[i + 1][1];
-    const float gx = __shfl_xor_sync(FULL, sx, 1);
-    const float gy = __shfl_xor_sync(FULL, sy, 1);
-    const float4 v = odd ? make_float4(gx, gy, acc[i + 1][0], acc[i + 1][1])
-                         : make_float4(acc[i][0], acc[i][1], gx, gy);
-    const int r = odd ? rows[i + 1] : rows[i];
-    if (r < nrows) {
-      T* o = out + (size_t)r * LH + c0;
-      if (vec_out && c0 + 3 < LH) {
-        st4(o, v);
-      } else {
-        const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j < LH) st(o + j, vs[j]);
-      }
-    }
-    acc[i][0] = acc[i][1] = acc[i + 1][0] = acc[i + 1][1] = 0.f;
-  }
-}
-
-// out[b, l, h] = sum_d x[b, d] * t[u_b, l, d, h]
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
-           const int* __restrict__ idx, T* __restrict__ out, int B,
-           int U, int L, int D, int H, int vec_t, int vec_out) {
-  // two buffers of (QT_SLOTS x QT_KC x QT_COLS) T and (QT_ROWS x QT_KC) x
-  extern __shared__ __align__(16) float smem[];
-  constexpr int kT = QT_SLOTS * QT_KC * QT_COLS, kX = QT_ROWS * QT_KC;
-  __shared__ int sIdx[QT_ROWS];    // a row's clamped user (-1: past B)
-  __shared__ int sOrd[QT_ROWS];    // a row's user, as an ordinal of the tile
-  __shared__ int sUser[QT_ROWS];   // the tile's distinct users, in row order
-  __shared__ int sFirsts[QT_ROWS / 32];
-  __shared__ int sPerm[QT_ROWS];   // rows by user ordinal (stable)
-  const int LH = L * H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.y * QT_ROWS;
-  const int ebase = blockIdx.x * QT_TILES * QT_COLS;
-  if (row0 >= B || ebase >= LH) return;
-  const int nrows = min(QT_ROWS, B - row0);
-
-  // ---- the distinct users of the rows, numbered in row order: a warp
-  // per 32 rows finds each row's first row of its user (match within its
-  // 32, then a scan of the rows before them), ballots count the firsts ---
+// Numbers the distinct users of the block's rows in row order (sUser), each
+// row's user as that ordinal (sOrd, -1 past B), and with at most QT_SLOTS
+// users orders the rows by ordinal, stably (sPerm: position -> row; the
+// engine's runs are in order already and keep it); returns the number of
+// distinct users. A warp per 32 rows finds each row's first row of its
+// user (match within its 32, then a scan of the rows before them), ballots
+// count the firsts.
+__device__ __forceinline__ int qt_users(const int* __restrict__ idx, int row0,
+                                        int nrows, int U, int* sIdx,
+                                        int* sOrd, int* sUser, int* sFirsts,
+                                        int* sPerm) {
   constexpr int kGroups = QT_ROWS / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid < QT_ROWS)
     sIdx[tid] = tid < nrows ? clamp_slot(idx[row0 + tid], U) : -1;
   __syncthreads();
@@ -360,6 +295,144 @@ q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
     sPerm[pos] = tid;
   }
   __syncthreads();
+  return distinct;
+}
+
+// ---- SPEC_Q_T fp32 on the CUDA cores ---------------------------------------
+
+// one staged step of SPEC_Q_T: T[user, l(e), d, h(e)] of the tile's nk
+// users for QT_KC values of d and ntc tiles of QT_COLS columns (slot
+// tc * nk + k),
+// and the rows' x for the same d, copied asynchronously (4 values at once
+// where H is a multiple of 4, so that a quad of columns lies in one l;
+// zeros past D and L*H)
+__device__ __forceinline__ void qt_stage(
+    float* sT, float* sX, const float* __restrict__ x,
+    const float* __restrict__ t, const int* sUser, int row0, int nrows,
+    int e0, int ntc, int nk, int d0, int D, int H, int LH, int vec_t) {
+  for (int i = threadIdx.x; i < ntc * nk * QT_KC * (QT_COLS / 4);
+       i += THREADS) {
+    const int q = i % (QT_COLS / 4), rest = i / (QT_COLS / 4);
+    const int dd = rest % QT_KC, slot = rest / QT_KC;
+    const int tc = slot / nk, k = slot - tc * nk;
+    const int d = d0 + dd, e = e0 + tc * QT_COLS + 4 * q;
+    float* dst = sT + (slot * QT_KC + dd) * QT_COLS + 4 * q;
+    const float* tu = t + (size_t)sUser[k] * LH * D;
+    if (vec_t && d < D && e < LH) {
+      const int l = e / H, h = e - l * H;
+      cp_async<16>(dst, tu + ((size_t)l * D + d) * H + h);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int l = (e + j) / H, h = e + j - l * H;
+        if (d < D && e + j < LH)
+          stage1(dst + j, tu + ((size_t)l * D + d) * H + h);
+        else
+          dst[j] = 0.f;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < QT_ROWS * QT_KC; i += THREADS) {
+    const int r = i / QT_KC, dd = i - r * QT_KC;
+    if (r < nrows && d0 + dd < D)
+      stage1(sX + i, x + (size_t)(row0 + r) * D + d0 + dd);
+    else
+      sX[i] = 0.f;
+  }
+}
+
+// acc (a row's 2 columns) += x row (QT_KC values) times a lane's (QT_KC x
+// 2) slice of T, d in order
+__device__ __forceinline__ void qt_fma_row(float* acc, const float* xr,
+                                           const float2* tv) {
+#pragma unroll
+  for (int dd = 0; dd < QT_KC; dd += 4) {
+    const float4 xv = ld4(xr + dd);
+    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[0] = fmaf(xs[j], tv[dd + j].x, acc[0]);
+      acc[1] = fmaf(xs[j], tv[dd + j].y, acc[1]);
+    }
+  }
+}
+
+// a lane's (QT_KC x 2) slice of T from global memory (L2): columns e, e + 1
+// for d0 .. d0 + QT_KC - 1, zeros past D and L*H (2 values at once where H
+// is a multiple of 4, so that both columns lie in one l)
+__device__ __forceinline__ void qt_load(float2* tv, const float* tu, int e,
+                                        int d0, int D, int H, int LH,
+                                        int vec_t) {
+  const int l0 = e / H, h0 = e - l0 * H;
+  const int l1 = (e + 1) / H, h1 = e + 1 - l1 * H;
+#pragma unroll
+  for (int dd = 0; dd < QT_KC; ++dd) {
+    const int d = d0 + dd;
+    float2 v = make_float2(0.f, 0.f);
+    if (d < D && vec_t && e < LH) {
+      v = ld2(tu + ((size_t)l0 * D + d) * H + h0);
+    } else if (d < D) {
+      if (e < LH) v.x = ld(tu + ((size_t)l0 * D + d) * H + h0);
+      if (e + 1 < LH) v.y = ld(tu + ((size_t)l1 * D + d) * H + h1);
+    }
+    tv[dd] = v;
+  }
+}
+
+// a warp's 8 rows of one column tile from column c, then acc zeroed: lanes
+// 2m / 2m+1 swap halves so each writes 4 columns of one row (the even lane
+// the warp's row i, the odd lane row i + 1), 16 bytes where aligned
+__device__ __forceinline__ void qt_store(float (*acc)[2], const int* rows,
+                                         int nrows, float* out, int LH, int c,
+                                         bool vec_out, int lane) {
+  const bool odd = lane & 1;
+  const int c0 = c + 4 * (lane >> 1);
+#pragma unroll
+  for (int i = 0; i < QT_RPW; i += 2) {
+    const float sx = odd ? acc[i][0] : acc[i + 1][0];
+    const float sy = odd ? acc[i][1] : acc[i + 1][1];
+    const float gx = __shfl_xor_sync(FULL, sx, 1);
+    const float gy = __shfl_xor_sync(FULL, sy, 1);
+    const float4 v = odd ? make_float4(gx, gy, acc[i + 1][0], acc[i + 1][1])
+                         : make_float4(acc[i][0], acc[i][1], gx, gy);
+    const int r = odd ? rows[i + 1] : rows[i];
+    if (r < nrows) {
+      float* o = out + (size_t)r * LH + c0;
+      if (vec_out && c0 + 3 < LH) {
+        st4(o, v);
+      } else {
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < LH) st(o + j, vs[j]);
+      }
+    }
+    acc[i][0] = acc[i][1] = acc[i + 1][0] = acc[i + 1][1] = 0.f;
+  }
+}
+
+// out[b, l, h] = sum_d x[b, d] * t[u_b, l, d, h], fp32
+__global__ void __launch_bounds__(THREADS, 2)
+q_t_kernel(const float* __restrict__ x, const float* __restrict__ t,
+           const int* __restrict__ idx, float* __restrict__ out, int B,
+           int U, int L, int D, int H, int vec_t, int vec_out) {
+  // two buffers of (QT_SLOTS x QT_KC x QT_COLS) of T and (QT_ROWS x QT_KC)
+  // of x
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kT = QT_SLOTS * QT_KC * QT_COLS, kX = QT_ROWS * QT_KC;
+  __shared__ int sIdx[QT_ROWS];    // a row's clamped user (-1: past B)
+  __shared__ int sOrd[QT_ROWS];    // a row's user, as an ordinal of the tile
+  __shared__ int sUser[QT_ROWS];   // the tile's distinct users, in row order
+  __shared__ int sFirsts[QT_ROWS / 32];
+  __shared__ int sPerm[QT_ROWS];   // rows by user ordinal (stable)
+  const int LH = L * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * QT_ROWS;
+  const int ebase = blockIdx.x * QT_TILES * QT_COLS;
+  if (row0 >= B || ebase >= LH) return;
+  const int nrows = min(QT_ROWS, B - row0);
+  const int distinct =
+      qt_users(idx, row0, nrows, U, sIdx, sOrd, sUser, sFirsts, sPerm);
   int rows[QT_RPW], ord[QT_RPW];         // this warp's rows (ord -1: past B)
 #pragma unroll
   for (int i = 0; i < QT_RPW; ++i) {
@@ -391,7 +464,7 @@ q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
           for (int i = tid; i < QT_ROWS * QT_KC; i += THREADS) {
             const int r = i / QT_KC, dd = i - r * QT_KC;
             sX[i] = r < nrows && d0 + dd < D
-                        ? ld(x + (size_t)(row0 + r) * D + d0 + dd) : 0.f;
+                        ? x[(size_t)(row0 + r) * D + d0 + dd] : 0.f;
           }
           __syncthreads();
         }
@@ -442,8 +515,7 @@ q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
     const Step p = step_of(st);
     float* buf = smem + (st & 1) * (kT + kX);
     qt_stage(buf, buf + kT, x, t, sUser, row0, nrows,
-             ebase + p.ct0 * QT_COLS, p.ntc, distinct, p.d0, D, H, LH,
-             vec_t);
+             ebase + p.ct0 * QT_COLS, p.ntc, distinct, p.d0, D, H, LH, vec_t);
     cp_async_commit();
   };
   stage(0);
@@ -459,14 +531,13 @@ q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
     const float* sX = smem + (st & 1) * (kT + kX) + kT;
     for (int tc = 0; tc < p.ntc; ++tc) {
       const float* sT = smem + (st & 1) * (kT + kX)
-                        + tc * distinct * QT_KC * QT_COLS;
+                    + tc * distinct * QT_KC * QT_COLS;
       float2 tv[QT_KC];
       if (same) {
         // the engine's layout: all 8 rows read one user, no branch between
 #pragma unroll
         for (int dd = 0; dd < QT_KC; ++dd)
-          tv[dd] = *reinterpret_cast<const float2*>(
-              sT + (ord[0] * QT_KC + dd) * QT_COLS + 2 * lane);
+          tv[dd] = ld2(sT + (ord[0] * QT_KC + dd) * QT_COLS + 2 * lane);
 #pragma unroll
         for (int i = 0; i < QT_RPW; ++i)
           qt_fma_row(acc[i], sX + rows[i] * QT_KC, tv);
@@ -478,8 +549,7 @@ q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
           if (ord[i] != cur) {           // a new user: its slice to registers
 #pragma unroll
             for (int dd = 0; dd < QT_KC; ++dd)
-              tv[dd] = *reinterpret_cast<const float2*>(
-                  sT + (ord[i] * QT_KC + dd) * QT_COLS + 2 * lane);
+              tv[dd] = ld2(sT + (ord[i] * QT_KC + dd) * QT_COLS + 2 * lane);
             cur = ord[i];
           }
           qt_fma_row(acc[i], sX + rows[i] * QT_KC, tv);
@@ -492,6 +562,304 @@ q_t_kernel(const T* __restrict__ x, const T* __restrict__ t,
     __syncthreads();                     // the buffer is free for step st+2
   }
 }
+
+// ---- SPEC_Q_T bf16 on the tensor cores -------------------------------------
+
+// four (two) 8 x 8 b16 matrices, transposed; lane l gives the row address
+// of matrix l / 8
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, "
+               "[%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr) : "memory");
+}
+
+// C (16 x 8, f32) += A (16 x 16, bf16) * B (16 x 8, bf16)
+__device__ __forceinline__ void mma_k16(float* c, const uint32_t* a,
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C (16 x 8, f32) += A (16 x 8, bf16) * B (8 x 8, bf16)
+__device__ __forceinline__ void mma_k8(float* c, const uint32_t* a,
+                                       uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// one user's slice for a chunk of d into dst ((QM_KC d) x (64 columns),
+// row stride QM_TS): T[user, l(e), d, h(e)] for d0 .. d0 + QM_KC - 1 and
+// e0 .. e0 + 63, zeros past D and L*H, by threads i0, i0 + step, ...: 16
+// bytes (8 columns of one l) by cp.async where vec_t (H % 8 == 0, t
+// 16-byte aligned), else value by value
+__device__ __forceinline__ void qm_slice(bf16* dst, const bf16* tu, int e0,
+                                         int d0, int D, int H, int LH,
+                                         int vec_t, int i0, int step) {
+  for (int i = i0; i < QM_KC * (QT_COLS / 8); i += step) {
+    const int dd = i / (QT_COLS / 8), q = i - dd * (QT_COLS / 8);
+    const int d = d0 + dd, e = e0 + 8 * q;
+    bf16* o = dst + dd * QM_TS + 8 * q;
+    if (d >= D || e >= LH) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(0, 0, 0, 0);
+    } else if (vec_t) {
+      const int l = e / H, h = e - l * H;
+      cp_async<16>(o, tu + ((size_t)l * D + d) * H + h);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int l = (e + j) / H, h = e + j - l * H;
+        o[j] = e + j < LH ? tu[((size_t)l * D + d) * H + h] : bf16_zero();
+      }
+    }
+  }
+}
+
+// the rows' x for a chunk of d into sX (QT_ROWS x QM_XS), zeros past D and
+// B: pairs by cp.async where vec_x (D even, x 4-byte aligned)
+__device__ __forceinline__ void qm_stage_x(bf16* sX, const bf16* x, int row0,
+                                           int nrows, int d0, int D,
+                                           int vec_x) {
+  for (int i = threadIdx.x; i < QT_ROWS * QM_KC / 2; i += THREADS) {
+    const int r = i / (QM_KC / 2), dd = 2 * (i - r * (QM_KC / 2));
+    const int d = d0 + dd;
+    bf16* o = sX + r * QM_XS + dd;
+    const bf16* src = x + (size_t)(row0 + r) * D + d;
+    if (r < nrows && vec_x && d < D) {
+      cp_async<4>(o, src);
+    } else {
+      o[0] = r < nrows && d < D ? src[0] : bf16_zero();
+      o[1] = r < nrows && d + 1 < D ? src[1] : bf16_zero();
+    }
+  }
+}
+
+// B fragments of the warp's 8 rows for a chunk: lane (g, t) holds x[row g]
+// at k = 2t, 2t + 1 (+ 8) for the k16 mma and at 16 + 2t, 17 + 2t for the
+// k8 mma
+__device__ __forceinline__ void qm_b(uint32_t* b, const bf16* sX, int rowg,
+                                     int lane) {
+  const bf16* xr = sX + rowg * QM_XS + 2 * (lane & 3);
+  b[0] = *reinterpret_cast<const uint32_t*>(xr);
+  b[1] = *reinterpret_cast<const uint32_t*>(xr + 8);
+  b[2] = *reinterpret_cast<const uint32_t*>(xr + 16);
+}
+
+// acc (4 m16 tiles: columns 16 m .. 16 m + 15 of the column tile, by the
+// warp's 8 rows) through one chunk of a user's slice at sT: C = acc, then
+// k16 and k8; the rows in `keep` (bit n: the warp's row n) take the result,
+// the others keep theirs. A lane's C: columns g and g + 8 of rows 2t, 2t+1.
+__device__ __forceinline__ void qm_mma(float (*acc)[4], const bf16* sT,
+                                       const uint32_t* b, unsigned keep,
+                                       int lane) {
+  const int t = lane & 3;
+  const bool k0 = (keep >> (2 * t)) & 1, k1 = (keep >> (2 * t + 1)) & 1;
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(sT);
+  const int col = ((lane >> 3) & 1) * 8;
+  const uint32_t a16 =
+      base + 2 * ((((lane >> 4) << 3) + (lane & 7)) * QM_TS + col);
+  const uint32_t a8 = base + 2 * ((16 + (lane & 7)) * QM_TS + col);
+#pragma unroll
+  for (int mt = 0; mt < QT_COLS / 16; ++mt) {
+    uint32_t a[4], a2[2];
+    ldsm_x4_t(a, a16 + 32 * mt);
+    ldsm_x2_t(a2, a8 + 32 * mt);
+    float c[4] = {acc[mt][0], acc[mt][1], acc[mt][2], acc[mt][3]};
+    mma_k16(c, a, b[0], b[1]);
+    mma_k8(c, a2, b[2]);
+    acc[mt][0] = k0 ? c[0] : acc[mt][0];
+    acc[mt][1] = k1 ? c[1] : acc[mt][1];
+    acc[mt][2] = k0 ? c[2] : acc[mt][2];
+    acc[mt][3] = k1 ? c[3] : acc[mt][3];
+  }
+}
+
+// a chunk for the warp's rows: one pass per distinct user among them (ordl:
+// lane n < 8 holds the ordinal of the warp's row n, -1 past B; the same
+// for every row: one pass); slice(k) is user ordinal k's slice
+template <typename Slice>
+__device__ __forceinline__ void qm_passes(float (*acc)[4], const uint32_t* b,
+                                          int ordl, bool same, int lane,
+                                          Slice slice) {
+  if (same) {
+    qm_mma(acc, slice(__shfl_sync(FULL, ordl, 0)), b, 0xffu, lane);
+    return;
+  }
+  unsigned todo = __ballot_sync(FULL, lane < QT_RPW && ordl >= 0);
+  while (todo) {
+    const int k = __shfl_sync(FULL, ordl, __ffs(todo) - 1);
+    const unsigned keep = __ballot_sync(FULL, lane < QT_RPW && ordl == k);
+    qm_mma(acc, slice(k), b, keep, lane);
+    todo &= ~keep;
+  }
+}
+
+// the warp's 8 rows of one column tile from column c, rounded to bf16 into
+// the warp's staging so (8 rows x QM_OS), then 16 bytes a lane along L*H
+// where aligned; acc zeroed. wperm: the warp's rows in the tile.
+__device__ __forceinline__ void qm_store(float (*acc)[4], bf16* so,
+                                         const int* wperm, int nrows,
+                                         bf16* out, int LH, int c,
+                                         bool vec_out, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < QT_COLS / 16; ++mt) {
+    bf16* s = so + 2 * t * QM_OS + 16 * mt + g;
+    s[0] = __float2bfloat16_rn(acc[mt][0]);
+    s[QM_OS] = __float2bfloat16_rn(acc[mt][1]);
+    s[8] = __float2bfloat16_rn(acc[mt][2]);
+    s[QM_OS + 8] = __float2bfloat16_rn(acc[mt][3]);
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = (lane >> 3) + 4 * half, q = lane & 7;
+    const int r = wperm[i], c0 = c + 8 * q;
+    if (r < nrows) {
+      const bf16* s = so + i * QM_OS + 8 * q;
+      bf16* o = out + (size_t)r * LH + c0;
+      if (vec_out && c0 + 7 < LH) {
+        *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(s);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (c0 + j < LH) o[j] = s[j];
+      }
+    }
+  }
+  __syncwarp();                          // so is free for the next tile
+}
+
+// out[b, l, h] = sum_d x[b, d] * t[u_b, l, d, h], bf16 on the tensor cores
+__global__ void __launch_bounds__(THREADS, 2)
+q_t_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ t,
+               const int* __restrict__ idx, bf16* __restrict__ out, int B,
+               int U, int L, int D, int H, int vec_t, int vec_out,
+               int vec_x) {
+  // two buffers of QT_SLOTS slices and the rows' x, then the warps'
+  // output staging
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  __shared__ int sIdx[QT_ROWS];
+  __shared__ int sOrd[QT_ROWS];
+  __shared__ int sUser[QT_ROWS];
+  __shared__ int sFirsts[QT_ROWS / 32];
+  __shared__ int sPerm[QT_ROWS];
+  const int LH = L * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.y * QT_ROWS;
+  const int ebase = blockIdx.x * QT_TILES * QT_COLS;
+  if (row0 >= B || ebase >= LH) return;
+  const int nrows = min(QT_ROWS, B - row0);
+  const int distinct =
+      qt_users(idx, row0, nrows, U, sIdx, sOrd, sUser, sFirsts, sPerm);
+  const int* wperm = sPerm + warp * QT_RPW;
+  const int rowg = wperm[lane >> 2];     // the row this lane feeds to B
+  const int ordl = lane < QT_RPW ? sOrd[wperm[lane]] : -1;
+  const int ord0 = __shfl_sync(FULL, ordl, 0);
+  const bool same = __all_sync(FULL, lane >= QT_RPW || (ordl == ord0 &&
+                                                         ordl >= 0));
+  bf16* so = smem + 2 * QM_BUF + warp * QT_RPW * QM_OS;
+  bf16* outt = out + (size_t)row0 * LH;
+
+  const int nchunk = (D + QM_KC - 1) / QM_KC;
+  const int ntile = min(QT_TILES, (LH - ebase + QT_COLS - 1) / QT_COLS);
+  float acc[QT_COLS / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < QT_COLS / 16; ++mt)
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+  uint32_t b[3];
+
+  if (distinct > QT_SLOTS) {
+    // ---- more users than a step stages: the rows' x for a chunk staged
+    // by the block, each user's slice copied from L2 into the warp's own
+    // staging, once per user among its 8 rows
+    bf16* sX = smem;
+    bf16* sW = smem + QT_ROWS * QM_XS + warp * QM_SLICE;
+    for (int ct = 0; ct < ntile; ++ct) {
+      const int e0 = ebase + ct * QT_COLS;
+      for (int c = 0; c < nchunk; ++c) {
+        const int d0 = c * QM_KC;
+        if (ct == 0 || nchunk > 1) {
+          __syncthreads();               // the last chunk's x is read
+          qm_stage_x(sX, x, row0, nrows, d0, D, vec_x);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          qm_b(b, sX, rowg, lane);
+        }
+        qm_passes(acc, b, ordl, same, lane, [&](int k) {
+          __syncwarp();                  // the last pass's reads are done
+          qm_slice(sW, t + (size_t)sUser[k] * LH * D, e0, d0, D, H, LH,
+                   vec_t, lane, 32);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncwarp();
+          return sW;
+        });
+      }
+      qm_store(acc, so, wperm, nrows, outt, LH, e0, vec_out, lane);
+    }
+    return;
+  }
+
+  // ---- at most QT_SLOTS users: steps as q_t_kernel's, each staged by
+  // cp.async one ahead of the one computed
+  const bool multi = nchunk == 1;
+  const int tps = multi ? max(1, min(QT_SLOTS / distinct, QT_TILES / 2)) : 1;
+  const int nsteps = multi ? (ntile + tps - 1) / tps : ntile * nchunk;
+  auto ct0_of = [&](int st) { return multi ? st * tps : st / nchunk; };
+  auto stage = [&](int st) {
+    const int ct0 = ct0_of(st);
+    const int ntc = multi ? min(tps, ntile - ct0) : 1;
+    const int d0 = multi ? 0 : (st - ct0 * nchunk) * QM_KC;
+    bf16* buf = smem + (st & 1) * QM_BUF;
+    for (int s = 0; s < ntc * distinct; ++s) {
+      const int tc = s / distinct, k = s - tc * distinct;
+      qm_slice(buf + s * QM_SLICE, t + (size_t)sUser[k] * LH * D,
+               ebase + (ct0 + tc) * QT_COLS, d0, D, H, LH, vec_t, tid,
+               THREADS);
+    }
+    qm_stage_x(buf + QT_SLOTS * QM_SLICE, x, row0, nrows, d0, D, vec_x);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int st = 0; st < nsteps; ++st) {
+    if (st + 1 < nsteps) {
+      stage(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                     // step st's slices are in place
+    const int ct0 = ct0_of(st);
+    const int ntc = multi ? min(tps, ntile - ct0) : 1;
+    const bool complete = multi || st - ct0 * nchunk == nchunk - 1;
+    const bf16* buf = smem + (st & 1) * QM_BUF;
+    qm_b(b, buf + QT_SLOTS * QM_SLICE, rowg, lane);
+    for (int tc = 0; tc < ntc; ++tc) {
+      qm_passes(acc, b, ordl, same, lane, [&](int k) {
+        return buf + (tc * distinct + k) * QM_SLICE;
+      });
+      if (complete)
+        qm_store(acc, so, wperm, nrows, outt, LH,
+                 ebase + (ct0 + tc) * QT_COLS, vec_out, lane);
+    }
+    __syncthreads();                     // the buffer is free for step st+2
+  }
+}
+
+// ---- SPEC_W_KEYS ----------------------------------------------------------
 
 // one level of the lanes' reduce-scatter: lane pairs W apart swap halves of
 // acc[0 .. 2W) and add, so acc[i] then holds column i (+ W if lane & W)
@@ -513,10 +881,11 @@ w_keys_kernel(const T* __restrict__ x, const T* __restrict__ t,
               const int* __restrict__ idx, T* __restrict__ out, int B,
               int U, int L, int D) {
   // per warp, two buffers of 32 key rows of up to 32 columns and their 32
-  // weights; the unguarded sums of the last row read into the weights,
-  // never stored
+  // weights, as they are (bf16: widened where the FMAs read them); the
+  // unguarded sums of the last row read into the weights, never stored
   constexpr int kBuf = 32 * WK_D + 32;
-  __shared__ __align__(16) float sbuf[WK_WARPS][2][kBuf];
+  __shared__ __align__(16)
+      unsigned char sbuf[WK_WARPS][2][kBuf * sizeof(T)];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int b = blockIdx.x * WK_WARPS + warp; b < B;
        b += gridDim.x * WK_WARPS) {
@@ -524,24 +893,21 @@ w_keys_kernel(const T* __restrict__ x, const T* __restrict__ t,
     const T* tu = t + (size_t)clamp_slot(idx[b], U) * L * D;
     for (int d0 = 0; d0 < D; d0 += WK_D) {
       const int nd = min(WK_D, D - d0);
-      // chunk c's keys and weights, copied asynchronously (bf16: widened
-      // through registers): 4 values at once where the chunk is one
-      // aligned run (D <= 32 and 4 | 32 * D)
+      // chunk c's keys and weights, copied asynchronously: as one run
+      // where the chunk's keys are one (D <= 32), else value by value
       auto stage = [&](int c) {
-        float* sk = sbuf[warp][c & 1];
+        T* sk = reinterpret_cast<T*>(sbuf[warp][c & 1]);
         const int l0 = c * 32, nl = min(32, L - l0), n = nl * nd;
         const T* src = tu + (size_t)l0 * D + d0;
-        if (nd == D && n % 4 == 0 &&
-            (reinterpret_cast<uintptr_t>(src) & (4 * sizeof(T) - 1)) == 0) {
-          for (int i = lane; i < n / 4; i += 32)
-            stage4(sk + 4 * i, src + 4 * i);
+        if (nd == D) {
+          warp_stage_run(sk, src, n, lane);
         } else {
           for (int i = lane; i < n; i += 32) {
             const int l = i / nd;
             stage1(sk + i, src + (size_t)l * D + (i - l * nd));
           }
         }
-        if (lane < nl) stage1(sk + 32 * WK_D + lane, xr + l0 + lane);
+        warp_stage_run(sk + 32 * WK_D, xr + l0, nl, lane);
         cp_async_commit();
       };
       float acc[WK_D];
@@ -560,12 +926,12 @@ w_keys_kernel(const T* __restrict__ x, const T* __restrict__ t,
         __syncwarp();
         // lane sums key 32 c + lane over 32 columns, unguarded (columns
         // past nd are never stored)
-        const float* sk = sbuf[warp][c & 1];
+        const T* sk = reinterpret_cast<const T*>(sbuf[warp][c & 1]);
         if (c * 32 + lane < L) {
-          const float w = sk[32 * WK_D + lane];
+          const float w = ld(sk + 32 * WK_D + lane);
 #pragma unroll
           for (int j = 0; j < WK_D; ++j)
-            acc[j] = fmaf(w, sk[lane * nd + j], acc[j]);
+            acc[j] = fmaf(w, ld(sk + lane * nd + j), acc[j]);
         }
         __syncwarp();                    // the buffer is free for c + 2
       }
@@ -582,21 +948,135 @@ w_keys_kernel(const T* __restrict__ x, const T* __restrict__ t,
   }
 }
 
-// out[b, l] = sum_h x[b, l, h] * t[u_b, h]
+// ---- SPEC_ROWS_VEC --------------------------------------------------------
+
+// passes of 4 rows a warp step: 16 bytes of each lane's chunk in flight per
+// pass in bf16, 32 in fp32, so 4 passes in bf16 and 2 in fp32 put the same
+// bytes in flight
 template <typename T>
+constexpr int kRvPass = 8 / (int)sizeof(T);
+template <typename T>
+constexpr int kRvRows = 32 / RV_G * kRvPass<T>;
+
+// a chunk of a row at p (n > 0 of its values left in the row) as it is, in
+// 32-bit words (8 in fp32, 4 in bf16), zeros past n: 16-byte loads where
+// vec and the chunk is whole
+template <typename T>
+__device__ __forceinline__ void rv_raw(uint32_t* w, const T* p, int n,
+                                       bool vec) {
+  if (vec && n >= RV_V) {
+#pragma unroll
+    for (int i = 0; i < RV_V * (int)sizeof(T) / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < RV_V; ++i) w[i] = i < n ? __float_as_uint(p[i]) : 0u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < RV_V / 2; ++i) {
+      const uint32_t lo = 2 * i < n ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+      const uint32_t hi =
+          2 * i + 1 < n ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+      w[i] = lo | hi << 16;
+    }
+  }
+}
+
+// value i of a raw chunk, widened
+template <typename T>
+__device__ __forceinline__ float rv_val(const uint32_t* w, int i) {
+  if constexpr (sizeof(T) == 4)
+    return __uint_as_float(w[i]);
+  else
+    return __uint_as_float(i & 1 ? w[i >> 1] & 0xffff0000u : w[i >> 1] << 16);
+}
+
+// out[b, l] = sum_h x[b, l, h] * t[u_b, h]; a warp takes rows [per * w,
+// per * (w + 1)). NC > 0: a lane's chunks (at most NC) of the table row in
+// registers, reloaded where b changes; NC == 0: read per row.
+template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
 rows_vec_kernel(const T* __restrict__ x, const T* __restrict__ t,
-                const int* __restrict__ idx, T* __restrict__ out,
-                int B, int U, int L, int H) {
-  const size_t n = (size_t)B * L;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int b = (int)(e / L);
-    const T* xp = x + e * H;
-    const T* tp = t + (size_t)clamp_slot(idx[b], U) * H;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) acc = fmaf(ld(xp + h), ld(tp + h), acc);
-    st(out + e, acc);
+                const int* __restrict__ idx, T* __restrict__ out, int B,
+                int U, int L, int H, int vec, long long per) {
+  constexpr int PASS = kRvPass<T>, W = RV_V * (int)sizeof(T) / 4;
+  const long long n = (long long)B * L;
+  const int lane = threadIdx.x & 31, g = lane / RV_G, j = lane % RV_G;
+  const int nchunk = (H + RV_V - 1) / RV_V;
+  const long long w = (long long)blockIdx.x * (THREADS / 32)
+                      + (threadIdx.x >> 5);
+  const long long r_end = min(n, per * (w + 1));
+  uint32_t tv[NC > 0 ? NC : 1][W];
+  int tb = -1;                           // the b whose table row tv holds
+  for (long long r0 = per * w; r0 < r_end; r0 += kRvRows<T>) {
+    float acc[PASS];
+    if constexpr (NC > 0) {
+      uint32_t xv[PASS][NC][W];
+#pragma unroll
+      for (int p = 0; p < PASS; ++p) {
+        const long long r = r0 + p * (32 / RV_G) + g;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int c = j + RV_G * k;
+          if (r < r_end && c < nchunk)
+            rv_raw(xv[p][k], x + r * H + c * RV_V, H - c * RV_V, vec);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < PASS; ++p) {
+        const long long r = r0 + p * (32 / RV_G) + g;
+        acc[p] = 0.f;
+        if (r < r_end) {
+          const int b = (int)(r / L);
+          if (b != tb) {
+            const T* tp = t + (size_t)clamp_slot(idx[b], U) * H;
+#pragma unroll
+            for (int k = 0; k < NC; ++k) {
+              const int c = j + RV_G * k;
+              if (c < nchunk) rv_raw(tv[k], tp + c * RV_V, H - c * RV_V, vec);
+            }
+            tb = b;
+          }
+#pragma unroll
+          for (int k = 0; k < NC; ++k)
+            if (j + RV_G * k < nchunk) {
+#pragma unroll
+              for (int i = 0; i < RV_V; ++i)
+                acc[p] = fmaf(rv_val<T>(xv[p][k], i), rv_val<T>(tv[k], i),
+                              acc[p]);
+            }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < PASS; ++p) {
+        const long long r = r0 + p * (32 / RV_G) + g;
+        acc[p] = 0.f;
+        if (r < r_end) {
+          const T* tp = t + (size_t)clamp_slot(idx[r / L], U) * H;
+          for (int c = j; c < nchunk; c += RV_G) {
+            uint32_t xv[W];
+            rv_raw(xv, x + r * H + c * RV_V, H - c * RV_V, vec);
+            rv_raw(tv[0], tp + c * RV_V, H - c * RV_V, vec);
+#pragma unroll
+            for (int i = 0; i < RV_V; ++i)
+              acc[p] = fmaf(rv_val<T>(xv, i), rv_val<T>(tv[0], i), acc[p]);
+          }
+        }
+      }
+    }
+    // the row's 8 partials in a fixed tree: ((0+4)+(2+6)) + ((1+5)+(3+7))
+#pragma unroll
+    for (int p = 0; p < PASS; ++p) {
+      acc[p] += __shfl_xor_sync(FULL, acc[p], 4);
+      acc[p] += __shfl_xor_sync(FULL, acc[p], 2);
+      acc[p] += __shfl_xor_sync(FULL, acc[p], 1);
+      const long long r = r0 + p * (32 / RV_G) + g;
+      if (j == 0 && r < r_end) st(out + r, acc[p]);
+    }
   }
 }
 
@@ -605,10 +1085,45 @@ int grid_1d(size_t n, int per_block) {
   return (int)(blocks < 1048576 ? blocks : 1048576);
 }
 
-// whether p starts a run of 4 values of T (16 bytes of fp32, 8 of bf16)
+// whether p starts a run of `bytes` bytes (a power of 2) aligned to them
 template <typename T>
-bool aligned4(const T* p) {
-  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+bool aligned(const T* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <typename T, int NC>
+int launch_rows_vec(const T* x, const T* t, const int* idx, T* out, int B,
+                    int U, int L, int H, cudaStream_t s) {
+  // as many blocks as the card holds at once (worked out at the first
+  // launch; callers may launch from several threads), each warp a
+  // contiguous range of rows (a multiple of its rows a step)
+  static std::atomic<int> resident{0};
+  int blocks = resident.load();
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rows_vec_kernel<T, NC>, THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    blocks = sms * per_sm;
+    if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+    resident.store(blocks);
+  }
+  const long long n = (long long)B * L;
+  const long long steps = (n + kRvRows<T> - 1) / kRvRows<T>;
+  const long long warps_max = (long long)blocks * (THREADS / 32);
+  const long long per =
+      (steps + warps_max - 1) / warps_max * (long long)kRvRows<T>;
+  const long long warps = (n + per - 1) / per;
+  const int grid = (int)((warps + THREADS / 32 - 1) / (THREADS / 32));
+  const int vec = (H * (int)sizeof(T)) % 16 == 0 && aligned(x, 16) &&
+                  aligned(t, 16);
+  rows_vec_kernel<T, NC><<<grid, THREADS, 0, s>>>(x, t, idx, out, B, U, L,
+                                                  H, vec, per);
+  return 0;
 }
 
 template <typename T>
@@ -623,26 +1138,42 @@ int run(int spec, const T* x, const T* t, const int* idx, T* out, int B,
       const int row_tiles = (B + QT_ROWS - 1) / QT_ROWS;
       const int span = QT_COLS * QT_TILES;
       if (row_tiles > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-      const size_t smem = 2 * sizeof(float) *
-                          (QT_SLOTS * QT_KC * QT_COLS + QT_ROWS * QT_KC);
-      cudaError_t e = cudaFuncSetAttribute(
-          q_t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
       const dim3 grid((LH + span - 1) / span, row_tiles);
-      q_t_kernel<T><<<grid, THREADS, smem, s>>>(
-          x, t, idx, out, B, U, L, D, H, H % 4 == 0 && aligned4(t),
-          LH % 4 == 0 && aligned4(out));
+      if constexpr (sizeof(T) == 2) {
+        const size_t smem = sizeof(bf16) *
+                            (2 * QM_BUF + THREADS / 32 * QT_RPW * QM_OS);
+        cudaError_t e = cudaFuncSetAttribute(
+            q_t_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        q_t_mma_kernel<<<grid, THREADS, smem, s>>>(
+            x, t, idx, out, B, U, L, D, H, H % 8 == 0 && aligned(t, 16),
+            LH % 8 == 0 && aligned(out, 16), D % 2 == 0 && aligned(x, 4));
+      } else {
+        const size_t smem = 2 * sizeof(float) *
+                            (QT_SLOTS * QT_KC * QT_COLS + QT_ROWS * QT_KC);
+        cudaError_t e = cudaFuncSetAttribute(
+            q_t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        q_t_kernel<<<grid, THREADS, smem, s>>>(
+            x, t, idx, out, B, U, L, D, H, H % 4 == 0 && aligned(t, 16),
+            LH % 4 == 0 && aligned(out, 16));
+      }
       break;
     }
     case SPEC_W_KEYS:
       w_keys_kernel<T><<<grid_1d((size_t)B, WK_WARPS), 32 * WK_WARPS, 0, s>>>(
           x, t, idx, out, B, U, d1, d2);
       break;
-    case SPEC_ROWS_VEC:
-      rows_vec_kernel<T><<<grid_1d((size_t)B * d2, THREADS), THREADS, 0, s>>>(
-          x, t, idx, out, B, U, d2, d1);
+    case SPEC_ROWS_VEC: {
+      const int L = d2, H = d1;
+      const int rc = H <= RV_G * RV_NC * RV_V
+          ? launch_rows_vec<T, RV_NC>(x, t, idx, out, B, U, L, H, s)
+          : launch_rows_vec<T, 0>(x, t, idx, out, B, U, L, H, s);
+      if (rc != 0) return rc;
       break;
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,127 @@
+"""Time this checkout's ``gather_einsum`` kernel beside builds of other
+``gather_einsum.cu`` sources with the same C entries (an earlier
+commit's, say), on one card, taking turns.
+
+    python -m repro_torch.kernels.gather_einsum.compare OTHER.cu [...] \\
+        [--spec bd,uldh->blh] [--dtype bfloat16] [--order runs ...] \\
+        [--variant MACRO] [--batch 4096] [--rounds 4] [--iters 200]
+
+Every library gets the same inputs at DIN's width (L = 100, D = 18, H =
+80; ``configs/din.py``), in fp32 or bf16, and is launched through its C
+entry for that type (``gather_einsum_f32`` / ``_bf16``) alike. Each
+``--order`` (repeatable) is one user index: ``runs`` (8 slots, each
+user's rows one run of random length: the engine's layout), ``random``
+(8 slots), ``random64`` / ``runs64`` (64 slots) and ``short64`` (64
+slots, runs of 4 rows). ``--variant MACRO`` adds this checkout's source
+built with ``-DMACRO`` (``GATHER_EINSUM_NO_ROW_SORT``) as one more
+contender.
+Each round times this checkout's build, then each other's, then the same
+in reverse order (``turns.take_turns``). Prints one JSON line per order:
+the ms per launch of every turn, their medians, each source's median over
+this checkout's, the largest difference of each output from this
+checkout's, and whether it is bit for bit the same.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build, turns
+from repro_torch.kernels.gather_einsum import ops
+
+L, D, H = 100, 18, 80
+ORDERS = ("runs", "random", "random64", "runs64", "short64")
+
+
+def user_index(order: str, B: int,
+               g: torch.Generator) -> tuple[int, torch.Tensor]:
+    """(U, user_index) of one ``--order``."""
+    U = 64 if order in ("random64", "runs64", "short64") else 8
+    dev = g.device
+    if order == "short64":
+        return U, (torch.arange(B, device=dev) // 4 % U).to(torch.int32)
+    idx = torch.randint(0, U, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if order.startswith("runs"):
+        idx = torch.sort(idx).values
+    return U, idx.contiguous()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path, nargs="*")
+    ap.add_argument("--spec", choices=ops.KERNEL_SPECS,
+                    default="bd,uldh->blh")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="bfloat16")
+    ap.add_argument("--order", choices=ORDERS, action="append")
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=200)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    dtype = getattr(torch, args.dtype)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    B, spec = args.batch, args.spec
+    entry = "gather_einsum_f32" if dtype == torch.float32 \
+        else "gather_einsum_bf16"
+    libs = {"checkout": ops._lib()}
+    libs.update((f"checkout -D{m}", ops._lib((m,))) for m in args.variant)
+    for p in args.other:
+        libs[str(p)] = turns.load_source("gather_einsum", p)
+    for lib in libs.values():
+        build.bind(lib, {entry: ops._SIGNATURES[entry]})
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for order in args.order or ["runs"]:
+        U, idx = user_index(order, B, g)
+        x_shape, t_shape = {"bd,uldh->blh": ((B, D), (U, L, D, H)),
+                            "bl,uld->bd": ((B, L), (U, L, D)),
+                            "blh,uh->bl": ((B, L, H), (U, H))}[spec]
+        x = torch.randn(x_shape, generator=g, device=dev).to(dtype)
+        table = torch.randn(t_shape, generator=g, device=dev).to(dtype)
+        shape = ops.out_shape(spec, x, table, idx)
+        dims = list(table.shape[1:]) + [0] * (4 - table.ndim)
+        if spec == "blh,uh->bl":
+            dims[1] = L
+        outs = {name: torch.empty(shape, device=dev, dtype=dtype)
+                for name in libs}
+
+        def launcher(name):
+            lib = libs[name]
+
+            def launch():
+                rc = getattr(lib, entry)(
+                    ops.KERNEL_SPECS.index(spec), x.data_ptr(),
+                    table.data_ptr(), idx.data_ptr(), outs[name].data_ptr(),
+                    B, U, *dims, stream)
+                build.check(lib, rc, f"gather_einsum ({name})")
+            return launch
+
+        ms = turns.take_turns({n: launcher(n) for n in libs}, args.rounds,
+                              args.iters)
+        others = [n for n in libs if n != "checkout"]
+        print(json.dumps(dict(
+            spec=spec, order=order, B=B, U=U, L=L, D=D, H=H,
+            dtype=args.dtype, iters=args.iters,
+            **turns.summary(ms, "checkout"),
+            max_abs_vs_checkout={n: float((outs[n].float()
+                                           - outs["checkout"].float())
+                                          .abs().max()) for n in others},
+            bitwise_vs_checkout={n: bool(torch.equal(outs[n],
+                                                     outs["checkout"]))
+                                 for n in others},
+            device=torch.cuda.get_device_name(0))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,8 +8,11 @@ spec ``parse_spec`` accepts). A CUDA tensor launches
 ``csrc/gather_einsum.cu`` for the three ``KERNEL_SPECS`` — the gathered
 ``(B, ...)`` operand never materializes — in fp32 or bf16 (f32 products
 and sums, the output in bf16), and raises ``NotImplementedError`` for any
-other spec. ``LAUNCHES`` counts kernel launches per spec, fp32 under the
-spec and bf16 under ``<spec>/bf16``.
+other spec. In bf16, ``bl,uld->bd`` and ``blh,uh->bl`` give the fp32
+kernel's result on the widened operands, rounded once; ``bd,uldh->blh``
+runs on the bf16 tensor cores, its f32 sums in the ``mma``'s order.
+``LAUNCHES`` counts kernel launches per spec, fp32 under the spec and bf16
+under ``<spec>/bf16``.
 
 Index contract (shared with ``mari_matmul``'s gather init): ``user_index``
 is ``(B,)`` integer, row ``b`` reads ``table[user_index[b]]``, and

@@ -340,3 +340,19 @@ def test_compare_tools_read_each_sources_entry():
             == 16
     with pytest.raises(ValueError, match="no extern"):
         turns.c_params(old, "din_attention_bf16_smem_bytes")
+
+
+def test_gather_einsum_compare_tool_calls_the_parents_entries_alike():
+    """``gather_einsum.compare`` binds this checkout's ``ctypes``
+    signatures to every source it builds: commit 5cd8cdc's (tests/data)
+    has the same two entries with the same 11 parameters."""
+    from pathlib import Path
+
+    from repro_torch.kernels import turns
+    old = (Path(__file__).parent / "data"
+           / "gather_einsum_5cd8cdc.cu").read_text()
+    new = (build.CSRC / "gather_einsum.cu").read_text()
+    for fn in ("gather_einsum_f32", "gather_einsum_bf16"):
+        assert turns.c_params(old, fn) == turns.c_params(new, fn)
+        assert len(turns.c_params(new, fn)) \
+            == len(ge.ops._SIGNATURES[fn][0]) == 11

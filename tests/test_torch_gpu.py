@@ -249,51 +249,187 @@ def _ge_index(g, order, B, U):
     return idx
 
 
-# (order, U, B, L, H): runs inside and across row tiles, random order at U =
-# 1, 8, 64, short runs (tiles of more than 8 users, read from L2),
-# out-of-range indices, B of 1, 301 and 4096, and L*H that is no multiple
-# of the column tile (L*H = 660), of 4 (91) or of 2 (63)
-GE_CASES = [("runs", 8, 301, 100, 80), ("runs", 8, 4096, 100, 80),
-            ("runs_aligned", 8, 4096, 100, 80), ("runs", 64, 4096, 100, 80),
-            ("runs", 3, 130, 33, 20), ("random", 1, 301, 100, 80),
-            ("random", 8, 4096, 100, 80), ("random", 64, 301, 100, 80),
-            ("random", 64, 4096, 100, 80), ("clamped", 8, 301, 100, 80),
-            ("clamped", 64, 1, 100, 80), ("random", 8, 1, 100, 80),
-            ("random", 11, 301, 33, 20), ("random", 5, 77, 7, 13),
-            ("runs", 9, 200, 9, 7), ("random", 40, 300, 9, 7),
-            ("short_runs", 64, 4096, 100, 80), ("short_runs", 9, 301, 33, 20),
-            ("short_runs", 64, 200, 9, 7)]
+# (order, U, B, L, D, H): runs inside and across row tiles, random order at
+# U = 1, 8, 64, short runs (tiles of more than 8 users, read from L2),
+# out-of-range indices, B of 1, 301 and 4096, L*H that is no multiple of
+# the column tile (L*H = 660), of 8 (660), of 4 (91) or of 2 (63), H no
+# multiple of 8 (20, 13, 7), and D past one chunk of d (40: two chunks, the
+# sums carried across steps) or odd (19), each on both routes (at most 8
+# users a row tile, staged; more, read from L2)
+GE_CASES = [("runs", 8, 301, 100, 18, 80), ("runs", 8, 4096, 100, 18, 80),
+            ("runs_aligned", 8, 4096, 100, 18, 80),
+            ("runs", 64, 4096, 100, 18, 80), ("runs", 3, 130, 33, 18, 20),
+            ("random", 1, 301, 100, 18, 80), ("random", 8, 4096, 100, 18, 80),
+            ("random", 64, 301, 100, 18, 80),
+            ("random", 64, 4096, 100, 18, 80),
+            ("clamped", 8, 301, 100, 18, 80), ("clamped", 64, 1, 100, 18, 80),
+            ("random", 8, 1, 100, 18, 80), ("random", 11, 301, 33, 18, 20),
+            ("random", 5, 77, 7, 18, 13), ("runs", 9, 200, 9, 18, 7),
+            ("random", 40, 300, 9, 18, 7),
+            ("short_runs", 64, 4096, 100, 18, 80),
+            ("short_runs", 9, 301, 33, 18, 20),
+            ("short_runs", 64, 200, 9, 18, 7),
+            ("runs", 8, 301, 100, 40, 80), ("random", 8, 301, 100, 40, 80),
+            ("random", 64, 301, 100, 40, 80), ("runs", 3, 130, 33, 40, 20),
+            ("short_runs", 64, 301, 33, 40, 20),
+            ("runs", 8, 301, 100, 19, 80), ("random", 8, 301, 100, 19, 80),
+            ("random", 64, 301, 100, 19, 80), ("runs", 9, 200, 9, 19, 7),
+            ("short_runs", 9, 301, 33, 19, 20)]
 
 
-@pytest.mark.parametrize("order,U,B,L,H", GE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order,U,B,L,D,H", GE_CASES)
 @pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
-def test_gather_einsum_kernel_index_orders(cuda, spec, order, U, B, L, H):
-    g = _gen(cuda, U * B + L * H)
-    x, table = _ge_operands(g, spec, B, U, L, 18, H)
+def test_gather_einsum_kernel_index_orders(cuda, spec, order, U, B, L, D, H,
+                                           dtype):
+    """Every spec, index order and route, in fp32 within 2e-4 of the plain
+    version; in bf16 within 2e-2 of it, ``bd,uldh->blh`` (the bf16 tensor
+    cores) held to the fp32 kernel on the widened operands by
+    ``chip_smoke.bf16_vs_widened`` (depth D), the other two specs bit for
+    bit that result, rounded once."""
+    g = _gen(cuda, U * B + L * H + D)
+    x, table = _ge_operands(g, spec, B, U, L, D, H)
+    x, table = x.to(dtype), table.to(dtype)
     idx = _ge_index(g, order, B, U)
     got = ge.gather_einsum(spec, x, table, idx)
+    want = ge.gather_einsum_plain(spec, x, table, idx)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, ge.gather_einsum_plain(spec, x, table,
-                                                           idx), **TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+        return
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    widened = ge.gather_einsum(spec, x.float(), table.float(), idx)
+    if spec == "bd,uldh->blh":
+        _chip_smoke().bf16_vs_widened(
+            got, widened, ge.gather_einsum(spec, x.float().abs(),
+                                           table.float().abs(), idx), D)
+    else:
+        assert torch.equal(got, widened.bfloat16())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("order,U", [("random", 8), ("runs", 8),
                                      ("random", 64), ("short_runs", 64)])
-@pytest.mark.parametrize("spec", ["bd,uldh->blh", "bl,uld->bd"])
+@pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
 def test_gather_einsum_row_bit_identical_whatever_the_batch(cuda, spec,
-                                                            order, U):
+                                                            order, U, dtype):
     """A row's result depends on its own x and user alone: a slice of the
-    rows (other tiles, other neighbours) gives the same bits. Over 64 slots
-    a full tile holds more than 8 users (slices read from L2) and a short
-    slice fewer (staged in shared memory): both routes agree."""
+    rows (other tiles, other neighbours) gives the same bits, in fp32 and
+    in bf16. Over 64 slots a full tile holds more than 8 users (slices read
+    from L2) and a short slice fewer (staged in shared memory): both routes
+    agree, also where bf16 ``bd,uldh->blh`` runs on the tensor cores."""
     g = _gen(cuda, 7)
     x, table = _ge_operands(g, spec, 301, U, 100, 18, 80)
+    x, table = x.to(dtype), table.to(dtype)
     idx = _ge_index(g, order, 301, U)
     full = ge.gather_einsum(spec, x, table, idx)
     for lo, hi in ((117, 203), (0, 1), (250, 301), (250, 255), (64, 70)):
         part = ge.gather_einsum(spec, x[lo:hi].contiguous(), table,
                                 idx[lo:hi].contiguous())
         assert torch.equal(full[lo:hi], part)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,shift", [
+    (301, 100, 1, 0), (301, 100, 3, 0), (301, 100, 81, 0), (77, 9, 257, 0),
+    (77, 9, 256, 0), (1000, 1, 80, 0), (1, 1, 80, 0), (301, 100, 80, 1),
+    (301, 100, 80, 2), (130, 7, 84, 0)])
+def test_gather_einsum_rows_vec_ragged_shapes(cuda, B, L, H, shift, dtype):
+    """``blh,uh->bl`` where its 16-byte loads do not fit: H 1, 3 and 81
+    (value by value), 257 and 256 (past the 128 whose table chunks a lane
+    keeps in registers), L = 1 (a new user every row), x a view 2 or 4
+    bytes off alignment (shift 1 / 2 values, 2 / 4 bytes in bf16 and 4 / 8
+    in fp32), H 84 (a last chunk of 4 in fp32): within tolerance of the
+    plain version, and bf16 bit for bit the fp32 kernel on the widened
+    operands."""
+    g = _gen(cuda, B + L + H)
+    U = 5
+    base = _randn(g, B * L * H + shift).to(dtype)
+    x = base[shift:].view(B, L, H)
+    table = _randn(g, U, H).to(dtype)
+    idx = torch.randint(-2, U + 2, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    got = ge.gather_einsum("blh,uh->bl", x, table, idx)
+    want = ge.gather_einsum_plain("blh,uh->bl", x, table, idx)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ge.gather_einsum(
+            "blh,uh->bl", x.float(), table.float(), idx).bfloat16())
+    if shift:     # the same rows aligned: the same bits
+        assert torch.equal(got, ge.gather_einsum(
+            "blh,uh->bl", x.contiguous().clone(), table, idx))
+
+
+@pytest.fixture(scope="module")
+def ge_parent_source():
+    """``gather_einsum`` as commit 5cd8cdc built it (its source under
+    tests/data), built with the checkout's flags."""
+    from repro_torch.kernels import turns
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = turns.load_source(
+        "gather_einsum", pathlib.Path(__file__).parent / "data"
+        / "gather_einsum_5cd8cdc.cu")
+    ge.ops.build.bind(lib, ge.ops._SIGNATURES)
+    return lib
+
+
+def _ge_run(lib, entry, spec, x, table, idx):
+    shape = ge.ops.out_shape(spec, x, table, idx)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    dims = list(table.shape[1:]) + [0] * (4 - table.ndim)
+    if spec == "blh,uh->bl":
+        dims[1] = x.shape[1]
+    rc = getattr(lib, entry)(
+        ge.KERNEL_SPECS.index(spec), x.data_ptr(), table.data_ptr(),
+        idx.data_ptr(), out.data_ptr(), x.shape[0], table.shape[0], *dims,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    ge.ops.build.check(lib, rc, f"gather_einsum {spec!r} (5cd8cdc)")
+    return out
+
+
+# (order, U, B, L, D, H): both routes of each spec, D of one chunk, of two
+# (40) and odd (19)
+GE_PARENT_CASES = [
+    ("runs", 8, 4096, 100, 18, 80), ("random", 8, 1000, 100, 18, 80),
+    ("random", 64, 1000, 100, 18, 80), ("short_runs", 64, 301, 100, 18, 80),
+    ("random", 11, 301, 33, 18, 20), ("runs", 9, 200, 9, 18, 7),
+    ("clamped", 5, 77, 7, 18, 13), ("runs", 8, 301, 100, 40, 80),
+    ("random", 64, 301, 100, 40, 80), ("random", 8, 301, 33, 19, 20),
+    ("short_runs", 64, 301, 100, 19, 80)]
+
+
+@pytest.mark.parametrize("order,U,B,L,D,H", GE_PARENT_CASES)
+@pytest.mark.parametrize("spec", ["bd,uldh->blh", "bl,uld->bd"])
+def test_gather_einsum_fp32_is_the_parents_bit_for_bit(
+        cuda, ge_parent_source, spec, order, U, B, L, D, H):
+    """The fp32 ``bd,uldh->blh`` and ``bl,uld->bd`` kept their arithmetic:
+    every index order and both routes give the bits of commit 5cd8cdc's
+    source."""
+    g = _gen(cuda, U + B + L)
+    x, table = _ge_operands(g, spec, B, U, L, D, H)
+    idx = _ge_index(g, order, B, U).contiguous()
+    want = _ge_run(ge_parent_source, "gather_einsum_f32", spec, x, table,
+                   idx)
+    assert torch.equal(ge.gather_einsum(spec, x, table, idx), want)
+
+
+@pytest.mark.parametrize("order,U,B,L,D,H", GE_PARENT_CASES)
+def test_gather_einsum_bf16_w_keys_is_the_parents_bf16_entry(
+        cuda, ge_parent_source, order, U, B, L, D, H):
+    """bf16 ``bl,uld->bd`` now stages keys and weights as bf16 by cp.async
+    and widens them where the FMAs read them: still the bits of commit
+    5cd8cdc's bf16 entry, which widened them into fp32 buffers."""
+    spec = "bl,uld->bd"
+    g = _gen(cuda, U + B + 3)
+    x, table = _ge_operands(g, spec, B, U, L, D, H)
+    x, table = x.bfloat16(), table.bfloat16()
+    idx = _ge_index(g, order, B, U).contiguous()
+    want = _ge_run(ge_parent_source, "gather_einsum_bf16", spec, x, table,
+                   idx)
+    assert torch.equal(ge.gather_einsum(spec, x, table, idx), want)
 
 
 def test_gather_einsum_other_spec_raises_on_cuda(cuda):
@@ -692,9 +828,13 @@ def test_dot_interaction_bf16_kernel_matches_plain(cuda, B, F, D, shift,
 @pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
 def test_gather_einsum_bf16_kernel_matches_plain(cuda, spec, order):
     """The bf16 entry: each spec, user_index in random order over 8 and 64
-    slots (the L2 route) and in runs (the staged route), clamped ids: bit
-    for bit the fp32 kernel on the widened operands, rounded once, and
-    within 2e-2 of the plain version."""
+    slots (the L2 route) and in runs (the staged route), clamped ids:
+    within 2e-2 of the plain version; ``bl,uld->bd`` and ``blh,uh->bl``
+    bit for bit the fp32 kernel on the widened operands, rounded once;
+    ``bd,uldh->blh`` (bf16 tensor cores, the f32 sums in the mma's order)
+    that result's rounding or one bf16 ulp from it, and where a sum
+    cancels within the f32 reordering bound (``chip_smoke.bf16_vs_widened``,
+    depth D)."""
     g = _gen(cuda, len(spec))
     U = 64 if order == "random64" else 8
     x, table = _ge_operands(g, spec, 301, U, 100, 18, 80)
@@ -708,8 +848,13 @@ def test_gather_einsum_bf16_kernel_matches_plain(cuda, spec, order):
     torch.cuda.synchronize()
     assert ge.LAUNCHES[f"{spec}/bf16"] == before + 1
     assert got.dtype == torch.bfloat16
-    assert torch.equal(got, ge.gather_einsum(spec, x.float(), table.float(),
-                                             idx).bfloat16())
+    widened = ge.gather_einsum(spec, x.float(), table.float(), idx)
+    if spec == "bd,uldh->blh":
+        _chip_smoke().bf16_vs_widened(
+            got, widened, ge.gather_einsum(spec, x.float().abs(),
+                                           table.float().abs(), idx), 18)
+    else:
+        assert torch.equal(got, widened.bfloat16())
     torch.testing.assert_close(
         got.float(), ge.gather_einsum_plain(spec, x, table, idx).float(),
         **BF16_TOL)
