@@ -21,8 +21,11 @@
    beside ``addmm`` at every ``mari_dense`` shape of the served models, in
    each init mode, at B = 4096 and 2048 (``mari_matmul_shapes``); its
    per-call host costs are the ``mari_matmul_host`` line, its bf16 entry
-   is held at 2e-2, at the same shapes with a broadcast init at the
-   ``serve_bf16`` cells' batches 512 / 262,144 / 1M
+   is held at 2e-2 and, for identity and relu, to an fp64 oracle on the
+   widened operands (``oracle_vs_fp64``: ``bf16_vs_widened``), x written
+   as the serving path writes a stream (rows ``stream_ld`` apart), and
+   timed at the same shapes with a broadcast init at the ``serve_bf16``
+   cells' batches 512 / 262,144 / 1M beside one bf16 ``addmm``
    (``mari_matmul_bf16_shapes``). ``din_attention`` also runs past the 920 keys a block
    once held (``by_length``: 921, 2048 and 10,000 keys at B = 512, in fp32
    at 2e-4 and bf16 at 2e-2). Every other kernel's bf16 entry
@@ -176,7 +179,9 @@
    262,144) and ``recsys_dlrm_serve_bf16`` (``dlrm-mlperf`` with all
    187,767,399 table rows, 48.07 GB drawn in bf16 on the card; 512 /
    262,144, and 1M where the probe of the shapes before says it fits in
-   ``CELL_MEM_SHARE``), each shape held to launch its bf16 entries. Per
+   ``CELL_MEM_SHARE``), each shape held to launch its bf16 entries; the
+   paper model's bf16 call at 262,144 rows is profiled once
+   (``profile``: device busy ms and the top kernels). Per
    cell: step ms (p50 of 5 calls after the first), rows or tokens a
    second, the bound by bytes and by operations (serving and recsys FLOPs
    counted by ``FlopCounterMode`` over a plain run; fp32 SIMT peak, TF32
@@ -385,6 +390,8 @@ SHARD_GRANITE_LAYERS, SHARD_GRANITE_BATCH = 2, 2
 SHARD_DLRM_SCALE_TABLES, SHARD_STEPS, SHARD_DRYRUN_TIMEOUT = 0.05, 2, 600
 SHARD_DRYRUNS = (("fm", "serve_p99", ()),
                  ("granite-moe-3b-a800m", "train_4k", ("moe_local",)))
+# the serve cell and shape whose captured call phase 11 profiles once
+CELL_PROFILED = ("recsys_paper_serve_bf16", "serve_bulk")
 # phase 11's serve cells: (name, arch, opts, shapes, the shapes run only
 # where the probe says they fit, the kernel entries each shape's serving
 # calls must launch). serve_bf16 puts params and float feeds in bf16:
@@ -1269,6 +1276,10 @@ def cells_phase(dev, counting) -> None:
                 launched = {k: v for k, v in read_launches().items() if v}
             peak = torch.cuda.max_memory_allocated(dev)
             reserved = [torch.cuda.max_memory_reserved(dev)]
+            # the paper model's bf16 bulk call profiled once: the share of
+            # its device time that mari_matmul's bf16 entry takes
+            prof = ({"profile": profile_call(lambda: serve(params, feeds))}
+                    if (name, shape) == CELL_PROFILED else {})
             del serve
             fresh()
             plain = prog.compiled(dev, use_pallas=False)
@@ -1331,7 +1342,7 @@ def cells_phase(dev, counting) -> None:
                     (got.float() - want_c.float()).abs().max()),
                 max_abs_compiled_plain_vs_eager_plain=float(
                     (want_c.float() - want.float()).abs().max()), tol=tol,
-                dtype="bfloat16" if bf16 else "float32", **extra)
+                dtype="bfloat16" if bf16 else "float32", **extra, **prof)
             del feeds, got, want, want_c
         del params
     fresh()
@@ -2169,13 +2180,25 @@ def main() -> int:
              "torch.addmm at the main shape")
     del x351
 
-    # the bf16 entry (the serve_bf16 cells' path, phase 11), held to its
-    # plain version at the reference's bf16 tolerance
-    xb, wb = x.bfloat16(), w.bfloat16()
+    # the bf16 entry (the serve_bf16 cells' path, phase 11), x written as
+    # the serving path writes a stream (rows stream_ld apart), held to its
+    # plain version at the reference's bf16 tolerance and, for identity
+    # and relu, to an fp64 oracle on the widened operands
+    # (bf16_vs_widened: its rounding or one ulp, or where a sum cancels one
+    # ulp plus the f32 reordering bound over |u| + |x| |w|)
+    xb = mm.empty_stream(B, K, torch.bfloat16, dev).copy_(x)
+    wb = w.bfloat16()
     pwb = mm.prepare_mari_weight(wb)
     ub = u_of["broadcast"]
     errs = [max_err(mm.mari_matmul(xb, pwb, ub, None, "relu"),
                     mm.mari_matmul_plain(xb, wb, ub, None, "relu"), BF16_TOL)]
+    exact = ub.double() + xb.double() @ wb.double()
+    abs_sums = ub.double().abs() + xb.double().abs() @ wb.double().abs()
+    oracle = {act: bf16_vs_widened(mm.mari_matmul(xb, pwb, ub, None, act),
+                                   fn(exact), abs_sums, K)
+              for act, fn in (("identity", lambda v: v),
+                              ("relu", torch.relu))}
+    del exact, abs_sums
     for mode in mm.ops.INIT_MODES:
         Br, Kr, Nr, Ur = 1000, 333, 65, 5
         xr, wr = randn(Br, Kr).bfloat16(), randn(Kr, Nr).bfloat16()
@@ -2196,27 +2219,38 @@ def main() -> int:
                                                       "relu")),
         bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
         library_ms=time_ms(lambda: torch.addmm(ub.bfloat16(), xb, wb)),
-        shape=dict(B=B, K=K, N=N, u_rows=1, act="relu", dtype="bfloat16"),
+        shape=dict(B=B, K=K, N=N, u_rows=1, act="relu", dtype="bfloat16",
+                   x_row_stride=xb.stride(0),
+                   plan=dataclasses.asdict(mm.ops.bf16_plan(B, N))),
+        oracle_vs_fp64=oracle,
         library="torch.addmm in bf16 (no activation)")
     del xb, wb, pwb
 
     # the bf16 entry at every mari_dense shape of the served models, with
     # a broadcast init (what the serve_bf16 cells run), at the cells'
-    # batches (K = 351 and 500 rows take the stride copy in bf16)
+    # batches, x written as the serving path writes it, beside one bf16
+    # torch.addmm on the same operands; route: the kernel's only one (no
+    # split of K over CTAs), the tile its plan picks
     sweep_bf16 = []
     for layer, Ks, Ns, act in MARI_SHAPES:
         ws_ = (randn(Ks, Ns) * 0.05).bfloat16()
         pws, us = mm.prepare_mari_weight(ws_), randn(1, Ns)
+        ub_ = us.bfloat16()
         for Bs in MARI_BF16_BATCHES:
-            xs_ = randn(Bs, Ks).bfloat16()
+            xs_ = mm.empty_stream(Bs, Ks, torch.bfloat16, dev).copy_(
+                randn(Bs, Ks))
             err = max_err(mm.mari_matmul(xs_, pws, us, None, act),
                           mm.mari_matmul_plain(xs_, ws_, us, None, act),
                           BF16_TOL)
             b_ms, _ = mari_bound(Bs, Ks, Ns, 1, "broadcast", torch.bfloat16)
+            plan = mm.ops.bf16_plan(Bs, Ns)
             sweep_bf16.append(dict(
                 layer=layer, B=Bs, K=Ks, N=Ns, act=act, max_abs_err=err,
+                route="main", tile=[plan.bm, plan.bn], grid=plan.grid,
+                x_row_stride=xs_.stride(0),
                 stride_copy=not mm.ops.tma_ready(xs_),
                 ms=time_ms(lambda: mm.mari_matmul(xs_, pws, us, None, act)),
+                addmm_ms=time_ms(lambda: torch.addmm(ub_, xs_, ws_)),
                 bound_ms=b_ms))
             del xs_
         del ws_, pws

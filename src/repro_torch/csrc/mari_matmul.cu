@@ -1,5 +1,6 @@
-// Fused MaRI matmul (Eq. 7) for Hopper: TMA-fed wgmma, fp32 accuracy by
-// 3xTF32, and a bf16 entry on the same pipeline.
+// Fused MaRI matmul (Eq. 7) for Hopper: TMA-fed wgmma in two entries, fp32
+// operands at fp32 accuracy by 3xTF32, and bf16 operands on a pipeline of
+// their own.
 //
 //   out = act(u_init + x (B, K) @ w (K, N))
 //
@@ -15,16 +16,16 @@
 // The activation runs on the accumulator registers in the epilogue, so the
 // (B, N) pre-activation never round-trips through device memory.
 //
-// What bounds it on an H100. At the serving path's main shape (B = 4096,
-// K = 1064, N = 512, the paper's expert fc0) the product is 2BKN = 4.46
-// GFLOP on ~30 MB of operands. On the fp32 SIMT units (67 TFLOP/s) that is
-// 0.067 ms of operations, and cuBLAS's SIMT GEMM reaches ~0.1 ms: the only
-// way past it is the tensor cores. TF32 alone keeps ~3 decimal digits and
-// misses the port's fp32 parity (2e-4), so each operand is split into a
-// TF32 "hi" part and a TF32 "lo" remainder and the product is taken as
-// lo(x) w_hi + hi(x) w_lo + hi(x) w_hi (3xTF32, the small terms first):
-// 3 x 2BKN at 495 TFLOP/s = 0.027 ms, still operation-bound (the bytes
-// take 0.009 ms at 3.35 TB/s).
+// fp32 entry (mari_wgmma_kernel). What bounds it on an H100. At the serving
+// path's main shape (B = 4096, K = 1064, N = 512, the paper's expert fc0)
+// the product is 2BKN = 4.46 GFLOP on ~30 MB of operands. On the fp32 SIMT
+// units (67 TFLOP/s) that is 0.067 ms of operations, and cuBLAS's SIMT GEMM
+// reaches ~0.1 ms: the only way past it is the tensor cores. TF32 alone
+// keeps ~3 decimal digits and misses the port's fp32 parity (2e-4), so
+// each operand is split into a TF32 "hi" part and a TF32 "lo" remainder
+// and the product is taken as lo(x) w_hi + hi(x) w_lo + hi(x) w_hi (3xTF32,
+// the small terms first): 3 x 2BKN at 495 TFLOP/s = 0.027 ms, still
+// operation-bound (the bytes take 0.009 ms at 3.35 TB/s).
 //
 // Design (one output tile of BM x BN per block, BM = 64 per consumer
 // warpgroup, one or two consumers; BN = 8 / 32 / 64 / 128 from N alone):
@@ -34,11 +35,11 @@
 //     K_pad) arrays; their TMA descriptors are encoded once with it. x's
 //     descriptor is encoded per call from its pointer and row stride.
 //   * One thread of a loader warpgroup issues TMA loads (128-byte
-//     swizzle, BK = 32 fp32 = one 128-byte row; 64 bf16) of x, w_hi and
-//     w_lo into a ring of stages in dynamic shared memory, with a full and
-//     an empty mbarrier per stage. TMA's out-of-bounds zero fill does the
-//     ragged K, B and N edges; stores are masked to (B, N). setmaxnreg
-//     gives the loader's registers to the consumers.
+//     swizzle, BK = 32 fp32 = one 128-byte row) of x, w_hi and w_lo into a
+//     ring of stages in dynamic shared memory, with a full and an empty
+//     mbarrier per stage. TMA's out-of-bounds zero fill does the ragged K,
+//     B and N edges; stores are masked to (B, N). setmaxnreg gives the
+//     loader's registers to the consumers.
 //   * Each consumer warpgroup issues, per 8-deep k step, the three
 //     wgmma.m64nBNk8.f32.tf32.tf32 with A from registers (its 64 x 32 x
 //     fragment, read from shared memory un-swizzling the addresses and
@@ -52,13 +53,53 @@
 //     product) and is added to the running fp32 accumulator with ordinary
 //     adds: 12 tensor-core steps per chain (chip_smoke.py's
 //     mari_matmul_accuracy line holds the result beside cuBLAS's fp32).
-//   * bf16: wgmma.m64nBNk16.f32.bf16.bf16 with A and B from shared
-//     memory (w prepared as a (N, K_pad) bf16 transpose), one product per
-//     k step, f32 accumulator from the f32 u, bf16 output.
-// No split-K and no atomics: every tile walks all of K in the same BK
-// steps and the same order, and a row's products never depend on the
-// other rows of its tile, so a row's result does not depend on B, U, the
-// tile size or the bucket it was packed into.
+//
+// bf16 entry (mari_bf16_kernel). At the same shape one bf16 product is
+// 4.46 GFLOP at 989 TFLOP/s = 0.0045 ms against 13.8 MB of operands and
+// output (0.0041 ms at 3.35 TB/s): operation-bound, so the tensor cores
+// must be fed without a pause. Design:
+//   * Operands on L2 lines. The weight is prepared once as the (N, K_pad)
+//     bf16 transpose with K_pad a multiple of 64, and the serving path
+//     writes x streams at row strides of 128-byte multiples (ops.py,
+//     stream_ld): each 64-deep k tile of a row is then one 128-byte L2
+//     line. At K = 1064 (rows 2,128 bytes apart) every row of a tile
+//     straddles two lines: an x laid so took 0.0126 ms at 4096 x 1064 x
+//     512 against 0.0107 on lines (H100 80GB HBM3, 700 W; compare.py
+//     --ld 0).
+//   * wgmma.m64nBNk16.f32.bf16.bf16 reads both operands from shared memory
+//     (K-major, 128-byte swizzle). A stage holds BK = 64 bf16 of x (BM
+//     rows) and of w (BN rows): 32 KB at BM = BN = 128. The same loader
+//     warpgroup, one thread issuing TMA.
+//   * The association of the sums is fixed by K alone. K is cut into
+//     chunks of CHUNK_K = 256 (4 k tiles, 16 k16 steps); each chunk chains
+//     on the tensor cores from zero, and the chunks are added to the f32
+//     init in chunk order with ordinary adds: acc = ((u + c0) + c1) + ...
+//     The TPU kernel adds blocks of its bk = 512 the same way; 256 halves
+//     each tensor-core chain (their f32 accumulation truncates) and cuts
+//     K = 1064 into 4 + 4 + 4 + 4 + 1 tiles where 512 gives 8 + 8 + 1.
+//   * Products stay in flight. Each k tile's 4 wgmma are one commit group;
+//     after committing it the consumer waits with wait_group 1, so only
+//     the previous tile's group has to have retired, and that tile's stage
+//     is released. Two partial register sets alternate between chunks: a
+//     finished chunk is added to the accumulator while the next chunk's
+//     first group runs. A thread holds 3 x BN / 2 floats (192 at BN 128).
+//   * Persistent: one CTA per SM walks the output tiles (BN from N alone,
+//     as fp32; BM 64 or 128 from (B, N), as fp32); the loader runs on into
+//     the next tile's k tiles while the consumers finish this one's
+//     epilogue. The epilogue applies the activation on the registers,
+//     rounds to bf16 once, stages the tile beside the ring (rows padded by
+//     16 bytes: the fragment writes hit 32 distinct banks) and writes
+//     16-byte row pieces where N % 8 == 0 (element stores otherwise).
+//   * Tried and left out (measured at 4096 x 1064 x 512 beside this
+//     design's earlier builds): clusters sharing x and w by TMA multicast
+//     (2 to 8 CTAs) were slower once rows sat on lines, and at 4 or 8
+//     CTAs even before (clusters that big did not all fit at once).
+// Neither entry splits K over blocks, and nothing is added by atomics:
+// every tile walks all of K in one block, in its entry's fixed k order,
+// and a row's products never depend on the other rows of its tile, so a
+// row's result does not depend on B, U, the tile size or the bucket it
+// was packed into. (A split route for bf16 at small B was not built: at
+// 512 rows every serving stream already beats bf16 addmm, PERF.md.)
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,6 +195,17 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most N of this warpgroup's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// a barrier over `count` threads (whole warps) under id 1 .. 15
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 // keep the compiler from moving accesses of registers an in-flight wgmma
@@ -350,7 +402,7 @@ struct Mma<128> {
   }
 };
 
-// ---- the kernel ------------------------------------------------------------
+// ---- shared by both entries -------------------------------------------------
 struct Args {
   const float* u;        // (1, N), (B, N) or (U, N) f32
   const int* idx;        // (B,) int32, INIT_GATHER only
@@ -372,6 +424,13 @@ __device__ __forceinline__ const float* urow(const Args& a, int r) {
   return a.u + (size_t)s * a.N;
 }
 
+// ---- the fp32 entry ----------------------------------------------------------
+// Kept in the text of commit c074909 (its template parameter DT is always
+// DT_F32 now): the same arithmetic refactored (u's init as a helper, the
+// store's pointer hoisted, wait_group taken as an operand) built a kernel
+// 9% slower on the card (H100 80GB HBM3, 700 W; compare.py --dtype
+// float32 against tests/data/mari_matmul_c074909.cu).
+
 // accumulator register 4j + 2h + e holds (row r0 + 8h, col n0 + 8j + 2t + e)
 template <int BN, int DT, int ACT>
 __device__ __forceinline__ void store_tile(const float* acc, const Args& a,
@@ -388,23 +447,12 @@ __device__ __forceinline__ void store_tile(const float* acc, const Args& a,
       const float v0 = activate<ACT>(acc[4 * j + 2 * h]);
       const float v1 = activate<ACT>(acc[4 * j + 2 * h + 1]);
       const size_t o = (size_t)r * a.N + c;
-      if (DT == DT_F32) {
-        float* out = static_cast<float*>(a.out);
-        if (pairs) {
-          *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
-        } else {
-          out[o] = v0;
-          if (c + 1 < a.N) out[o + 1] = v1;
-        }
+      float* out = static_cast<float*>(a.out);
+      if (pairs) {
+        *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
       } else {
-        __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(out + o) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          out[o] = __float2bfloat16(v0);
-          if (c + 1 < a.N) out[o + 1] = __float2bfloat16(v1);
-        }
+        out[o] = v0;
+        if (c + 1 < a.N) out[o + 1] = v1;
       }
     }
   }
@@ -559,25 +607,6 @@ mari_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           tf32_step<BN>(a, smem, kt + 1, rl, g, t, hB, lB, hA, lA, acc, part,
                         full_bar, empty_bar);
       }
-    } else {
-      for (int kt = 0; kt < a.nk; ++kt) {
-        const int s = kt % a.stages;
-        mbar_wait(&full_bar[s], (kt / a.stages) & 1);
-        const uint8_t* st = smem + (size_t)s * a.stage_bytes;
-        const uint64_t da = smem_desc(st + wg * ROWS_PER_WG * ROW_BYTES);
-        const uint64_t db = smem_desc(st + a.x_bytes);
-        fence_regs<R>(part);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
-          Mma<BN>::bf16(part, da + 2 * kk, db + 2 * kk, kk > 0);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs<R>(part);
-        if (threadIdx.x % 128 == 0) mbar_arrive(&empty_bar[s]);
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i] += part[i];
-      }
     }
 
     switch (a.act) {
@@ -590,6 +619,248 @@ mari_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       case ACT_TANH: store_tile<BN, DT, ACT_TANH>(acc, a, r0, n0, t); break;
       default: store_tile<BN, DT, ACT_IDENTITY>(acc, a, r0, n0, t); break;
     }
+  }
+}
+
+// ---- the bf16 entry ----------------------------------------------------------
+// the init: accumulator register 4j + 2h + e holds (row r0 + 8h, col n0 +
+// 8j + 2t + e)
+template <int BN>
+__device__ __forceinline__ void init_acc(float* acc, const Args& a, int r0,
+                                         int n0, int t) {
+  const float* u0 = urow(a, r0);
+  const float* u1 = urow(a, r0 + 8);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    acc[4 * j + 0] = (u0 && c < a.N) ? u0[c] : 0.f;
+    acc[4 * j + 1] = (u0 && c + 1 < a.N) ? u0[c + 1] : 0.f;
+    acc[4 * j + 2] = (u1 && c < a.N) ? u1[c] : 0.f;
+    acc[4 * j + 3] = (u1 && c + 1 < a.N) ? u1[c + 1] : 0.f;
+  }
+}
+
+constexpr int CHUNK_TILES = 4;        // 64-deep k tiles a chunk: CHUNK_K 256
+
+// the staged output tile's row pitch: BN bf16 plus 16 bytes, so the eight
+// rows a fragment write touches start 4 banks apart
+template <int BN>
+__host__ __device__ constexpr int stage_pitch() { return BN * 2 + 16; }
+
+// Ring positions run on across a CTA's output tiles: k tile kt of the
+// tile whose first k tile is ring position g0 sits at position g0 + kt.
+struct Ring {
+  const uint8_t* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  int g0;
+};
+
+// One k tile of the bf16 entry: wait for its stage, then 4
+// wgmma.m64nBNk16 of this warpgroup's 64 x rows against the stage's w rows
+// into `p` (from zero when `first`), one commit group.
+template <int BN>
+__device__ __forceinline__ void bf16_issue(const Args& a, const Ring& r,
+                                           int kt, int wg, float* p,
+                                           bool first) {
+  const int g = r.g0 + kt, s = g % a.stages;
+  mbar_wait(&r.full[s], (g / a.stages) & 1);
+  const uint8_t* st = r.smem + (size_t)s * a.stage_bytes;
+  const uint64_t da = smem_desc(st + wg * ROWS_PER_WG * ROW_BYTES);
+  const uint64_t db = smem_desc(st + a.x_bytes);
+  fence_regs<BN / 2>(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    Mma<BN>::bf16(p, da + 2 * kk, db + 2 * kk, (first && kk == 0) ? 0 : 1);
+  wgmma_commit();
+}
+
+// the stage of k tile kt back to the loader (one arrival a warpgroup)
+__device__ __forceinline__ void bf16_release(const Args& a, const Ring& r,
+                                             int kt) {
+  if (threadIdx.x % 128 == 0) mbar_arrive(&r.empty[(r.g0 + kt) % a.stages]);
+}
+
+// k tiles [k0, k1) into `p`, each waiting only for the group before it
+// (wait_group 1), whose stage is then released
+template <int BN>
+__device__ __forceinline__ void bf16_run(const Args& a, const Ring& r, int k0,
+                                         int k1, int wg, float* p) {
+  for (int kt = k0; kt < k1; ++kt) {
+    bf16_issue<BN>(a, r, kt, wg, p, false);
+    wgmma_wait<1>();
+    fence_regs<BN / 2>(p);
+    bf16_release(a, r, kt - 1);
+  }
+}
+
+// Where full chunk c (k tiles t0 .. t0 + 3, partial `p`) meets chunk c + 1
+// (partial `q`), in one straight run of code: c's last k tile, then c + 1's
+// first from zero; once only that group is in flight, `p` is complete and
+// is added to `acc` while `q`'s first products run. (ptxas tracks which
+// accumulators a wait_group 1 leaves in flight only within a run of code
+// like this one; across a loop's back edge it serialises every wgmma.)
+template <int BN>
+__device__ __forceinline__ void bf16_turn(const Args& a, const Ring& r,
+                                          int t0, int wg, float* p, float* q,
+                                          float* acc) {
+  constexpr int R = BN / 2;
+  const int last = t0 + CHUNK_TILES - 1;
+  bf16_issue<BN>(a, r, last, wg, p, false);
+  wgmma_wait<1>();
+  fence_regs<R>(p);
+  bf16_release(a, r, last - 1);
+  bf16_issue<BN>(a, r, last + 1, wg, q, true);
+  wgmma_wait<1>();
+  fence_regs<R>(p);
+  fence_regs<R>(q);
+  bf16_release(a, r, last);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += p[i];
+}
+
+// the last chunk (from k tile t0, its first already issued into `p`): its
+// other k tiles, every group retired, every stage released, `p` added
+template <int BN>
+__device__ __forceinline__ void bf16_last(const Args& a, const Ring& r,
+                                          int t0, int wg, float* p,
+                                          float* acc) {
+  bf16_run<BN>(a, r, t0 + 1, a.nk, wg, p);
+  wgmma_wait<0>();
+  fence_regs<BN / 2>(p);
+  bf16_release(a, r, a.nk - 1);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] += p[i];
+}
+
+// activation, bf16 rounding, and the fragment's place in the staged tile:
+// register 4j + 2h + e is (row rs + 8h, col 8j + 2t + e)
+template <int BN, int ACT>
+__device__ __forceinline__ void stage_tile(const float* acc, uint8_t* ep,
+                                           int rs, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ep + (rs + 8 * h) * stage_pitch<BN>() + (8 * j + 2 * t) * 2) =
+          __floats2bfloat162_rn(activate<ACT>(acc[4 * j + 2 * h]),
+                                activate<ACT>(acc[4 * j + 2 * h + 1]));
+}
+
+// Persistent: CTA c takes output tiles c, c + gridDim.x, ... (BM = 64 *
+// consumers rows by BN columns; tile t is row block t / tiles_n, column
+// block t % tiles_n). The loader runs through every tile's k tiles on one
+// ring, so the next tile's first loads land while the consumers finish
+// this one's epilogue, which stages the tile outside the ring.
+template <int BN>
+__global__ void __launch_bounds__(3 * 128, 1)
+mari_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap, const Args a) {
+  constexpr int R = BN / 2;
+  __shared__ __align__(8) uint64_t full_bar[MAX_STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[MAX_STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int nc = blockDim.x / 128 - 1;
+  const int wg = threadIdx.x / 128;
+  const int bm = nc * ROWS_PER_WG;
+  const int tiles_n = (a.N + BN - 1) / BN;
+  const int tiles = tiles_n * ((a.B + bm - 1) / bm);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], nc);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == nc) {                                  // loader warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      int g = 0;                                   // ring position
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * bm, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < a.nk; ++kt, ++g) {
+          const int s = g % a.stages;
+          if (g >= a.stages)
+            mbar_wait(&empty_bar[s], ((g / a.stages) - 1) & 1);
+          uint8_t* st = smem + (size_t)s * a.stage_bytes;
+          mbar_expect_tx(&full_bar[s], a.stage_bytes);
+          tma_load_2d(st, &xmap, &full_bar[s], kt * 64, m0);
+          tma_load_2d(st + a.x_bytes, &wmap, &full_bar[s], kt * 64, n0);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rs = warp * 16 + g;                    // rows rs, rs + 8 of the wg
+  uint8_t* ep = smem + (size_t)a.stages * a.stage_bytes +
+                (size_t)wg * ROWS_PER_WG * stage_pitch<BN>();
+  const int nch = (a.nk + CHUNK_TILES - 1) / CHUNK_TILES;
+  Ring r{smem, full_bar, empty_bar, 0};
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x,
+           r.g0 += a.nk) {
+    const int m0 = tile / tiles_n * bm, n0 = tile % tiles_n * BN;
+    float acc[R];
+    init_acc<BN>(acc, a, m0 + wg * ROWS_PER_WG + rs, n0, t);
+    // chunks alternate between two partials, pa (even) and pb (odd)
+    float pa[R], pb[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) pa[i] = pb[i] = 0.f;
+    if (nch > 0) bf16_issue<BN>(a, r, 0, wg, pa, true);
+    for (int c = 0; c < nch; c += 2) {
+      const int t0 = c * CHUNK_TILES, t1 = t0 + CHUNK_TILES;
+      if (c + 1 == nch) {
+        bf16_last<BN>(a, r, t0, wg, pa, acc);
+        break;
+      }
+      bf16_run<BN>(a, r, t0 + 1, t1 - 1, wg, pa);
+      bf16_turn<BN>(a, r, t0, wg, pa, pb, acc);
+      if (c + 2 == nch) {
+        bf16_last<BN>(a, r, t1, wg, pb, acc);
+        break;
+      }
+      bf16_run<BN>(a, r, t1 + 1, t1 + CHUNK_TILES - 1, wg, pb);
+      bf16_turn<BN>(a, r, t1, wg, pb, pa, acc);
+    }
+
+    switch (a.act) {
+      case ACT_RELU: stage_tile<BN, ACT_RELU>(acc, ep, rs, t); break;
+      case ACT_GELU: stage_tile<BN, ACT_GELU>(acc, ep, rs, t); break;
+      case ACT_SILU: stage_tile<BN, ACT_SILU>(acc, ep, rs, t); break;
+      case ACT_SIGMOID: stage_tile<BN, ACT_SIGMOID>(acc, ep, rs, t); break;
+      case ACT_TANH: stage_tile<BN, ACT_TANH>(acc, ep, rs, t); break;
+      default: stage_tile<BN, ACT_IDENTITY>(acc, ep, rs, t); break;
+    }
+    named_sync(1 + wg, 128);
+    // 16-byte row pieces, consecutive threads on consecutive pieces
+    constexpr int PIECES = BN / 8;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+    const bool vec = (a.N & 7) == 0;
+    for (int i = threadIdx.x % 128; i < ROWS_PER_WG * PIECES; i += 128) {
+      const int row = i / PIECES, pc = i % PIECES;
+      const int gr = m0 + wg * ROWS_PER_WG + row, c = n0 + 8 * pc;
+      if (gr >= a.B || c >= a.N) continue;
+      const uint8_t* src = ep + row * stage_pitch<BN>() + pc * 16;
+      __nv_bfloat16* dst = out + (size_t)gr * a.N + c;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(src);
+        for (int e = 0; e < 8 && c + e < a.N; ++e) dst[e] = v[e];
+      }
+    }
+    named_sync(1 + wg, 128);     // the staging is read before it is reused
   }
 }
 
@@ -645,58 +916,112 @@ int encode(CUtensorMap* m, int dtype, const void* base, uint64_t inner,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-template <int BN, int DT>
-int launch(const CUtensorMap& xm, const CUtensorMap& hm, const CUtensorMap& lm,
-           const Args& a, int nc, cudaStream_t stream) {
+// the ring's stages: as many as ~200 KB of shared memory holds (one block
+// per SM), 2 .. MAX_STAGES
+int ring_stages(uint32_t stage_bytes) {
+  const int stages = (200 * 1024) / (int)stage_bytes;
+  return stages < 2 ? 2 : (stages > MAX_STAGES ? MAX_STAGES : stages);
+}
+
+// the bf16 entry at (bm, bn): the ring takes as many stages as ~200 KB
+// holds beside the staged output tile (bm rows of 2 bn + 16 bytes), 2 ..
+// MAX_STAGES; its dynamic shared memory is both and 1024 bytes of
+// alignment slack
+int bf16_stages(int bm, int bn) {
+  const int stage = (bm + bn) * ROW_BYTES;
+  const int stages = (200 * 1024 - bm * (bn * 2 + 16)) / stage;
+  return stages < 2 ? 2 : (stages > MAX_STAGES ? MAX_STAGES : stages);
+}
+
+size_t bf16_smem_bytes(int bm, int bn) {
+  return (size_t)bf16_stages(bm, bn) * (bm + bn) * ROW_BYTES +
+         (size_t)bm * (bn * 2 + 16) + 1024;
+}
+
+template <int BN>
+int launch_tf32(const CUtensorMap& xm, const CUtensorMap& hm,
+                const CUtensorMap& lm, const Args& a, int nc,
+                cudaStream_t stream) {
   const size_t smem = (size_t)a.stages * a.stage_bytes + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      mari_wgmma_kernel<BN, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mari_wgmma_kernel<BN, DT_F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.N + BN - 1) / BN,
                   (a.B + nc * ROWS_PER_WG - 1) / (nc * ROWS_PER_WG));
-  mari_wgmma_kernel<BN, DT><<<grid, (nc + 1) * 128, smem, stream>>>(xm, hm,
-                                                                    lm, a);
+  mari_wgmma_kernel<BN, DT_F32><<<grid, (nc + 1) * 128, smem, stream>>>(xm, hm, lm,
+                                                               a);
   return (int)cudaGetLastError();
 }
 
-template <int DT>
-int run(const void* x, long long ldx, const void* wmaps, const float* u,
-        const int* idx, void* out, int B, int K, int N, int U, int init,
-        int act, int bm, int bn, void* stream) {
+int sm_count() {
+  static int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+template <int BN>
+int launch_bf16(const CUtensorMap& xm, const CUtensorMap& wm, const Args& a,
+                int nc, cudaStream_t stream) {
+  const size_t smem = bf16_smem_bytes(nc * ROWS_PER_WG, BN);
+  cudaError_t e = cudaFuncSetAttribute(
+      mari_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((a.N + BN - 1) / BN) *
+                    ((a.B + nc * ROWS_PER_WG - 1) / (nc * ROWS_PER_WG));
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  mari_bf16_kernel<BN><<<grid, (nc + 1) * 128, smem, stream>>>(xm, wm, a);
+  return (int)cudaGetLastError();
+}
+
+int run(int dt, const void* x, long long ldx, const void* wmaps,
+        const float* u, const int* idx, void* out, int B, int K, int N, int U,
+        int init, int act, int bm, int bn, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (init < INIT_ROW || init > INIT_GATHER || act < ACT_IDENTITY ||
       act > ACT_TANH || (bm != 64 && bm != 128) || K < 0 || ldx < K)
     return ERR_ARGS;
-  constexpr int BK = DT == DT_F32 ? 32 : 64;
-  const int nc = bm / ROWS_PER_WG;
+  const bool f32 = dt == DT_F32;
+  const int bk = f32 ? 32 : 64;
   Args a;
   a.u = u; a.idx = idx; a.out = out;
   a.B = B; a.K = K; a.N = N; a.U = U; a.init = init; a.act = act;
-  a.nk = (K + BK - 1) / BK;
+  a.nk = (K + bk - 1) / bk;
   a.x_bytes = (uint32_t)bm * ROW_BYTES;
-  a.stage_bytes =
-      a.x_bytes + (uint32_t)bn * ROW_BYTES * (DT == DT_F32 ? 2 : 1);
-  // as deep a ring as ~200 KB of shared memory holds (one block per SM)
-  int stages = (200 * 1024) / (int)a.stage_bytes;
-  a.stages = stages < 2 ? 2 : (stages > MAX_STAGES ? MAX_STAGES : stages);
+  a.stage_bytes = a.x_bytes + (uint32_t)bn * ROW_BYTES * (f32 ? 2 : 1);
+  a.stages = ring_stages(a.stage_bytes);
 
+  if (!f32) a.stages = bf16_stages(bm, bn);
   CUtensorMap xm, hm, lm;
   memset(&xm, 0, sizeof xm);
   if (a.nk > 0) {
-    const int rc = encode(&xm, DT, x, (uint64_t)K, (uint64_t)B,
-                          (uint64_t)ldx, BK, (uint32_t)bm);
+    const int rc = encode(&xm, dt, x, (uint64_t)K, (uint64_t)B,
+                          (uint64_t)ldx, bk, (uint32_t)bm);
     if (rc) return rc;
   }
   memcpy(&hm, wmaps, sizeof hm);
-  memcpy(&lm, static_cast<const char*>(wmaps) + (DT == DT_F32 ? sizeof hm : 0),
-         sizeof lm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = bm / ROWS_PER_WG;
+  if (f32) {
+    memcpy(&lm, static_cast<const char*>(wmaps) + sizeof hm, sizeof lm);
+    switch (bn) {
+      case 8: return launch_tf32<8>(xm, hm, lm, a, nc, s);
+      case 32: return launch_tf32<32>(xm, hm, lm, a, nc, s);
+      case 64: return launch_tf32<64>(xm, hm, lm, a, nc, s);
+      case 128: return launch_tf32<128>(xm, hm, lm, a, nc, s);
+      default: return ERR_ARGS;
+    }
+  }
   switch (bn) {
-    case 8: return launch<8, DT>(xm, hm, lm, a, nc, s);
-    case 32: return launch<32, DT>(xm, hm, lm, a, nc, s);
-    case 64: return launch<64, DT>(xm, hm, lm, a, nc, s);
-    case 128: return launch<128, DT>(xm, hm, lm, a, nc, s);
+    case 8: return launch_bf16<8>(xm, hm, a, nc, s);
+    case 32: return launch_bf16<32>(xm, hm, a, nc, s);
+    case 64: return launch_bf16<64>(xm, hm, a, nc, s);
+    case 128: return launch_bf16<128>(xm, hm, a, nc, s);
     default: return ERR_ARGS;
   }
 }
@@ -729,18 +1054,24 @@ int mari_matmul_f32(const float* x, long long ldx, const void* wmaps,
                     const float* u, const int* idx, float* out, int B, int K,
                     int N, int U, int init, int act, int bm, int bn,
                     void* stream) {
-  return run<DT_F32>(x, ldx, wmaps, u, idx, out, B, K, N, U, init, act, bm,
-                     bn, stream);
+  return run(DT_F32, x, ldx, wmaps, u, idx, out, B, K, N, U, init, act, bm,
+             bn, stream);
 }
 
 // bf16 operands (wmaps: the descriptor of the (N, K_pad) bf16 transpose of
-// w, box (bn, 64)), f32 accumulator from the f32 u, bf16 out.
+// w, box (bn, 64)), f32 accumulator from the f32 u, bf16 out; the same
+// arguments otherwise.
 int mari_matmul_bf16(const void* x, long long ldx, const void* wmaps,
                      const float* u, const int* idx, void* out, int B, int K,
                      int N, int U, int init, int act, int bm, int bn,
                      void* stream) {
-  return run<DT_BF16>(x, ldx, wmaps, u, idx, out, B, K, N, U, init, act, bm,
-                      bn, stream);
+  return run(DT_BF16, x, ldx, wmaps, u, idx, out, B, K, N, U, init, act, bm,
+             bn, stream);
+}
+
+// The bf16 entry's dynamic shared memory for a (bm, bn) tile, bytes.
+int mari_bf16_smem_bytes(int bm, int bn) {
+  return (int)bf16_smem_bytes(bm, bn);
 }
 
 const char* repro_error_string(int e) {

@@ -38,9 +38,10 @@ from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_plain)
 from repro_torch.kernels.embedding_bag import embedding_bag_fixed
 from repro_torch.kernels.gather_einsum import gather_einsum, gather_einsum_plain
-from repro_torch.kernels.mari_matmul import (aligned_ld, empty_stream,
+from repro_torch.kernels.mari_matmul import (empty_stream,
                                              fragment_stream_idx,
-                                             mari_matmul_fused_groups)
+                                             mari_matmul_fused_groups,
+                                             stream_ld)
 from repro_torch.nn.attention import NEG_INF, cross_attention, target_attention
 from repro_torch.nn.layers import ACTIVATIONS, dense_apply
 
@@ -127,15 +128,16 @@ def _bcast_batch(xs: list[Tensor]) -> list[Tensor]:
 
 
 def _concat_xs(xs: list[Tensor], aligned: bool = False) -> Tensor:
-    """Concatenate along the last dim. ``aligned``: when the width's row
-    bytes are not a multiple of 16, into a wider buffer whose row stride
-    the mari_matmul kernel's TMA can read (no extra pass; the (B, K) view
-    is returned)."""
+    """Concatenate along the last dim. ``aligned``: when the width is not
+    the stream's row stride (``stream_ld``: rows of 16-byte multiples in
+    fp32, 128-byte in bf16), into a wider buffer at that stride, which the
+    mari_matmul kernel's TMA reads well (no extra pass; the (B, K) view is
+    returned)."""
     xs = _bcast_batch(xs) if len({x.shape[0] for x in xs}) > 1 else xs
     if len(xs) == 1:
         return xs[0]
     K = sum(x.shape[-1] for x in xs)
-    if aligned and aligned_ld(K, xs[0].dtype) != K:
+    if aligned and stream_ld(K, xs[0].dtype) != K:
         out = empty_stream(xs[0].shape[0], K, xs[0].dtype, xs[0].device)
         return torch.cat(xs, dim=-1, out=out)
     return torch.cat(xs, dim=-1)

@@ -13,7 +13,12 @@ raises. ``LAUNCHES`` counts kernel launches per init mode (fp32) and under
 The kernel runs on the tensor cores (wgmma) and keeps fp32 accuracy by
 3xTF32: it reads ``w`` as a ``MariWeight`` from ``prepare_mari_weight``
 (w_hi = tf32(w)^T and w_lo = tf32(w - tf32(w))^T, (N, K_pad), with their
-TMA descriptors). Prepare once per weight — ``prepare_mari_params`` does
+TMA descriptors). bf16 operands run a pipeline of their own
+(``bf16_plan``): K in chunks of ``CHUNK_K``, each chained on the tensor
+cores from zero and added to the f32 init in chunk order
+(``bf16_chunks``), so the sums' association depends on K alone; its
+weight rows and the serving path's bf16 streams (``stream_ld``) lie on
+128-byte L2 lines. Prepare once per weight — ``prepare_mari_params`` does
 every ``mari_dense`` of a graph — because a raw ``w`` on a CUDA call is
 prepared on the spot and counted in ``PREPARES``. x is read through TMA,
 which needs a 16-byte-aligned base and row stride: an x without one is
@@ -87,6 +92,53 @@ def tile_config(B: int, N: int) -> tuple[int, int]:
     return (128 if tiles >= 100 else 64), bn
 
 
+# ---- the bf16 entry's plan ----------------------------------------------------
+CHUNK_K = 256          # csrc CHUNK_TILES x 64: the bf16 entry's k chunk
+
+
+def bf16_chunks(K: int) -> list[tuple[int, int]]:
+    """The bf16 entry's k chunks ``[(k0, k1), ...]``: each chains on the
+    tensor cores from zero, and ``u + c0 + c1 + ...`` is summed in this
+    order with ordinary f32 adds. A function of K alone."""
+    return [(k, min(k + CHUNK_K, K)) for k in range(0, K, CHUNK_K)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """How the bf16 entry runs a (B, K) x (K, N) call: (bm, bn) output
+    tiles (bm / 64 consumer warpgroups), walked by ``grid`` persistent CTAs
+    (one per SM, at most one per tile), each with a ring of ``stages``
+    stages of ``stage_bytes`` (64 bf16 of bm x rows and bn w rows) and the
+    output tile staged beside it (``staged_bytes``: bm rows of 2 bn + 16
+    bytes); ``smem_bytes`` of dynamic shared memory in all, and
+    ``accumulators`` floats a consumer thread holds (the accumulator and
+    two chunk partials, bn / 2 each)."""
+    bm: int
+    bn: int
+    grid: int
+    stages: int
+    stage_bytes: int
+    staged_bytes: int
+    smem_bytes: int
+    accumulators: int
+
+
+def bf16_plan(B: int, N: int, sms: int = 132) -> Bf16Plan:
+    """The bf16 entry's tiles and budgets on a card of ``sms`` SMs, from
+    (B, N) alone (nothing here changes a row's bits: K's chunks and their
+    order do not move). bn is fp32's (``tile_config``: from N alone); bm as
+    ``tile_config``'s. The ring takes as many stages as ~200 KB holds
+    beside the staged tile (2 .. 8), as csrc ``bf16_stages``."""
+    bm, bn = tile_config(B, N)
+    stage, staged = (bm + bn) * 128, bm * (2 * bn + 16)
+    stages = min(max((200 * 1024 - staged) // stage, 2), 8)
+    tiles = -(-B // bm) * -(-N // bn)
+    return Bf16Plan(bm=bm, bn=bn, grid=min(tiles, sms), stages=stages,
+                    stage_bytes=stage, staged_bytes=staged,
+                    smem_bytes=stages * stage + staged + 1024,
+                    accumulators=3 * bn // 2)
+
+
 # ---- tf32 arithmetic, as the card does it ----------------------------------
 def tf32_round(x: Tensor) -> Tensor:
     """Round fp32 to tf32 (10-bit mantissa), to nearest with ties away from
@@ -151,7 +203,9 @@ def prepare_mari_weight(w: Tensor | MariWeight) -> MariWeight:
     if w.dtype == torch.float32:
         hi, lo = (_padded_t(p, 4) for p in split_tf32(w))
     else:
-        hi, lo = _padded_t(w, 8), None
+        # rows padded to 128 bytes: each 64-deep k tile of a row is one
+        # L2 line
+        hi, lo = _padded_t(w, 64), None
     mw = MariWeight(w, hi, lo, bn)
     if w.is_cuda:
         mw.maps = _encode_weight_maps(mw)
@@ -215,11 +269,21 @@ def aligned_ld(K: int, dtype: torch.dtype) -> int:
     return _round_up(max(K, 1), 16 // dtype.itemsize)
 
 
+def stream_ld(K: int, dtype: torch.dtype) -> int:
+    """The row stride a producer writes a (B, K) stream at: fp32
+    ``aligned_ld``; bf16 a multiple of 128 bytes, so that every 64-deep k
+    tile the bf16 entry loads of a row is one L2 line (rows 2,128 bytes
+    apart, K = 1064, straddle two lines each)."""
+    if dtype == torch.bfloat16:
+        return _round_up(max(K, 1), 64)
+    return aligned_ld(K, dtype)
+
+
 def empty_stream(B: int, K: int, dtype: torch.dtype,
                  device: torch.device) -> Tensor:
-    """An uninitialised (B, K) view of a (B, aligned_ld(K)) buffer: a row
+    """An uninitialised (B, K) view of a (B, stream_ld(K)) buffer: a row
     stride TMA can read, for a producer to write a stream into."""
-    buf = torch.empty((B, aligned_ld(K, dtype)), dtype=dtype, device=device)
+    buf = torch.empty((B, stream_ld(K, dtype)), dtype=dtype, device=device)
     return buf[:, :K]
 
 
@@ -262,7 +326,8 @@ _ENCODE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
 
 _SIGNATURES = {"mari_matmul_f32": (_ARGTYPES, ctypes.c_int),
                "mari_matmul_bf16": (_ARGTYPES, ctypes.c_int),
-               "mari_encode_map": (_ENCODE_ARGTYPES, ctypes.c_int)}
+               "mari_encode_map": (_ENCODE_ARGTYPES, ctypes.c_int),
+               "mari_bf16_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_int)}
 
 
 def _lib() -> ctypes.CDLL:
@@ -328,7 +393,7 @@ def _launch(x: Tensor, w: Tensor | MariWeight, u: Tensor,
     lib = _lib()
     entry = (lib.mari_matmul_f32 if x.dtype == torch.float32
              else lib.mari_matmul_bf16)
-    bm = tile_config(B, N)[0]
+    bm = tile_config(B, N)[0]               # bf16_plan's too
     with torch.cuda.device(x.device):    # launch in the tensors' context
         rc = entry(x.data_ptr(), x.stride(0), ctypes.addressof(w.maps),
                    u.data_ptr(), None if idx is None else idx.data_ptr(),

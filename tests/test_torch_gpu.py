@@ -197,6 +197,119 @@ def test_mari_matmul_bf16_matches_plain(cuda, mode, activation, B, K, N):
         rtol=2e-2, atol=2e-2)
 
 
+def _bf16_case(dev, B, K, N, mode, U=5, seed=0):
+    """bf16 x (rows ``stream_ld`` apart, as the serving path writes them)
+    and w, the f32 u, gathered indices out of range."""
+    x, w, u, idx = _mari_case(dev, B, K, N, mode, U=U, seed=seed, scale=0.05)
+    xb = mm.empty_stream(B, K, torch.bfloat16, dev).copy_(x)
+    return xb, w.bfloat16(), u, idx
+
+
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+def test_mari_matmul_bf16_row_bit_identical_whatever_the_batch(cuda, mode):
+    """The bf16 entry's rows are the same bits at B = 64 (64-row tiles, a
+    few CTAs) and inside B = 4096 (128-row tiles, every SM), whatever x's
+    row stride: K's chunks and their order are fixed by K alone, and there
+    is one route."""
+    x, w, u, idx = _bf16_case(cuda, 4096, 1064, 512, mode, U=8)
+    pw = mm.prepare_mari_weight(w)
+    assert mm.ops.tile_config(64, 512)[0] != mm.ops.tile_config(4096, 512)[0]
+    full = mm.mari_matmul(x, pw, u, idx, "relu")
+    rows = slice(1000, 1064)
+    part = mm.mari_matmul(
+        x[rows].contiguous(), pw, u[rows].contiguous() if mode == "rowwise"
+        else u, None if idx is None else idx[rows].contiguous(), "relu")
+    assert torch.equal(full[rows], part)
+    packed = mm.mari_matmul(x.contiguous(), pw, u, idx, "relu")   # ld 1064
+    assert torch.equal(full, packed)
+
+
+@pytest.mark.parametrize("B", [1, 37, 512])
+@pytest.mark.parametrize("N", [4, 65, 512])
+@pytest.mark.parametrize("K", [8, 40, 333, 1064])
+def test_mari_matmul_bf16_ragged_shapes(cuda, K, N, B):
+    """Ragged K (one chunk, a short one, five), N (8- and 128-wide tiles,
+    element stores where N % 8 != 0) and B, each init mode, gathered
+    indices out of range (clamped): within 2e-2 of the plain version, and
+    a contiguous x (rows not on lines) gives the same bits."""
+    for mode in ("broadcast", "rowwise", "gather"):
+        x, w, u, idx = _bf16_case(cuda, B, K, N, mode, seed=7)
+        got = mm.mari_matmul(x, w, u, idx, "silu")
+        torch.testing.assert_close(
+            got.float(), mm.mari_matmul_plain(x, w, u, idx, "silu").float(),
+            rtol=2e-2, atol=2e-2)
+        assert torch.equal(got, mm.mari_matmul(x.contiguous(), w, u, idx,
+                                               "silu"))
+
+
+@pytest.mark.parametrize("activation", ["identity", "relu"])
+@pytest.mark.parametrize("B", [512, 4096])
+@pytest.mark.parametrize("K,N", MARI_PATH_SHAPES)
+def test_mari_matmul_bf16_is_the_fp64_oracles_rounding(cuda, K, N, B,
+                                                       activation):
+    """Each element is the bf16 rounding of an fp64 oracle on the widened
+    operands, or one bf16 ulp from it; where the sum cancels, within one
+    ulp plus 2 K 2^-24 (|u| + |x| |w|): the chunks' f32 sums against the
+    exact ones (``chip_smoke.bf16_vs_widened``)."""
+    from repro_torch.nn.layers import ACTIVATIONS
+    x, w, u, idx = _bf16_case(cuda, B, K, N, "gather", U=8, seed=B)
+    ui = u.index_select(0, idx.long().clamp(0, u.shape[0] - 1))
+    oracle = ACTIVATIONS[activation](ui.double() + x.double() @ w.double())
+    abs_sums = ui.double().abs() + x.double().abs() @ w.double().abs()
+    got = mm.mari_matmul(x, mm.prepare_mari_weight(w), u, idx, activation)
+    counts = _chip_smoke().bf16_vs_widened(got, oracle, abs_sums, K)
+    assert counts["same_bits"] >= 0.99 * counts["elements"]
+
+
+def test_mari_matmul_bf16_smem_matches_the_plan(cuda):
+    """The kernel's shared memory at every tile is ``bf16_plan``'s."""
+    lib = mm.ops._lib()
+    for B, N in [(1, 4), (1, 32), (1, 64), (512, 512), (4096, 32),
+                 (4096, 64), (4096, 512)]:
+        p = mm.ops.bf16_plan(B, N)
+        assert lib.mari_bf16_smem_bytes(p.bm, p.bn) == p.smem_bytes
+
+
+@pytest.fixture(scope="module")
+def mari_parent_source():
+    """``mari_matmul`` as commit c074909 built it (its source under
+    tests/data), built with the checkout's flags."""
+    from repro_torch.kernels import turns
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = turns.load_source(
+        "mari_matmul", pathlib.Path(__file__).parent / "data"
+        / "mari_matmul_c074909.cu")
+    mm.ops.build.bind(lib, {"mari_matmul_f32":
+                            mm.ops._SIGNATURES["mari_matmul_f32"]})
+    return lib
+
+
+@pytest.mark.parametrize("mode", ["broadcast", "rowwise", "gather"])
+@pytest.mark.parametrize("B", [4096, 2048])
+@pytest.mark.parametrize("K,N", MARI_PATH_SHAPES)
+def test_mari_matmul_fp32_is_the_parents_bit_for_bit(
+        cuda, mari_parent_source, K, N, B, mode):
+    """The fp32 entry kept its arithmetic: at every mari_dense stream,
+    init mode and epilogue it gives the bits of commit c074909's source."""
+    import ctypes
+    x, w, u, idx = _mari_case(cuda, B, K, N, mode)
+    x, _ = mm.ops.stream_operand(x)
+    pw = mm.prepare_mari_weight(w)
+    lib = mari_parent_source
+    for act in ACTS:
+        want = torch.empty(B, N, device=cuda)
+        rc = lib.mari_matmul_f32(
+            x.data_ptr(), x.stride(0), ctypes.addressof(pw.maps),
+            u.data_ptr(), None if idx is None else idx.data_ptr(),
+            want.data_ptr(), B, K, N, u.shape[0],
+            mm.ops.INIT_MODES.index(mode), mm.ops.EPILOGUES.index(act),
+            mm.ops.tile_config(B, N)[0], pw.bn,
+            torch.cuda.current_stream(cuda).cuda_stream)
+        mm.ops.build.check(lib, rc, "mari_matmul (c074909)")
+        assert torch.equal(mm.mari_matmul(x, pw, u, idx, act), want), act
+
+
 @pytest.mark.parametrize("U", [1, 5])
 @pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
 def test_gather_einsum_kernel_matches_plain(cuda, spec, U):

@@ -143,7 +143,8 @@ def test_prepare_mari_weight_layout(K, N):
 def test_prepare_mari_weight_bf16_and_refusals():
     w = torch.randn(37, 20).bfloat16()
     mw = mm.prepare_mari_weight(w)
-    assert mw.lo is None and mw.hi.shape == (20, 40)
+    # rows padded to 64 bf16 = 128 bytes: one L2 line per k tile
+    assert mw.lo is None and mw.hi.shape == (20, 64)
     assert torch.equal(mw.hi[:, :37], w.t()) and not mw.hi[:, 37:].any()
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         mm.prepare_mari_weight(torch.zeros(4, 4, dtype=torch.float16))
