@@ -41,14 +41,30 @@
    cancels within the f32 reordering bound (``bf16_vs_widened``);
    ``din_attention``'s is timed beside its build through the fp32
    pipeline (``tf32_pipeline_ms``). Every ``gather_einsum`` bf16 entry is
-   also checked and timed at a 64-slot table (``u64``).
+   also checked and timed at a 64-slot table (``u64``). ``din_attention``'s
+   wide route (``din_attention/wide`` and ``/wide/bf16``: units past the
+   register tiles) is checked at ``DIN_WIDE_CHECKED`` (and 10,000 keys)
+   and timed at DIN's public D = 128; ``gather_einsum``'s ``bd,uldh->blh`` is also timed
+   at D = 128 (``at_d128``, beside its bounds by bytes and by
+   operations); the generic route (``gather_einsum/generic`` and
+   ``/generic/bf16``) runs every ``GENERIC_SPECS`` spec, held to its plain
+   version, bf16 bit for bit the fp32 route on widened operands, and
+   timed (``gather_einsum_generic`` line; its launches are path
+   ``generic``: no model forms such a spec).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
    ``use_pallas=False`` engine on the same params; and runs the single-call
    MaRI executor (Eq. 7, one user) against the vanilla executor.
 3. DIN at ``configs/din.py`` width (10M-row item vocabulary, on the card)
-   under ``tpu``, with the same checks.
+   under ``tpu``, with the same checks. Then (3b) DIN at its public D =
+   128 (item vocabulary cut to 1M rows): the ``tpu`` engine at one pool
+   of 1000 (path ``din128_engine``: ``mari_matmul`` and ``gather_einsum``
+   at D = 128) and the single call (``launch/steps.py``'s
+   ``_recsys_serve``, compiled, fp32 and ``serve_bf16``, path
+   ``din128_single``: the attention unit on ``din_attention``'s wide
+   route) against its ``use_pallas=False`` program (``din128_single``
+   lines: p50 ms, launches, the kernels' device ms, max |d|).
 4. A ``RankingService`` on the ``tpu`` preset hosting DLRM-MLPerf at full
    width with ``scale_tables=0.1`` (18.8M table rows, 9.6 GB on the card),
    and DeepFM and FM at the registry's full ``BUILD``: an interleaved stream
@@ -241,7 +257,9 @@ paper's 1.32x.
 Kernel launch counts are zeroed just before each run of a path and read
 just after it (a replay counts the launches its graph holds), the
 readings summed per path: the paper and DIN ``tpu``
-engines, their device-resident twins, the phase-4 service, that service
+engines, their device-resident twins, phase 3b's D = 128 engine
+(``din128_engine``) and single calls (``din128_single``), the
+phase-4 service, that service
 under the preset's default hedging, train + convert, the paper's single
 call, in phase 6 the device-tier service, its re-stacking twin, the
 fault run and the hedged engine, phase 7's memory-tier engines,
@@ -253,7 +271,9 @@ kernel serving calls (``cells``), phase 12's training steps (``gnn``,
 held to no launch) and phase 13's programs on the mesh (``sharded``),
 each its own path.
 Every kernel variant held to a path must have launched on it; runs made only to compare (the
-plain engines, phase 1's checks, per-request oracles) count nowhere.
+plain engines, phase 1's checks, per-request oracles) count nowhere, but
+for phase 1's checks of the generic ``gather_einsum`` route, its only
+runner (path ``generic``).
 Every path hands ``mari_matmul`` prepared weights: weights prepared inside
 a call (``PREPARES``) must be 0 on each path, and x copies to a padded
 row stride (``STRIDE_COPIES``) are printed per path
@@ -270,15 +290,18 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -307,8 +330,21 @@ DLRM_SCALE_TABLES = 0.1               # 96.1 GB of published tables -> 9.6 GB
 TRAIN_STEPS, CKPT_EVERY, FAIL_AT = 24, 10, 15   # crash after the step-10 save
 TRAIN_COMPARE = 10                    # captured vs eager steps, same batches
 SINGLE_CALL_B = 2048                  # candidates of one single-call request
+# phase 3b, DIN at its public D = 128: the item vocabulary (10M -> 1M), the
+# coalesced engine's pool and the single call's timed calls
+DIN128_VOCAB, DIN128_POOL, DIN128_CALLS = 1_000_000, 1000, 30
 # din_attention past the 920 keys one block once held, at DIN width
 DIN_LONG_L, DIN_LONG_B = (921, 2048, 10_000), 512
+# din_attention's wide route: DIN's public width (github.com/zhougr1993/
+# DeepInterestNetwork, din/model.py: item and category embeddings of 64
+# each, an 80-40 attention MLP), timed; and the widths checked past the
+# register tiles (D, h1, h2 each past its tile, all of them, the widest)
+DIN_WIDE = (128, 80, 40)
+DIN_WIDE_CHECKED = ((65, 129, 65), (256, 512, 256), (18, 2048, 1024),
+                    (1024, 80, 40))
+# gather_einsum's generic route: specs past KERNEL_SPECS
+GENERIC_SPECS = ("bd,uldh->bhl", "bi,uij->bj", "bij,uj->bi", "bl,ul->bl",
+                 "bd,ud->b", "bdk,ukh->bdh", "bx,uy->bxy")
 # builds of a kernel's source with one part left out or swapped, timed
 # beside it: name -> (source, macros)
 VARIANTS = {"gather_einsum": ("gather_einsum", ("GATHER_EINSUM_NO_ROW_SORT",)),
@@ -862,13 +898,15 @@ def lm_train_flops(cfg, batch: int, seq: int) -> int:
     return 4 * layers + 3 * head
 
 
-def device_feeds(arch: str, metas: dict, gen) -> dict:
+def device_feeds(arch: str, metas: dict, gen, graph=None) -> dict:
     """Random feeds on ``gen``'s device at the shapes and dtypes of a cell
-    program's meta feeds: ids uniform over the consuming table's rows."""
+    program's meta feeds: ids uniform over the consuming table's rows (of
+    ``graph``, else of ``arch``'s configured build)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.features import _vocab_for_input
-    graph, _ = get_config(arch).BUILD()
+    if graph is None:
+        graph, _ = get_config(arch).BUILD()
     out = {}
     for name, m in metas.items():
         if m.dtype.is_floating_point:
@@ -1985,6 +2023,28 @@ def main() -> int:
                        or "warning" in ln][:32]
     log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
+    by_path: dict[str, dict[str, int]] = {}
+    # mari_matmul's weights prepared inside a call (a raw w) and x operands
+    # copied to a padded row stride, per path
+    host_by_path: dict[str, dict[str, int]] = {}
+
+    @contextlib.contextmanager
+    def counting(path):
+        """Zero every launch count just before the block and add what the
+        block launched to ``by_path[path]`` just after (device synchronised
+        at both ends), so each path is read over its own runs only."""
+        torch.cuda.synchronize()
+        reset_launches()
+        yield
+        torch.cuda.synchronize()
+        tot = by_path.setdefault(path, {})
+        for k, n in read_launches().items():
+            tot[k] = tot.get(k, 0) + n
+        host = host_by_path.setdefault(path, {"prepares": 0,
+                                              "stride_copies": 0})
+        host["prepares"] += sum(mm.PREPARES.values())
+        host["stride_copies"] += sum(mm.STRIDE_COPIES.values())
+
     # ---- phase 1: kernels against their plain versions ---------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2333,6 +2393,22 @@ def main() -> int:
                 lambda: ge.gather_einsum(spec, x1, tg, i1))
         del t64
     del x, w, pw, u_of, rows
+    # the coalesced engine's q against T at DIN's public D = 128 (phase 3's
+    # din128 path): 2 B L H D FLOP on the CUDA cores, which make it bound
+    # by operations there, with the bound by bytes beside it
+    spec, D128 = "bd,uldh->blh", 128
+    xg, tg = randn(B, D128), randn(U, L, D128, H)
+    e128 = max_err(ge.gather_einsum(spec, xg, tg, idx),
+                   ge.gather_einsum_plain(spec, xg, tg, idx))
+    ms = time_ms(lambda: ge.gather_einsum(spec, xg, tg, idx))
+    nbytes = 4 * (B * D128 + U * L * D128 * H + B * L * H + B)
+    entries[f"gather_einsum/{spec}"]["at_d128"] = dict(
+        B=B, U=U, L=L, D=D128, H=H, ms=ms, max_abs_err=e128,
+        plain_ms=time_ms(lambda: ge.gather_einsum_plain(spec, xg, tg, idx)),
+        bound_bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+        bound_operations_ms=2 * B * L * H * D128 / PEAK_FP32_FLOPS * 1e3,
+        share_of_bound=bound(nbytes, 2 * B * L * H * D128)[0] / ms)
+    del xg, tg
 
     # DLRM interaction at a full bucket: B=4096, F=27, D=128 -> P=351
     F, D = 27, 128
@@ -2697,6 +2773,87 @@ def main() -> int:
                    library="torch.einsum on pre-gathered rows, bf16", **extra)
         del xg, tg, rows, t64
 
+    # the generic route: specs past KERNEL_SPECS, which no model forms (the
+    # TPU kernel's tests alone do), so these checks are its runner: their
+    # launches are path "generic". fp32 within TOL of the plain version,
+    # bf16 bit for bit the fp32 route on the widened operands, a row's bits
+    # its own when the last half of the rows is launched alone; each spec
+    # timed beside its plain version at B = 4096, U = 8
+    gsz = dict(i=128, j=80, l=100, d=18, k=8, h=80, x=40, y=30)
+    by_spec, errs = {}, {"fp32": [], "bf16": []}
+    with counting("generic"):
+        for spec in GENERIC_SPECS:
+            xs_, ts_, os_, row_spec = ge.parse_spec(spec)
+            xg = randn(B, *(gsz[c] for c in xs_[1:]))
+            tg = randn(U, *(gsz[c] for c in ts_[1:]))
+            ig = randidx(B, U + 3, lo=-2)
+            got = ge.gather_einsum(spec, xg, tg, ig)
+            errs["fp32"].append(max_err(got, ge.gather_einsum_plain(
+                spec, xg, tg, ig)))
+            half = B // 2
+            got_b = ge.gather_einsum(spec, xg.bfloat16(), tg.bfloat16(), ig)
+            errs["bf16"].append(max_err(got_b, ge.gather_einsum_plain(
+                spec, xg.bfloat16(), tg.bfloat16(), ig), BF16_TOL))
+            same_bits(got_b, ge.gather_einsum(
+                spec, xg.bfloat16().float(), tg.bfloat16().float(),
+                ig).bfloat16(), f"gather_einsum {spec}")
+            torch.cuda.synchronize()
+            if not (torch.equal(ge.gather_einsum(spec, xg[half:], tg,
+                                                 ig[half:]), got[half:])
+                    and torch.equal(ge.gather_einsum(
+                        spec, xg[half:].bfloat16(), tg.bfloat16(),
+                        ig[half:]), got_b[half:])):
+                raise AssertionError(f"gather_einsum {spec} (generic): a "
+                                     f"row's result depends on B")
+            out_n = got.numel()
+            sum_n = math.prod(gsz[c] for c in set(xs_[1:] + ts_[1:])
+                              if c not in os_)
+            nval = xg.numel() + tg.numel() + out_n
+            rows = tg.index_select(0, ig.clamp(0, U - 1))
+            xb, tb, rb = xg.bfloat16(), tg.bfloat16(), rows.bfloat16()
+            row = {}
+            for dt, a, lib_fn, size in (
+                    ("fp32", (xg, tg, ig),
+                     lambda: torch.einsum(row_spec, xg, rows), 4),
+                    ("bf16", (xb, tb, ig),
+                     lambda: torch.einsum(row_spec, xb, rb), 2)):
+                b_ms, b_by = bound(size * nval + 4 * B, 2 * out_n * sum_n,
+                                   PEAK_BF16_FLOPS if size == 2
+                                   else PEAK_FP32_FLOPS)
+                ms = time_ms(lambda: ge.gather_einsum(spec, *a))
+                row[dt] = dict(ms=ms, plain_ms=time_ms(
+                    lambda: ge.gather_einsum_plain(spec, *a)),
+                    bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                    library_ms=time_ms(lib_fn))
+            by_spec[spec] = dict(x=list(xg.shape), table=list(tg.shape),
+                                 plan=ge.ops.generic_plan(spec, xg.shape,
+                                                          tg.shape), **row)
+            del xg, tg, rows, xb, tb, rb, got, got_b
+    for dt in ("fp32", "bf16"):
+        head = by_spec[GENERIC_SPECS[0]][dt]
+        entries["gather_einsum/generic" + ("/bf16" if dt == "bf16" else "")
+                ] = dict(
+            route="cuda", source="src/repro_torch/csrc/gather_einsum.cu",
+            replaces="src/repro/kernels/gather_einsum/kernel.py:79",
+            max_abs_err=max(errs[dt]),
+            tol=BF16_TOL if dt == "bf16" else TOL,
+            **head, shape=dict(spec=GENERIC_SPECS[0],
+                               **{k: by_spec[GENERIC_SPECS[0]][k]
+                                  for k in ("x", "table")},
+                               dtype="bfloat16" if dt == "bf16"
+                               else "float32"),
+            by_spec={sp: dict(x=r["x"], table=r["table"], **r[dt])
+                     for sp, r in by_spec.items()},
+            bound_note="products at the fp32 peak (67 TFLOP/s) in fp32 "
+                       "and at the bf16 peak (989 TFLOP/s) in bf16, whose "
+                       "products are exact in f32; bytes: x, table, out "
+                       "once (2 bytes a value in bf16) and the index",
+            runner="phase 1's checks (path generic): no model forms "
+                   "such a spec",
+            library="torch.einsum on pre-gathered rows")
+    log("gather_einsum_generic", tol=TOL, bf16_tol=BF16_TOL,
+        specs=by_spec)
+
     # dot_interaction's bf16 entry runs on the bf16 tensor cores, its f32
     # sums in the mma's order: held to the fp32 kernel on the widened rows
     # (bf16_vs_widened), and a row's bits to its own when the last half of
@@ -2789,6 +2946,94 @@ def main() -> int:
         library="none: no single PyTorch call computes the unit")
     del dargs
 
+    # din_attention's wide route (units past the register tiles), fp32 and
+    # bf16: DIN's public code at D = 128 (item and category embeddings of
+    # 64 each) and its 80-40 MLP at the single call's B = 2048 and L = 100,
+    # timed; checked at every kind of width past the tiles, 10,000 keys at
+    # one, a row's bits its own when the last half of the rows is launched
+    # alone. Weights at the models' glorot scale (init_graph_params): at
+    # the 0.2 of din_args a unit of fan-in 1024 scores in the hundreds,
+    # where any bf16 rounding of a feature moves the softmax's argmax (the
+    # plain version's own bf16 run is then 0.2 off its fp32 run on the
+    # same values)
+    def din_wide_args(Bq, Lq, Dq, h1, h2, bf16):
+        a = list(din_args(Bq, Lq, Dq, h1, h2))
+        for i, (fi, fo) in ((3, (4 * Dq, h1)), (5, (h1, h2)), (7, (h2, 1))):
+            a[i] = a[i] / 0.2 * (2.0 / (fi + fo)) ** 0.5
+        return tuple(t.bfloat16() if bf16 and t.is_floating_point() else t
+                     for t in a)
+
+    # fp32 at din_args' 0.2 scale, recorded and not held to TOL: scores
+    # large enough that the softmax is near an argmax, where a changed
+    # summation order moves the output (max_abs_err, beside max |score|)
+    at_0_2 = {}
+    for w in DIN_WIDE_CHECKED[1:3]:
+        a = din_args(64, 100, *w)
+        d = (da.din_attention(*a) - da.din_attention_plain(*a)).abs().max()
+        k_, q_ = a[1][None].expand(64, -1, -1), a[0][:, None].expand(
+            -1, 100, -1)
+        h = torch.relu(torch.cat([k_, q_, k_ - q_, k_ * q_], -1) @ a[3]
+                       + a[4])
+        sc = torch.relu(h @ a[5] + a[6]) @ a[7] + a[8]
+        at_0_2[",".join(map(str, w))] = dict(
+            max_abs_err=float(d), max_abs_score=float(sc.abs().max()))
+        del a, k_, q_, h, sc
+    lib = da.ops._lib()
+    for bf16 in (False, True):
+        errs, tol = [], BF16_TOL if bf16 else TOL
+        for shp in ((64, 100) + DIN_WIDE, *((64, 100) + w
+                                            for w in DIN_WIDE_CHECKED),
+                    (16, 10_000) + DIN_WIDE_CHECKED[1]):
+            a = din_wide_args(*shp, bf16)
+            got = da.din_attention(*a)
+            errs.append(max_err(got, da.din_attention_plain(*a), tol))
+            half = shp[0] // 2
+            torch.cuda.synchronize()
+            if not torch.equal(da.din_attention(a[0][half:].contiguous(),
+                                                *a[1:]), got[half:]):
+                raise AssertionError(f"din_attention wide {shp}: a row's "
+                                     f"result depends on B")
+            del a, got
+        dargs = din_wide_args(SINGLE_CALL_B, Lq, *DIN_WIDE, bf16)
+        errs.append(max_err(da.din_attention(*dargs),
+                            da.din_attention_plain(*dargs), tol))
+        (b_ms, b_by), flops, simt_ms = din_bound(SINGLE_CALL_B, Lq,
+                                                 *DIN_WIDE, bf16)
+        ms = time_ms(lambda: da.din_attention(*dargs))
+        split = profile_call(lambda: da.din_attention(*dargs))["top_kernels"]
+        name = "din_attention/wide" + ("/bf16" if bf16 else "")
+        smem = (lib.din_attention_bf16_smem_bytes if bf16
+                else lib.din_attention_smem_bytes)(Lq, *DIN_WIDE)
+        chunk = (lib.din_attention_bf16_chunk_keys if bf16
+                 else lib.din_attention_chunk_keys)(*DIN_WIDE)
+        entries[name] = dict(
+            route="cuda", source="src/repro_torch/csrc/din_attention.cu",
+            replaces="src/repro/kernels/din_attention/kernel.py:47",
+            max_abs_err=max(errs), tol=tol, ms=ms,
+            plain_ms=time_ms(lambda: da.din_attention_plain(*dargs)),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+            library_ms=None,
+            kernels_ms=split,
+            **({} if bf16 else {"fp32_at_0_2_scale": at_0_2}),
+            shape=dict(B=SINGLE_CALL_B, L=Lq, D=DIN_WIDE[0], h1=DIN_WIDE[1],
+                       h2=DIN_WIDE[2], gflop=flops / 1e9,
+                       dtype="bfloat16" if bf16 else "float32",
+                       chunk_keys=chunk, smem_bytes=smem,
+                       work_bytes=lib.din_attention_work_bytes(
+                           SINGLE_CALL_B, Lq, *DIN_WIDE, int(bf16)),
+                       max_dim=lib.din_attention_max_dim(int(bf16)),
+                       checked=[[64, 100, *w] for w in DIN_WIDE_CHECKED]
+                       + [[16, 10_000, *DIN_WIDE_CHECKED[1]]]),
+            bound_note=("bf16: two bytes a value; the per-pair products "
+                        "once at 989 TFLOP/s" if bf16 else
+                        "3xTF32: the least work's two per-pair products as "
+                        "3xTF32 at 495 TFLOP/s") + ", the rest at 67",
+            timing="ms: the wrapper's call (the workspace's prep launch, "
+                   "then the unit; kernels_ms splits one call by "
+                   "torch.profiler)",
+            library="none: no single PyTorch call computes the unit")
+        del dargs
+
     Vb, Bb, Hb, Db = pad_vocab(int(DLRM_TABLE_ROWS[20] * 0.1)), B, 100, 128
     tab = randn(Vb, Db).bfloat16()
     bag_ids = torch.randint(0, Vb, (Bb, Hb), generator=gen, device=dev,
@@ -2843,7 +3088,9 @@ def main() -> int:
     # embedding_bag (single-hot DLRM gathers with index_select): checked
     # and timed above, they are listed in the kernels line with on_path
     # false
-    OFF_PATH = ("gather_einsum/blh,uh->bl", "dot_interaction/triu_keep_self",
+    OFF_PATH = ("gather_einsum/blh,uh->bl", "gather_einsum/generic",
+                "gather_einsum/generic/bf16",
+                "dot_interaction/triu_keep_self",
                 "embedding_bag/csr", "embedding_bag/fixed/bf16",
                 "embedding_bag/csr/bf16") + tuple(
                     f"gather_einsum/{s}/bf16" for s in ge.KERNEL_SPECS)
@@ -2882,12 +3129,16 @@ def main() -> int:
         """torch.profiler over one warm coalesced call."""
         return profile_call(lambda: eng.score_coalesced(reqs))
 
-    def serve_checks(tag, graph, params, plans, oracle_plan, reqs, n_out):
+    def serve_checks(tag, graph, params, plans, oracle_plan, reqs, n_out,
+                     path="paper+din", twin=True):
         oracle = ServingEngine(graph, params, oracle_plan, device=dev)
         ref = [oracle.score(r).scores for r in reqs]
+        del oracle              # its graphs' pool (DIN at D = 128: the
+        gc.collect()            # plain gathers of T) before the kernels'
+        torch.cuda.empty_cache()
         for name, plan in plans.items():
             eng = ServingEngine(graph, params, plan, device=dev)
-            with counting("paper+din"):
+            with counting(path):
                 per = [eng.score(r) for r in reqs]       # cold: stage 1 runs
                 t = time.perf_counter()
                 co = eng.score_coalesced(reqs)           # users now cached
@@ -2920,11 +3171,11 @@ def main() -> int:
                 d_co = max(d_co, float(np.abs(c.scores - p.scores).max()))
             prof = eng.profiler.snapshot(reset=True)
             try:
-                with counting("paper+din"):
+                with counting(path):
                     window = device_window(eng, reqs)
             except Exception as e:       # a profiler failure is no smoke fail
                 window = f"not measured: {type(e).__name__}: {e}"
-            with counting("paper+din"):
+            with counting(path):
                 trace = traced(f"{tag}_{name}", {tag: eng},
                                lambda: eng.score_coalesced(reqs))
             check_graphs(f"{tag}/{name}", eng)
@@ -2949,10 +3200,9 @@ def main() -> int:
                               if v["calls"]},
                 profile={k: v for k, v in prof.items() if v["calls"]},
                 device_window=window, trace=trace)
-            if name == "tpu":
+            if name == "tpu" and twin:
                 device_twin(tag, graph, params, plan, reqs, per)
             del eng
-        del oracle
 
     def device_twin(tag, graph, params, plan, reqs, want):
         """Phase 6d: a device-resident twin of a ``tpu`` engine scores the
@@ -2980,28 +3230,6 @@ def main() -> int:
             profile={k: v for k, v in twin.profiler.snapshot().items()
                      if v["calls"]})
         twin.close()
-
-    by_path: dict[str, dict[str, int]] = {}
-    # mari_matmul's weights prepared inside a call (a raw w) and x operands
-    # copied to a padded row stride, per path
-    host_by_path: dict[str, dict[str, int]] = {}
-
-    @contextlib.contextmanager
-    def counting(path):
-        """Zero every launch count just before the block and add what the
-        block launched to ``by_path[path]`` just after (device synchronised
-        at both ends), so each path is read over its own runs only."""
-        torch.cuda.synchronize()
-        reset_launches()
-        yield
-        torch.cuda.synchronize()
-        tot = by_path.setdefault(path, {})
-        for k, n in read_launches().items():
-            tot[k] = tot.get(k, 0) + n
-        host = host_by_path.setdefault(path, {"prepares": 0,
-                                              "stride_copies": 0})
-        host["prepares"] += sum(mm.PREPARES.values())
-        host["stride_copies"] += sum(mm.STRIDE_COPIES.values())
 
     def eager_scores(eng, req):
         """The engine's own stage bodies run eagerly on the card (what its
@@ -4457,6 +4685,69 @@ def main() -> int:
                  requests(graph, POOLS, seed=3), n_out=1)
     del params
 
+    # ---- phase 3b: DIN at its public D = 128 -------------------------------
+    # (github.com/zhougr1993/DeepInterestNetwork, din/model.py: item and
+    # category embeddings of 64 each; the 80-40 attention MLP and 200-80
+    # fusion MLP of configs/din.py; the item vocabulary cut from 10M to 1M
+    # rows to keep the script in its time, every width full). The
+    # coalesced engine (tpu preset, one pool) runs mari_matmul and
+    # gather_einsum's bd,uldh->blh and bl,uld->bd at D = 128 (path
+    # din128_engine); the single call (launch/steps.py's _recsys_serve,
+    # compiled, fp32 and serve_bf16) runs the whole attention unit through
+    # din_attention's wide route (path din128_single)
+    din128 = functools.partial(build_din, embed_dim=128, seq_len=100,
+                               attn_mlp=(80, 40), mlp=(200, 80),
+                               item_vocab=DIN128_VOCAB)
+    t_phase = time.perf_counter()
+    gc.collect()                # the engines above leave their graphs'
+    torch.cuda.empty_cache()    # pools cached: a capture cannot free them
+    graph, _ = din128()
+    params = init_graph_params(graph, seed=0, device=dev)
+    serve_checks("din128", graph, params, {"tpu": tpu}, plain,
+                 requests(graph, (DIN128_POOL,), seed=5), n_out=1,
+                 path="din128_engine", twin=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch.steps import _recsys_serve
+    for opts, tol in (((), TOL), (("serve_bf16",), BF16_TOL)):
+        prog = _recsys_serve(types.SimpleNamespace(BUILD=din128),
+                             SINGLE_CALL_B, opts=frozenset(opts))
+        params = prog.init(seed=0, device=dev)
+        feeds = device_feeds("din", prog.args[1], gen, graph=graph)
+        serve = prog.compiled(dev)
+        with counting("din128_single"):
+            got = serve(params, feeds)
+            ms = []
+            for _ in range(DIN128_CALLS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                serve(params, feeds)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            prof = profile_call(lambda: serve(params, feeds))
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in read_launches().items() if v}
+        want = prog.compiled(dev, use_pallas=False)(params, feeds)
+        d = float((got.float() - want.float()).abs().max())
+        if (tuple(got.shape) != (SINGLE_CALL_B, 1)
+                or not bool(torch.isfinite(got).all())
+                or not torch.allclose(got.float(), want.float(), **tol)):
+            raise AssertionError(f"din128 single call {opts}: kernels vs "
+                                 f"plain {d:.3e}, shape {tuple(got.shape)}")
+        log("din128_single", opts=list(opts), rows=SINGLE_CALL_B,
+            D=128, attn_mlp=[80, 40], item_vocab=DIN128_VOCAB,
+            reduced=["item_vocab 10,000,000 -> 1,000,000"],
+            p50_ms=float(np.median(ms)),
+            p10_p90_ms=[float(np.percentile(ms, q)) for q in (10, 90)],
+            calls=DIN128_CALLS, launches=launched,
+            din_attention_kernels=[k for k in prof["top_kernels"]
+                                   if "din_wide" in k[0]],
+            profile=prof, max_abs_kernels_vs_plain=d, tol=tol,
+            dtype="bfloat16" if opts else "float32")
+        del prog, params, feeds, serve, got, want
+    log("din128_phase", seconds=time.perf_counter() - t_phase)
+
     # ---- phase 4: RankingService + continuous batcher, DLRM/DeepFM/FM -----
     serve_phase()
 
@@ -4552,6 +4843,12 @@ def main() -> int:
     held["cells"] = ["mari_matmul/broadcast", "mari_matmul/bf16",
                      "din_attention/bf16", "dot_interaction/bf16"]
     held["sharded"] = ["mari_matmul/broadcast"]
+    held["generic"] = ["gather_einsum/generic", "gather_einsum/generic/bf16"]
+    held["din128_engine"] = ["mari_matmul/gather",
+                             "gather_einsum/bd,uldh->blh",
+                             "gather_einsum/bl,uld->bd"]
+    held["din128_single"] = ["din_attention/wide", "din_attention/wide/bf16",
+                             "mari_matmul/broadcast", "mari_matmul/bf16"]
     missing = [f"{p}:{k}" for p, ks in held.items() for k in ks
                if by_path.get(p, {}).get(k, 0) == 0]
     # every path hands mari_matmul prepared weights (engines at load, the

@@ -98,11 +98,41 @@
 // where each warp copies its users' slices from L2 into its own staging.
 // The C fragments go through shared memory so that stores are 16 bytes
 // along L*H.
+//
+// Every other spec parse_spec accepts (the TPU kernel runs any
+// "b...,u...->b..." spec through one jnp.einsum on the gathered tile) takes
+// the generic route (gather_einsum_generic_f32 / _bf16): a plan that
+// kernels/gather_einsum/ops.py's generic_plan works out from the spec and
+// the shapes arrives by value (GePlan: at most GE_MAX_DIMS output dims and
+// as many summed ones, adjacent dims merged where they stay contiguous on
+// every operand, a dim absent from an operand at stride 0 there). One
+// thread an output element (b, ...): it clamps its row's index, walks the
+// summed index space in row-major order of the plan's summed dims (the
+// last one innermost) and sums x * table in f32 with fmaf from 0, so its
+// bits depend on neither B nor its neighbours' users; bf16 reads bf16, the
+// same arithmetic, and rounds once (bit for bit the fp32 route on the
+// widened operands). No model forms such a spec (the TPU kernel's tests
+// alone do): a simple kernel, right first; what bounds it is the spec's
+// bytes or operations (chip_smoke.py times it beside its plain version).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+// the generic route's plan, mirrored by kernels/gather_einsum/ops.py's
+// GePlan (ctypes): strides in elements; out dims in the output's order,
+// summed dims in the order the sum walks them (the last innermost). At
+// namespace scope: an extern "C" entry takes it
+constexpr int GE_MAX_DIMS = 8;
+
+struct GePlan {
+  int n_out, n_sum;
+  long long x_row, t_row, out_row, out_count, sum_count;
+  long long out_size[GE_MAX_DIMS], out_x[GE_MAX_DIMS], out_t[GE_MAX_DIMS],
+      out_o[GE_MAX_DIMS];
+  long long sum_size[GE_MAX_DIMS], sum_x[GE_MAX_DIMS], sum_t[GE_MAX_DIMS];
+};
 
 namespace {
 
@@ -1180,6 +1210,68 @@ int run(int spec, const T* x, const T* t, const int* idx, T* out, int B,
   return (int)cudaGetLastError();
 }
 
+// ---- the generic route: any spec parse_spec accepts ------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    generic_kernel(const T* __restrict__ x, const T* __restrict__ t,
+                   const int* __restrict__ idx, T* __restrict__ out, int B,
+                   int U, const GePlan p) {
+  const long long n = (long long)B * p.out_count;
+  const int ns = p.n_sum;
+  const long long inner = ns ? p.sum_size[ns - 1] : 1;
+  const long long ix = ns ? p.sum_x[ns - 1] : 0, it = ns ? p.sum_t[ns - 1] : 0;
+  const long long outer = inner ? p.sum_count / inner : 0;
+  for (long long e = blockIdx.x * (long long)THREADS + threadIdx.x; e < n;
+       e += (long long)gridDim.x * THREADS) {
+    const long long b = e / p.out_count;
+    long long rem = e - b * p.out_count;
+    const int u = clamp_slot(idx[b], U);
+    long long xo = b * p.x_row, to = u * p.t_row, oo = b * p.out_row;
+#pragma unroll
+    for (int i = GE_MAX_DIMS - 1; i >= 0; --i) {
+      if (i < p.n_out) {
+        const long long c = rem % p.out_size[i];
+        rem /= p.out_size[i];
+        xo += c * p.out_x[i];
+        to += c * p.out_t[i];
+        oo += c * p.out_o[i];
+      }
+    }
+    float acc = 0.f;
+    for (long long o = 0; o < outer; ++o) {
+      long long r = o, xs = xo, ts = to;
+#pragma unroll
+      for (int i = GE_MAX_DIMS - 2; i >= 0; --i) {
+        if (i < ns - 1) {
+          const long long c = r % p.sum_size[i];
+          r /= p.sum_size[i];
+          xs += c * p.sum_x[i];
+          ts += c * p.sum_t[i];
+        }
+      }
+      for (long long k = 0; k < inner; ++k)
+        acc = fmaf(ld(x + xs + k * ix), ld(t + ts + k * it), acc);
+    }
+    st(out + oo, acc);
+  }
+}
+
+template <typename T>
+int run_generic(const T* x, const T* t, const int* idx, T* out, int B,
+                int U, const GePlan* plan, void* stream) {
+  if (B <= 0) return 0;
+  if (U <= 0 || plan == nullptr || plan->n_out < 0 ||
+      plan->n_out > GE_MAX_DIMS || plan->n_sum < 0 ||
+      plan->n_sum > GE_MAX_DIMS || plan->out_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)B * (size_t)plan->out_count;
+  generic_kernel<T><<<grid_1d(n, THREADS), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(x, t, idx, out, B,
+                                                           U, *plan);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1202,6 +1294,25 @@ int gather_einsum_bf16(int spec, const __nv_bfloat16* x,
                        __nv_bfloat16* out, int B, int U, int d1, int d2,
                        int d3, void* stream) {
   return run(spec, x, t, idx, out, B, U, d1, d2, d3, stream);
+}
+
+// Any other spec (see the note at the top): x, table and out contiguous,
+// int32 idx (B,), the plan by pointer (copied into the launch). Launches
+// on `stream`, allocates nothing, does not synchronise. Returns
+// cudaGetLastError() after the launch (0 = launched).
+int gather_einsum_generic_f32(const float* x, const float* t, const int* idx,
+                              float* out, int B, int U, const GePlan* plan,
+                              void* stream) {
+  return run_generic(x, t, idx, out, B, U, plan, stream);
+}
+
+// The same for bf16 x / table / out (f32 products and sums, out rounded
+// once).
+int gather_einsum_generic_bf16(const __nv_bfloat16* x,
+                               const __nv_bfloat16* t, const int* idx,
+                               __nv_bfloat16* out, int B, int U,
+                               const GePlan* plan, void* stream) {
+  return run_generic(x, t, idx, out, B, U, plan, stream);
 }
 
 const char* repro_error_string(int e) {

@@ -496,8 +496,8 @@ class Executor:
             # one (L, D) key block for the whole batch (the single-call UOI
             # / MaRI executor; VanI tiles it and serving gathers it per
             # row) through a three-layer unit with biases: the fused
-            # kernel, at any history length (on CUDA it raises on a unit
-            # wider than its register tiles)
+            # kernel, at any history length and width (past its register
+            # tiles on its wide route)
             if (self.use_pallas and keys.shape[0] == 1 and mask.shape[0] == 1
                     and nlayers == 3
                     and all("b" in p[f"layer_{li}"] for li in range(3))):

@@ -4,12 +4,15 @@ commit's, say), on one card, taking turns.
 
     python -m repro_torch.kernels.din_attention.compare OTHER.cu [...] \\
         [--dtype bfloat16] [--variant MACRO] [--batch 2048] [--keys 100] \\
-        [--rounds 4] [--iters 200]
+        [--widths 18,80,40] [--rounds 4] [--iters 200]
 
-Every library gets the same inputs at DIN's width (D = 18, h1 = 80,
-h2 = 40; ``configs/din.py``), in fp32 or bf16, and is launched through
-its C entry for that type (``din_attention_f32`` / ``_bf16``) alike.
-``--variant MACRO`` adds this checkout's source built with ``-DMACRO``
+Every library gets the same inputs at the unit's widths (``--widths
+D,h1,h2``; DIN's, D = 18, h1 = 80, h2 = 40 of ``configs/din.py``, by
+default), in fp32 or bf16, and is launched through its C entry for that
+type alike: ``din_attention_f32`` / ``_bf16``, or past the register tiles
+(where the library has it) ``din_attention_wide_f32`` / ``_bf16`` with a
+workspace of ``din_attention_work_bytes``, allocated once. ``--variant
+MACRO`` adds this checkout's source built with ``-DMACRO``
 (``DIN_ATTENTION_BF16_TF32``: the bf16 entry through the fp32 pipeline)
 as one more contender. Each round times this checkout's build, then each
 other's, then the same in reverse order (``turns.take_turns``). Prints
@@ -29,8 +32,6 @@ import torch
 from repro_torch.kernels import build, turns
 from repro_torch.kernels.din_attention import ops
 
-D, H1, H2 = 18, 80, 40
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -40,6 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--keys", type=int, default=100)
+    ap.add_argument("--widths", default="18,80,40",
+                    help="D,h1,h2 of the unit")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=200)
     args = ap.parse_args(argv)
@@ -51,6 +54,7 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     B, L = args.batch, args.keys
+    D, H1, H2 = (int(v) for v in args.widths.split(","))
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -60,25 +64,34 @@ def main(argv=None) -> int:
     mask[0] = 1
     weights = (randn(4 * D, H1) * 0.2, randn(H1) * 0.1, randn(H1, H2) * 0.2,
                randn(H2) * 0.1, randn(H2, 1) * 0.2, randn(1) * 0.1)
-    entry = "din_attention_f32" if dtype == torch.float32 \
-        else "din_attention_bf16"
+    bf16 = dtype == torch.bfloat16
+    entry = "din_attention_bf16" if bf16 else "din_attention_f32"
+    wide = "din_attention_wide_bf16" if bf16 else "din_attention_wide_f32"
     stream = torch.cuda.current_stream(dev).cuda_stream
     libs = {"checkout": ops._lib()}
     libs.update((f"checkout -D{m}", ops._lib((m,))) for m in args.variant)
     for p in args.other:
         libs[str(p)] = turns.load_source("din_attention", p)
-    for lib in libs.values():
+    work = {}                 # name -> workspace, where the wide route runs
+    for name, lib in libs.items():
         build.bind(lib, {entry: ops._SIGNATURES[entry]})
+        if hasattr(lib, wide):
+            build.bind(lib, {k: ops._SIGNATURES[k]
+                             for k in (wide, "din_attention_work_bytes")})
+            n = lib.din_attention_work_bytes(B, L, D, H1, H2, int(bf16))
+            if n > 0:
+                work[name] = torch.empty(n, dtype=torch.uint8, device=dev)
     outs = {name: torch.empty(B, D, device=dev, dtype=dtype) for name in libs}
 
     def launcher(name):
         lib = libs[name]
+        fn = getattr(lib, wide if name in work else entry)
+        extra = [work[name].data_ptr()] if name in work else []
 
         def launch():
-            rc = getattr(lib, entry)(
-                q.data_ptr(), keys.data_ptr(), mask.data_ptr(),
-                *(w.data_ptr() for w in weights), outs[name].data_ptr(),
-                B, L, D, H1, H2, stream)
+            rc = fn(q.data_ptr(), keys.data_ptr(), mask.data_ptr(),
+                    *(w.data_ptr() for w in weights), outs[name].data_ptr(),
+                    B, L, D, H1, H2, *extra, stream)
             build.check(lib, rc, f"din_attention ({name})")
         return launch
 
@@ -87,6 +100,7 @@ def main(argv=None) -> int:
     others = [n for n in libs if n != "checkout"]
     print(json.dumps(dict(
         B=B, L=L, D=D, h1=H1, h2=H2, dtype=args.dtype, iters=args.iters,
+        wide_route=sorted(work),
         **turns.summary(ms, "checkout"),
         max_abs_vs_checkout={n: float((outs[n].float()
                                        - outs["checkout"].float())

@@ -6,14 +6,18 @@ wrapper and its plain PyTorch version (port of
 (B, D), keys (L, D) shared by every row, mask (L,) and the unit's MLP
 4D -> h1 -> h2 -> 1, and returns the (B, D) pooled interest. A CPU tensor
 goes to ``din_attention_plain``; a CUDA tensor launches
-``csrc/din_attention.cu`` (any history length L) or raises: a unit wider
-than the kernel's register tiles (D > 64, h1 > 128, h2 > 64) is refused,
-never sent to the plain version. fp32 runs the two per-pair products as
-3xTF32 on the tensor cores; bf16 on the bf16 tensor cores (exact bf16
-products, f32 sums, h1 split into two bf16 halves for the second
-layer). The reference's batch padding to a multiple of its tile is gone:
-the kernel guards its last rows. ``LAUNCHES`` counts kernel launches (fp32 under
-``shared_keys``, bf16 under ``bf16``).
+``csrc/din_attention.cu`` at any history length L and any width: within
+the kernel's register tiles (D <= 64, h1 <= 128, h2 <= 64) its narrow
+pipelines, past them its wide route, which takes a workspace the wrapper
+allocates (``din_attention_work_bytes``). Only shared memory bounds the
+width (D <= 1200 in fp32, 1800 in bf16, as ``din_attention_max_dim``
+reports): a wider D raises, and no width is ever sent to the plain
+version. fp32 runs the two per-pair products as 3xTF32 on the tensor
+cores; bf16 on the bf16 tensor cores (exact bf16 products, f32 sums, h1
+split into two bf16 halves for the second layer). The reference's batch
+padding to a multiple of its tile is gone: the kernel guards its last
+rows. ``LAUNCHES`` counts kernel launches (fp32 under ``shared_keys``,
+bf16 under ``bf16``; the wide route under ``wide`` and ``wide/bf16``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from repro_torch.nn.attention import NEG_INF
 Tensor = torch.Tensor
 
 # kernel launches (one per launch, counted nowhere else)
-LAUNCHES = {"shared_keys": 0, "bf16": 0}
+LAUNCHES = {"shared_keys": 0, "bf16": 0, "wide": 0, "wide/bf16": 0}
 
 
 def reset_launches() -> None:
@@ -76,14 +80,18 @@ def din_attention_plain(query: Tensor, keys: Tensor, mask: Tensor,
 
 
 _UNIT = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_WIDE = _UNIT[:-1] + [ctypes.c_void_p] * 2     # ..., work, stream
 _SIGNATURES = {
     "din_attention_f32": (_UNIT, ctypes.c_int),
     "din_attention_bf16": (_UNIT, ctypes.c_int),
+    "din_attention_wide_f32": (_WIDE, ctypes.c_int),
+    "din_attention_wide_bf16": (_WIDE, ctypes.c_int),
+    "din_attention_work_bytes": ([ctypes.c_int] * 6, ctypes.c_long),
     "din_attention_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_long),
     "din_attention_chunk_keys": ([ctypes.c_int] * 3, ctypes.c_int),
     "din_attention_bf16_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_long),
     "din_attention_bf16_chunk_keys": ([ctypes.c_int] * 3, ctypes.c_int),
-    "din_attention_max_widths": ([ctypes.c_void_p], ctypes.c_int),
+    "din_attention_max_dim": ([ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -104,13 +112,14 @@ def _launch(query, keys, mask, w1, b1, w2, b2, w3, b3) -> Tensor:
     B, D = query.shape
     L = keys.shape[0]
     h1, h2 = w1.shape[1], w2.shape[1]
+    bf16 = dtype == torch.bfloat16
     lib = _lib()
-    if D > 0 and lib.din_attention_chunk_keys(D, h1, h2) < 0:
-        most = (ctypes.c_int * 3)()
-        lib.din_attention_max_widths(most)
-        raise ValueError(f"din_attention kernel cannot take D={D}, h1={h1}, "
-                         f"h2={h2}: beyond its register tiles (D <= "
-                         f"{most[0]}, h1 <= {most[1]}, h2 <= {most[2]})")
+    most = lib.din_attention_max_dim(int(bf16))
+    if D > most:
+        raise ValueError(f"din_attention kernel cannot take D={D}: 16 keys, "
+                         f"16 query rows and their pooled sums fill a block's "
+                         f"shared memory past D = {most} "
+                         f"({str(dtype).removeprefix('torch.')})")
     out = torch.empty((B, D), dtype=dtype, device=query.device)
     if B == 0:
         return out                        # nothing to launch
@@ -119,16 +128,27 @@ def _launch(query, keys, mask, w1, b1, w2, b2, w3, b3) -> Tensor:
     query, keys = query.contiguous(), keys.contiguous()
     weights = tuple(t.contiguous() for t in weights)
     mask_i = mask.to(torch.int32).contiguous()
-    entry = (lib.din_attention_f32 if dtype == torch.float32
-             else lib.din_attention_bf16)
+    nwork = lib.din_attention_work_bytes(B, L, D, h1, h2, int(bf16))
+    if nwork < 0:
+        raise ValueError(f"din_attention: no route for B={B}, L={L}, D={D}, "
+                         f"h1={h1}, h2={h2}")
+    args = [query.data_ptr(), keys.data_ptr(), mask_i.data_ptr(),
+            *(t.data_ptr() for t in weights), out.data_ptr(),
+            B, L, D, h1, h2]
+    if nwork:                             # past the register tiles
+        work = torch.empty(nwork, dtype=torch.uint8, device=query.device)
+        entry = (lib.din_attention_wide_bf16 if bf16
+                 else lib.din_attention_wide_f32)
+        args.append(work.data_ptr())
+        key = "wide/bf16" if bf16 else "wide"
+    else:
+        entry = lib.din_attention_bf16 if bf16 else lib.din_attention_f32
+        key = "bf16" if bf16 else "shared_keys"
     with torch.cuda.device(query.device):    # launch in the tensors' context
-        rc = entry(query.data_ptr(), keys.data_ptr(), mask_i.data_ptr(),
-                   *(t.data_ptr() for t in weights), out.data_ptr(),
-                   B, L, D, h1, h2,
+        rc = entry(*args,
                    torch.cuda.current_stream(query.device).cuda_stream)
     build.check(lib, rc, "din_attention")
-    build.count_launch(LAUNCHES, "shared_keys" if dtype == torch.float32
-                       else "bf16")
+    build.count_launch(LAUNCHES, key)
     return out
 
 

@@ -5,14 +5,17 @@ version, and ``parse_spec`` (port of ``repro.kernels.gather_einsum``).
 ``einsum(spec, x, table[clamp(user_index)])`` for specs of the form
 ``"b...,u...->b..."``. A CPU tensor goes to ``gather_einsum_plain`` (any
 spec ``parse_spec`` accepts). A CUDA tensor launches
-``csrc/gather_einsum.cu`` for the three ``KERNEL_SPECS`` — the gathered
-``(B, ...)`` operand never materializes — in fp32 or bf16 (f32 products
-and sums, the output in bf16), and raises ``NotImplementedError`` for any
-other spec. In bf16, ``bl,uld->bd`` and ``blh,uh->bl`` give the fp32
-kernel's result on the widened operands, rounded once; ``bd,uldh->blh``
-runs on the bf16 tensor cores, its f32 sums in the ``mma``'s order.
-``LAUNCHES`` counts kernel launches per spec, fp32 under the spec and bf16
-under ``<spec>/bf16``.
+``csrc/gather_einsum.cu`` — the gathered ``(B, ...)`` operand never
+materializes — in fp32 or bf16 (f32 products and sums, the output in
+bf16): the three ``KERNEL_SPECS`` on their own routes, and every other
+spec on the generic route, which walks the ``generic_plan`` of the spec
+and the shapes (one thread an output element). In bf16, ``bl,uld->bd``,
+``blh,uh->bl`` and the generic route give the fp32 kernel's result on
+the widened operands, rounded once; ``bd,uldh->blh`` runs on the bf16
+tensor cores, its f32 sums in the ``mma``'s order. ``LAUNCHES`` counts
+kernel launches per spec, fp32 under the spec and bf16 under
+``<spec>/bf16``, the generic route under ``generic`` and
+``generic/bf16``.
 
 Index contract (shared with ``mari_matmul``'s gather init): ``user_index``
 is ``(B,)`` integer, row ``b`` reads ``table[user_index[b]]``, and
@@ -21,6 +24,7 @@ out-of-range values clamp to ``[0, U-1]``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,8 +38,13 @@ Tensor = torch.Tensor
 KERNEL_SPECS = ("bd,uldh->blh", "bl,uld->bd", "blh,uh->bl")
 
 # kernel launches per spec (one per launch, counted nowhere else)
-LAUNCHES = dict.fromkeys(KERNEL_SPECS
-                         + tuple(f"{s}/bf16" for s in KERNEL_SPECS), 0)
+LAUNCHES = dict.fromkeys(KERNEL_SPECS + ("generic",)
+                         + tuple(f"{s}/bf16"
+                                 for s in KERNEL_SPECS + ("generic",)), 0)
+
+# the generic route's plan holds at most this many dims of each role
+# (csrc GE_MAX_DIMS)
+MAX_PLAN_DIMS = 8
 
 
 def reset_launches() -> None:
@@ -99,10 +108,95 @@ def gather_einsum_plain(spec: str, x: Tensor, table: Tensor,
     return torch.einsum(row_spec, x, take_clip(table, user_index))
 
 
+def _contiguous_strides(shape) -> list[int]:
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return out[::-1]
+
+
+def _merge(dims: list[tuple[int, ...]]) -> list[tuple[int, ...]]:
+    """Adjacent (size, *strides) dims merged where the outer one steps over
+    the inner one on every operand (its stride = the inner's times the
+    inner's size, 0 = 0 included); size-1 dims dropped. The walk order of
+    the merged dims is the unmerged one's."""
+    out: list[tuple[int, ...]] = []
+    for d in dims:
+        if d[0] == 1:
+            continue
+        if out and all(a == b * d[0] for a, b in zip(out[-1][1:], d[1:])):
+            out[-1] = (out[-1][0] * d[0],) + d[1:]
+        else:
+            out.append(d)
+    return out
+
+
+def generic_plan(spec: str, x_shape, t_shape) -> dict:
+    """The generic route's plan of ``spec`` on contiguous operands of these
+    shapes (the kernel's index arithmetic, ``csrc`` ``GePlan``): ``out``
+    the output dims past b in the output's order, each ``(size, x stride,
+    table stride, out stride)``; ``sum`` the summed dims (every dim not in
+    the output, in order of first appearance in x then the table), each
+    ``(size, x stride, table stride)``; a dim absent from an operand has
+    stride 0 there; ``x_row`` / ``t_row`` / ``out_row`` the strides of b and
+    u. Strides count elements. Raises ``ValueError`` past
+    ``MAX_PLAN_DIMS`` dims of a role."""
+    x_sub, t_sub, out_sub, _ = parse_spec(spec)
+    sizes = dict(zip(x_sub, x_shape))
+    sizes.update(zip(t_sub, t_shape))
+    out_shape = [sizes[c] for c in out_sub]
+    xs = dict(zip(x_sub, _contiguous_strides(x_shape)))
+    ts = dict(zip(t_sub, _contiguous_strides(t_shape)))
+    os_ = dict(zip(out_sub, _contiguous_strides(out_shape)))
+    out = _merge([(sizes[c], xs.get(c, 0), ts.get(c, 0), os_[c])
+                  for c in out_sub[1:]])
+    summed = [c for c in dict.fromkeys(x_sub[1:] + t_sub[1:])
+              if c not in out_sub]
+    sm = _merge([(sizes[c], xs.get(c, 0), ts.get(c, 0)) for c in summed])
+    if len(out) > MAX_PLAN_DIMS or len(sm) > MAX_PLAN_DIMS:
+        raise ValueError(f"gather_einsum {spec!r}: {len(out)} output and "
+                         f"{len(sm)} summed dims once merged, past the "
+                         f"generic route's {MAX_PLAN_DIMS} of each")
+    return dict(out=out, sum=sm, x_row=xs["b"], t_row=ts["u"],
+                out_row=os_["b"])
+
+
+_DIMS = ctypes.c_longlong * MAX_PLAN_DIMS
+
+
+class GePlan(ctypes.Structure):
+    """``csrc/gather_einsum.cu``'s ``GePlan``, field for field."""
+    _fields_ = [("n_out", ctypes.c_int), ("n_sum", ctypes.c_int),
+                ("x_row", ctypes.c_longlong), ("t_row", ctypes.c_longlong),
+                ("out_row", ctypes.c_longlong),
+                ("out_count", ctypes.c_longlong),
+                ("sum_count", ctypes.c_longlong),
+                ("out_size", _DIMS), ("out_x", _DIMS), ("out_t", _DIMS),
+                ("out_o", _DIMS), ("sum_size", _DIMS), ("sum_x", _DIMS),
+                ("sum_t", _DIMS)]
+
+
+def _c_plan(plan: dict) -> GePlan:
+    p = GePlan(n_out=len(plan["out"]), n_sum=len(plan["sum"]),
+               x_row=plan["x_row"], t_row=plan["t_row"],
+               out_row=plan["out_row"],
+               out_count=math.prod(d[0] for d in plan["out"]),
+               sum_count=math.prod(d[0] for d in plan["sum"]))
+    for i, d in enumerate(plan["out"]):
+        p.out_size[i], p.out_x[i], p.out_t[i], p.out_o[i] = d
+    for i, d in enumerate(plan["sum"]):
+        p.sum_size[i], p.sum_x[i], p.sum_t[i] = d
+    return p
+
+
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+_GENERIC = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 _SIGNATURES = {"gather_einsum_f32": (_ARGTYPES, ctypes.c_int),
-               "gather_einsum_bf16": (_ARGTYPES, ctypes.c_int)}
+               "gather_einsum_bf16": (_ARGTYPES, ctypes.c_int),
+               "gather_einsum_generic_f32": (_GENERIC, ctypes.c_int),
+               "gather_einsum_generic_bf16": (_GENERIC, ctypes.c_int)}
 
 
 def _lib(defines=()) -> ctypes.CDLL:
@@ -113,10 +207,6 @@ def _lib(defines=()) -> ctypes.CDLL:
 def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
             shape: tuple[int, ...]) -> Tensor:
     build.refuse_autograd(f"gather_einsum {spec!r}", x, table)
-    if spec not in KERNEL_SPECS:
-        raise NotImplementedError(
-            f"gather_einsum: the CUDA kernel covers {KERNEL_SPECS}, not "
-            f"{spec!r}")
     for name, t in (("table", table), ("user_index", user_index)):
         if t.device != x.device:
             raise ValueError(f"gather_einsum: {name} on {t.device}, x on "
@@ -127,16 +217,28 @@ def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
     out = torch.empty(shape, dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out                        # nothing to launch
+    lib = _lib()
+    bf16 = dtype == torch.bfloat16
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if spec not in KERNEL_SPECS:
+        plan = _c_plan(generic_plan(spec, x.shape, table.shape))
+        entry = (lib.gather_einsum_generic_bf16 if bf16
+                 else lib.gather_einsum_generic_f32)
+        with torch.cuda.device(x.device):
+            rc = entry(x.data_ptr(), table.data_ptr(), idx.data_ptr(),
+                       out.data_ptr(), x.shape[0], table.shape[0],
+                       ctypes.byref(plan), stream)
+        build.check(lib, rc, f"gather_einsum {spec!r}")
+        build.count_launch(LAUNCHES, "generic/bf16" if bf16 else "generic")
+        return out
     dims = list(table.shape[1:]) + [0] * (4 - table.ndim)
     if spec == "blh,uh->bl":
         dims[1] = x.shape[1]            # the kernel also needs L
-    lib = _lib()
-    bf16 = dtype == torch.bfloat16
     entry = lib.gather_einsum_bf16 if bf16 else lib.gather_einsum_f32
     with torch.cuda.device(x.device):    # launch in the tensors' context
         rc = entry(KERNEL_SPECS.index(spec), x.data_ptr(), table.data_ptr(),
                    idx.data_ptr(), out.data_ptr(), x.shape[0], table.shape[0],
-                   *dims, torch.cuda.current_stream(x.device).cuda_stream)
+                   *dims, stream)
     build.check(lib, rc, f"gather_einsum {spec!r}")
     build.count_launch(LAUNCHES, f"{spec}/bf16" if bf16 else spec)
     return out

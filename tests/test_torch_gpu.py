@@ -485,7 +485,8 @@ def ge_parent_source():
     lib = turns.load_source(
         "gather_einsum", pathlib.Path(__file__).parent / "data"
         / "gather_einsum_5cd8cdc.cu")
-    ge.ops.build.bind(lib, ge.ops._SIGNATURES)
+    ge.ops.build.bind(lib, {k: ge.ops._SIGNATURES[k] for k in (
+        "gather_einsum_f32", "gather_einsum_bf16")})
     return lib
 
 
@@ -546,11 +547,67 @@ def test_gather_einsum_bf16_w_keys_is_the_parents_bf16_entry(
 
 
 def test_gather_einsum_other_spec_raises_on_cuda(cuda):
-    x = torch.zeros(3, 4, device=cuda)
-    table = torch.zeros(2, 4, 5, device=cuda)
-    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="CUDA kernel covers"):
-        ge.gather_einsum("bi,uij->bj", x, table, idx)
+    """A spec past the three KERNEL_SPECS no longer raises on CUDA: it
+    takes the generic route. What still raises is a spec whose plan needs
+    more than the route's 8 dims of a role, naming that bound."""
+    g = _gen(cuda, 5)
+    x, table = _randn(g, 3, 4), _randn(g, 2, 4, 5)
+    idx = torch.tensor([0, 1, 7], dtype=torch.int32, device=cuda)
+    before = ge.LAUNCHES["generic"]
+    got = ge.gather_einsum("bi,uij->bj", x, table, idx)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES["generic"] == before + 1
+    torch.testing.assert_close(got, ge.gather_einsum_plain(
+        "bi,uij->bj", x, table, idx), **TOL)
+    many = "acdefghij"
+    with pytest.raises(ValueError, match="generic route's 8 of each"):
+        ge.gather_einsum(f"b{many},u->b{many[::-1]}",
+                         torch.zeros((1,) + (2,) * 9, device=cuda),
+                         torch.zeros(3, device=cuda), idx[:1])
+
+
+# specs past KERNEL_SPECS (tests/test_torch_kernels.py OTHER_SPECS) and
+# the sizes of their dims
+GE_OTHER_SPECS = ["bi,uij->bj", "bij,uj->bi", "bl,ul->bl", "bd,ud->b",
+                  "bdk,ukh->bdh", "bx,uy->bxy", "bd,uldh->bhl"]
+GE_DIMS = dict(i=37, j=50, l=100, d=18, k=3, h=80, x=40, y=30)
+
+
+@pytest.mark.parametrize("B,U", [(1000, 8), (1, 1), (301, 64)])
+@pytest.mark.parametrize("spec", GE_OTHER_SPECS)
+def test_gather_einsum_generic_matches_plain(cuda, spec, B, U):
+    """The generic route: fp32 within 2e-4 of the plain version (indices
+    out of range both ways, clamped); bf16 bit for bit the fp32 route on
+    the widened operands, rounded once; a row's bits do not depend on B."""
+    xs, ts, _, _ = ge.parse_spec(spec)
+    g = _gen(cuda, B + U + len(spec))
+    x = _randn(g, B, *(GE_DIMS[c] for c in xs[1:]))
+    table = _randn(g, U, *(GE_DIMS[c] for c in ts[1:]))
+    idx = torch.randint(-2, U + 3, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = dict(ge.LAUNCHES)
+    got = ge.gather_einsum(spec, x, table, idx)
+    got_b = ge.gather_einsum(spec, x.bfloat16(), table.bfloat16(), idx)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES["generic"] == before["generic"] + 1
+    assert ge.LAUNCHES["generic/bf16"] == before["generic/bf16"] + 1
+    torch.testing.assert_close(got, ge.gather_einsum_plain(spec, x, table,
+                                                           idx), **TOL)
+    widened = ge.gather_einsum(spec, x.bfloat16().float(),
+                               table.bfloat16().float(), idx)
+    assert got_b.dtype == torch.bfloat16
+    assert torch.equal(got_b, widened.bfloat16())
+    torch.testing.assert_close(
+        got_b.float(), ge.gather_einsum_plain(spec, x.bfloat16(),
+                                              table.bfloat16(), idx).float(),
+        **BF16_TOL)
+    if B > 1:
+        half = B // 2
+        assert torch.equal(ge.gather_einsum(spec, x[half:], table,
+                                            idx[half:]), got[half:])
+        assert torch.equal(ge.gather_einsum(spec, x[half:].bfloat16(),
+                                            table.bfloat16(), idx[half:]),
+                           got_b[half:])
 
 
 @pytest.mark.parametrize("keep_self", [False, True])
@@ -774,10 +831,13 @@ def test_din_attention_kernel_longest_history(cuda, L):
 
 
 def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
-    """bf16 is taken, mixed dtypes are not; units wider than the register
-    tiles raise on CUDA, naming the tiles the library reports (the
-    executor never sends them to the plain version); the widest unit
-    within the tiles takes 32-key chunks and 10,000 keys."""
+    """bf16 is taken, mixed dtypes are not; every width is taken (the wide
+    route past the register tiles) up to the D whose 16-key chunk, 16
+    query rows and their pooled sums fill a block's shared memory (1200 in
+    fp32, 1800 in bf16), past which the wrapper raises naming that bound;
+    within the
+    tiles the narrow pipelines' layouts stand (the widest unit takes
+    32-key chunks and 10,000 keys)."""
     args = _din_case(cuda, 8, 10, 6, 16, 8)
     with pytest.raises(TypeError, match="query bfloat16, keys float32"):
         da.din_attention(args[0].bfloat16(), *args[1:])
@@ -785,13 +845,17 @@ def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
         da.din_attention(*(a.half() if a.is_floating_point() else a
                            for a in args))
     lib = da.ops._lib()
-    for h1, h2, D in ((200, 8, 6), (16, 65, 6), (16, 8, 65)):
-        wide = _din_case(cuda, 8, 10, D, h1, h2)
-        assert lib.din_attention_smem_bytes(10, D, h1, h2) == -1
-        assert lib.din_attention_chunk_keys(D, h1, h2) == -1
-        with pytest.raises(ValueError, match=r"register tiles \(D <= 64, "
-                                             r"h1 <= 128, h2 <= 64\)"):
+    assert (lib.din_attention_max_dim(0), lib.din_attention_max_dim(1)) \
+        == (1200, 1800)
+    for bf16, D in ((False, 1201), (True, 1801)):
+        wide = _din_case(cuda, 2, 3, D, 8, 8)
+        if bf16:
+            wide = _bf16(wide)
+        assert lib.din_attention_work_bytes(2, 3, D, 8, 8, int(bf16)) == -1
+        with pytest.raises(ValueError, match=f"past D = {D - 1}"):
             da.din_attention(*wide)
+    # within the tiles: no workspace, the narrow layouts
+    assert lib.din_attention_work_bytes(2048, 100, 64, 128, 64, 0) == 0
     assert lib.din_attention_chunk_keys(64, 128, 64) == 32
     assert lib.din_attention_smem_bytes(10_000, 64, 128, 64) <= 232448
     widest = _din_case(cuda, 20, 10_000, 64, 128, 64, seed=2)
@@ -799,8 +863,123 @@ def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
                                da.din_attention_plain(*widest), **TOL)
     # DIN at configs/din.py width stages 106832 bytes: two blocks an SM
     assert lib.din_attention_smem_bytes(100, 18, 80, 40) == 106832
+    # DIN's public D = 128: the wide route, 16 rows a block, fragments
+    # staged (W1d's 16 x 10 x 512 B and W2's 10 x 5 x 512 in fp32; keys 100
+    # x 132, rows 16 x 132, pooled sums 16 x 128, scores 16 x 100, mask 100:
+    # 183,760 bytes); in bf16 W1d's 16 x 10 x 128 B, W2's 5 x 5 x 256, keys
+    # 100 x 136 bf16, rows 16 x 136, sums, scores and mask: 73,424
+    assert lib.din_attention_smem_bytes(100, 128, 80, 40) == 183760
+    assert lib.din_attention_bf16_smem_bytes(100, 128, 80, 40) == 73424
+    assert lib.din_attention_chunk_keys(128, 80, 40) == 112
     with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
         da.din_attention(args[0], args[1], args[2], args[3][:-1], *args[4:])
+
+
+def _din_glorot(dev, B, L, D, h1, h2, seed=0):
+    """``_din_case`` with the MLP's weights at the models' glorot scale
+    (init_graph_params): at _din_case's 0.2 a unit of fan-in 1024 scores
+    in the hundreds, where any bf16 rounding of a feature moves the
+    softmax's argmax (the plain version's own bf16 run is then ~0.2 off
+    its fp32 run on the same values)."""
+    a = list(_din_case(dev, B, L, D, h1, h2, seed))
+    for i, (fi, fo) in ((3, (4 * D, h1)), (5, (h1, h2)), (7, (h2, 1))):
+        a[i] = a[i] / 0.2 * (2.0 / (fi + fo)) ** 0.5
+    return tuple(a)
+
+
+DIN_WIDE_UNITS = [(128, 80, 40), (65, 129, 65), (256, 512, 256),
+                  (18, 2048, 1024), (1024, 80, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,h1,h2", DIN_WIDE_UNITS)
+def test_din_attention_wide_units_match_plain(cuda, D, h1, h2, dtype):
+    """Units past the register tiles (D > 64, h1 > 128 or h2 > 64, and
+    all) take the wide route: fp32 within 2e-4 of the plain version, bf16
+    within 2e-2 of it and of the fp32 kernel on the widened values; a
+    row's bits do not depend on B; counted under wide / wide/bf16."""
+    args = _din_glorot(cuda, 67, 100, D, h1, h2, seed=D + h1)
+    key, tol = "wide", TOL
+    if dtype == "bfloat16":
+        args, key, tol = _bf16(args), "wide/bf16", BF16_TOL
+    before = dict(da.LAUNCHES)
+    got = da.din_attention(*args)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES[key] == before[key] + 1
+    assert sum(da.LAUNCHES.values()) == sum(before.values()) + 1
+    assert got.shape == (67, D) and got.dtype == args[0].dtype
+    torch.testing.assert_close(got.float(),
+                               da.din_attention_plain(*args).float(), **tol)
+    if dtype == "bfloat16":
+        wide = tuple(a.float() if a.is_floating_point() else a for a in args)
+        torch.testing.assert_close(got.float(), da.din_attention(*wide),
+                                   **BF16_TOL)
+    for lo, hi in ((33, 67), (1, 2)):
+        assert torch.equal(da.din_attention(args[0][lo:hi].contiguous(),
+                                            *args[1:]), got[lo:hi])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_din_attention_wide_unit_longest_history(cuda, dtype):
+    """10,000 keys through a wide unit (every width past its tile): the
+    keys stream in chunks, an online softmax carries each row across
+    them; a row slice gives the same bits; a mask of zeros pools the keys
+    uniformly."""
+    args = _din_glorot(cuda, 24, 10_000, 65, 129, 65, seed=9)
+    tol = TOL
+    if dtype == "bfloat16":
+        args, tol = _bf16(args), BF16_TOL
+    full = da.din_attention(*args)
+    torch.testing.assert_close(full.float(),
+                               da.din_attention_plain(*args).float(), **tol)
+    assert torch.equal(da.din_attention(args[0][5:11].contiguous(),
+                                        *args[1:]), full[5:11])
+    masked = (args[0], args[1], torch.zeros_like(args[2])) + args[3:]
+    torch.testing.assert_close(
+        da.din_attention(*masked).float(),
+        da.din_attention_plain(*masked).float(), **tol)
+
+
+@pytest.fixture(scope="module")
+def din_parent_source():
+    """``din_attention`` as commit d297e41 built it (its source under
+    tests/data: the narrow pipelines alone), built with the checkout's
+    flags."""
+    from repro_torch.kernels import turns
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = turns.load_source(
+        "din_attention", pathlib.Path(__file__).parent / "data"
+        / "din_attention_d297e41.cu")
+    da.ops.build.bind(lib, {k: da.ops._SIGNATURES[k] for k in (
+        "din_attention_f32", "din_attention_bf16")})
+    return lib
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,D,h1,h2", [(2048, 100, 18, 80, 40),
+                                         (300, 37, 33, 128, 64),
+                                         (20, 3000, 64, 128, 64),
+                                         (1, 7, 6, 12, 5),
+                                         (64, 921, 18, 80, 40)])
+def test_din_attention_within_tiles_is_the_parents_bit_for_bit(
+        cuda, din_parent_source, B, L, D, h1, h2, dtype):
+    """Within the register tiles (D <= 64, h1 <= 128, h2 <= 64) both
+    entries keep the narrow pipelines: the bits of commit d297e41's
+    source, the unguarded DIN-width instances and the guarded ones."""
+    args = _din_case(cuda, B, L, D, h1, h2, seed=B + L)
+    if dtype == "bfloat16":
+        args = _bf16(args)
+    q, keys, mask, *w = args
+    want = torch.empty(B, D, dtype=q.dtype, device=cuda)
+    entry = ("din_attention_f32" if dtype == "float32"
+             else "din_attention_bf16")
+    rc = getattr(din_parent_source, entry)(
+        q.data_ptr(), keys.data_ptr(), mask.to(torch.int32).data_ptr(),
+        *(t.data_ptr() for t in w), want.data_ptr(), B, L, D, h1, h2,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    da.ops.build.check(din_parent_source, rc, "din_attention (d297e41)")
+    assert torch.equal(da.din_attention(*args), want)
 
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -894,13 +1073,17 @@ def test_din_attention_bf16_layout(cuda):
     and w3 160 each, scores 3200, mask 400: 69,200 bytes (106,832 in
     fp32); the widest unit (D 64 -> rows of 72 bf16, h1 128 -> K1 rows of
     136 floats, h2 64) keeps 112-key chunks: 65,536 + 16,384 + 60,928 +
-    4352 + 16,128 + 1152 + 512 + 256 + 256 + 3584 + 448 = 169,536."""
+    4352 + 16,128 + 1152 + 512 + 256 + 256 + 3584 + 448 = 169,536. One
+    past the tiles (D 65 -> 72, h1 16, h2 8, L 10) takes the wide route:
+    W1d's fragments 9 x 2 x 128 B and W2's 1 x 1 x 256 staged, keys 10 x
+    72 bf16 (1440), 16 rows x 72 (2304), pooled sums 16 x 72 x 4, scores
+    16 x 10 x 4, mask 40: 11,592 bytes."""
     lib = da.ops._lib()
     assert lib.din_attention_bf16_smem_bytes(100, 18, 80, 40) == 69200
     assert lib.din_attention_bf16_chunk_keys(18, 80, 40) == 112
     assert lib.din_attention_bf16_chunk_keys(64, 128, 64) == 112
     assert lib.din_attention_bf16_smem_bytes(10_000, 64, 128, 64) == 169536
-    assert lib.din_attention_bf16_smem_bytes(10, 65, 16, 8) == -1
+    assert lib.din_attention_bf16_smem_bytes(10, 65, 16, 8) == 11592
 
 
 @pytest.mark.parametrize("keep_self", [False, True])

@@ -131,17 +131,100 @@ def test_gather_einsum_matches_reference(spec, U):
         rtol=0, atol=0)
 
 
-def test_gather_einsum_other_spec_runs_plain_on_cpu():
-    """A spec parse_spec accepts but the kernel does not cover still runs
-    through the plain version on CPU tensors."""
-    spec = "bi,uij->bj"
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((6, 4)).astype(np.float32)
-    table = rng.standard_normal((3, 4, 5)).astype(np.float32)
-    uidx = np.array([0, 1, 2, 9, -1, 1], np.int32)
+# specs past the three KERNEL_SPECS (the generic route on CUDA): a row
+# contraction, a per-row vector product, an elementwise product, a dot, a
+# batched small matmul, an outer product, a permuted output
+OTHER_SPECS = ["bi,uij->bj", "bij,uj->bi", "bl,ul->bl", "bd,ud->b",
+               "bdk,ukh->bdh", "bx,uy->bxy", "bd,uldh->bhl"]
+DIM_SIZES = dict(i=4, j=5, l=6, d=7, k=3, h=5, x=4, y=3)
+
+
+def _other_case(spec, B=6, U=3, seed=7):
+    """x, table and an index with out-of-range values both ways."""
+    x_sub, t_sub, _, _ = parse_spec(spec)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B,) + tuple(DIM_SIZES[c] for c in x_sub[1:]))
+    table = rng.standard_normal((U,) + tuple(DIM_SIZES[c]
+                                             for c in t_sub[1:]))
+    uidx = rng.integers(-2, U + 3, (B,)).astype(np.int32)
+    uidx[:2] = (-1, U + 4)
+    return x.astype(np.float32), table.astype(np.float32), uidx
+
+
+@pytest.mark.parametrize("spec", OTHER_SPECS)
+def test_gather_einsum_other_spec_runs_plain_on_cpu(spec):
+    """A spec parse_spec accepts past the three KERNEL_SPECS (the generic
+    route on CUDA) runs through the plain version on CPU tensors, as the
+    reference's kernel in interpret mode computes it."""
+    x, table, uidx = _other_case(spec)
     want = jax_gather_einsum(spec, x, table, uidx, interpret=True)
+    before = dict(ge.LAUNCHES)
     got = gather_einsum(spec, _t(x), _t(table), _t(uidx))
+    assert ge.LAUNCHES == before
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _plan_eval(spec, x, table, idx):
+    """The generic route's index arithmetic on its plan, in plain torch:
+    each output element's offsets from its index over the output dims
+    (row-major), the summed offsets over the summed dims in the kernel's
+    walk order, the clamped row of the table, and the products summed."""
+    plan = ge.ops.generic_plan(spec, x.shape, table.shape)
+    B, U = x.shape[0], table.shape[0]
+
+    def offsets(dims, n_strides):
+        n = int(np.prod([d[0] for d in dims]))
+        rem, offs = torch.arange(n), [torch.zeros(n, dtype=torch.long)
+                                      for _ in range(n_strides)]
+        for d in reversed(dims):
+            c = rem % d[0]
+            rem = rem // d[0]
+            for k in range(n_strides):
+                offs[k] += c * d[1 + k]
+        return offs
+
+    xo, to, oo = offsets(plan["out"], 3)
+    xs, ts = offsets(plan["sum"], 2)
+    b = torch.arange(B)[:, None, None]
+    u = idx.long().clamp(0, U - 1)[:, None, None]
+    xi = b * plan["x_row"] + xo[None, :, None] + xs[None, None, :]
+    ti = u * plan["t_row"] + to[None, :, None] + ts[None, None, :]
+    vals = (x.reshape(-1)[xi] * table.reshape(-1)[ti]).sum(-1)
+    shape = ge.ops.out_shape(spec, x, table, idx)
+    out = torch.zeros(int(np.prod(shape)), dtype=x.dtype)
+    out[(torch.arange(B)[:, None] * plan["out_row"] + oo[None, :])
+        .reshape(-1)] = vals.reshape(-1)
+    return out.reshape(shape)
+
+
+@pytest.mark.parametrize("spec", OTHER_SPECS + list(ge.KERNEL_SPECS))
+def test_gather_einsum_generic_plan_walks_to_einsum(spec):
+    """The generic plan evaluated by its strides (the kernel's index
+    arithmetic) equals torch.einsum on the gathered rows, out-of-range and
+    negative indices clamped."""
+    x, table, uidx = _other_case(spec, B=5, U=4, seed=len(spec))
+    x, table, idx = _t(x).double(), _t(table).double(), _t(uidx)
+    want = torch.einsum(parse_spec(spec)[3], x,
+                        table[idx.long().clamp(0, table.shape[0] - 1)])
+    torch.testing.assert_close(_plan_eval(spec, x, table, idx), want,
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_gather_einsum_generic_plan_merges_and_bounds():
+    """Adjacent dims contiguous on every operand merge (size-1 dims drop),
+    a dim absent from an operand has stride 0 there, and a spec past the
+    plan's 8 dims of a role is refused naming the bound."""
+    plan = ge.ops.generic_plan("bij,uij->b", (5, 3, 4), (2, 3, 4))
+    assert plan["out"] == [] and plan["sum"] == [(12, 1, 1)]
+    plan = ge.ops.generic_plan("bx,uy->bxy", (5, 4), (2, 3))
+    assert plan["out"] == [(4, 1, 0, 3), (3, 0, 1, 1)]
+    assert (plan["x_row"], plan["t_row"], plan["out_row"]) == (4, 3, 12)
+    plan = ge.ops.generic_plan("bd,uldh->bhl", (5, 7), (2, 6, 7, 1))
+    assert plan["out"] == [(6, 0, 7, 1)] and plan["sum"] == [(7, 1, 1)]
+    many = "acdefghij"
+    with pytest.raises(ValueError, match="generic route's 8 of each"):
+        ge.ops.generic_plan(f"b{many},u->b{many[::-1]}", (1,) + (2,) * 9,
+                            (3,))
 
 
 BAD_SPECS = ["bd,uldh", "bd->blh", "xd,uldh->blh", "bd,xldh->blh",
@@ -212,6 +295,18 @@ def _din_case(B, L, D, h1=16, h2=8, seed=0):
     mask[0] = True
     return (f(B, D), f(L, D), mask, f(4 * D, h1) * 0.2, f(h1) * 0.1,
             f(h1, h2) * 0.2, f(h2) * 0.1, f(h2, 1) * 0.2, f(1) * 0.1)
+
+
+@pytest.mark.parametrize("B,L,D,h1,h2", [(5, 9, 72, 136, 72),
+                                         (3, 11, 130, 20, 9)])
+def test_din_attention_wide_units_match_reference(B, L, D, h1, h2):
+    """Units past the CUDA kernel's register tiles (its wide route on the
+    card): the plain version against the reference's Pallas kernel in
+    interpret mode, which takes any width."""
+    args = _din_case(B, L, D, h1, h2, seed=D)
+    got = da.din_attention(*(_t(a) for a in args)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_din_attention(*args, interpret=True)), **TOL)
 
 
 @pytest.mark.parametrize("B,L,D", [(4, 5, 8), (33, 20, 18), (128, 100, 18)])

@@ -234,10 +234,12 @@ def test_functional_eq7_forms_match_reference():
 
 DIN_WIDE = dict(embed_dim=18, seq_len=100, attn_mlp=(80, 40), mlp=(200, 80),
                 item_vocab=512)        # configs/din.py widths, small vocab
+# a unit past the CUDA kernel's register tiles (its wide route on the card)
+DIN_WIDER = dict(embed_dim=72, attn_mlp=(136, 72), seq_len=12, item_vocab=128)
 
 
 @pytest.mark.parametrize("mode", ["uoi", "mari"])
-@pytest.mark.parametrize("widths", ["smoke", "full"])
+@pytest.mark.parametrize("widths", ["smoke", "full", "wider"])
 def test_din_single_call_kernel_path_matches_reference(widths, mode,
                                                        monkeypatch):
     """Single-call UOI and MaRI of DIN with use_pallas (the din_attention
@@ -245,7 +247,7 @@ def test_din_single_call_kernel_path_matches_reference(widths, mode,
     executor. The whole attention unit goes to the wrapper once, with the
     batch-1 keys as one (L, D) block."""
     import repro_torch.graph.executor as texec
-    kw = DIN_SMOKE if widths == "smoke" else DIN_WIDE
+    kw = dict(smoke=DIN_SMOKE, full=DIN_WIDE, wider=DIN_WIDER)[widths]
     jg, tg = j_din(**kw)[0], t_din(**kw)[0]
     jp = init_graph_params(jg, jax.random.PRNGKey(11))
     tp = params_from_numpy(_np_tree(jp), "cpu")
