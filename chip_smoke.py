@@ -39,14 +39,18 @@
    ``dot_interaction``'s and ``bd,uldh->blh``'s are held to the fp32
    kernel on the widened operands within one bf16 ulp, or where a sum
    cancels within the f32 reordering bound (``bf16_vs_widened``);
-   ``din_attention``'s is timed beside its build through the fp32
-   pipeline (``tf32_pipeline_ms``). Every ``gather_einsum`` bf16 entry is
-   also checked and timed at a 64-slot table (``u64``). ``din_attention``'s
-   wide route (``din_attention/wide`` and ``/wide/bf16``: units past the
-   register tiles) is checked at ``DIN_WIDE_CHECKED`` (and 10,000 keys)
-   and timed at DIN's public D = 128; ``gather_einsum``'s ``bd,uldh->blh`` is also timed
-   at D = 128 (``at_d128``, beside its bounds by bytes and by
-   operations); the generic route (``gather_einsum/generic`` and
+   Every ``gather_einsum`` bf16 entry is also checked and timed at a
+   64-slot table (``u64``). ``din_attention``'s wide route
+   (``din_attention/wide`` and ``/wide/bf16``: units past the register
+   tiles, on ``wgmma`` with weights prepared once by
+   ``prepare_din_weights``) is checked at ``DIN_WIDE_CHECKED`` (and 10,000
+   keys), held at ``din_args``' 0.2 scale against the unit in fp64
+   (``fp32_at_0_2_scale``: no farther from it than the plain version) and
+   timed at DIN's public D = 128; fp32 ``bd,uldh->blh`` past D = 40 runs
+   on the tensor cores (``gather_einsum/bd,uldh->blh/tc``: checked at D
+   41 / 64 / 128 / 130, timed at D = 128 beside the CUDA-core kernel it
+   replaces there and ``einsum`` on the gathered operand); the generic
+   route (``gather_einsum/generic`` and
    ``/generic/bf16``) runs every ``GENERIC_SPECS`` spec, held to its plain
    version, bf16 bit for bit the fp32 route on widened operands, and
    timed (``gather_einsum_generic`` line; its launches are path
@@ -274,10 +278,10 @@ Every kernel variant held to a path must have launched on it; runs made only to 
 plain engines, phase 1's checks, per-request oracles) count nowhere, but
 for phase 1's checks of the generic ``gather_einsum`` route, its only
 runner (path ``generic``).
-Every path hands ``mari_matmul`` prepared weights: weights prepared inside
-a call (``PREPARES``) must be 0 on each path, and x copies to a padded
-row stride (``STRIDE_COPIES``) are printed per path
-(``mari_matmul_host_by_path``).
+Every path hands ``mari_matmul`` and ``din_attention``'s wide route
+prepared weights: weights prepared inside a call (each wrapper's
+``PREPARES``) must be 0 on each path, and x copies to a padded row stride
+(``STRIDE_COPIES``) are printed per path (``mari_matmul_host_by_path``).
 Phase 4 also times the ``tpu`` preset as shipped (hedging on) beside
 ``hedging=False`` on its DLRM stream. Prints the kernels JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
@@ -349,8 +353,6 @@ GENERIC_SPECS = ("bd,uldh->bhl", "bi,uij->bj", "bij,uj->bi", "bl,ul->bl",
 # beside it: name -> (source, macros)
 VARIANTS = {"gather_einsum": ("gather_einsum", ("GATHER_EINSUM_NO_ROW_SORT",)),
             "din_attention": ("din_attention", ("DIN_ATTENTION_GUARDED_ONLY",)),
-            "din_attention_bf16_tf32": ("din_attention",
-                                        ("DIN_ATTENTION_BF16_TF32",)),
             "dot_interaction": ("dot_interaction",
                                 ("DOT_INTERACTION_RING_ONLY",))}
 AUC_TOL = 1e-3
@@ -508,6 +510,28 @@ def bf16_vs_widened(got, want32, abs_sums, depth: int) -> dict:
                 max_further_over_reorder_bound=float(
                     (err[far] / reorder[far]).max()) if bool(far.any())
                 else 0.0)
+
+
+def din_scores_fp64(query, keys, mask, w1, b1, w2, b2, w3, b3):
+    """The DIN unit's (B, L) scores before the mask, in fp64."""
+    import torch
+    q, k, w1, b1, w2, b2, w3, b3 = (t.double() for t in (
+        query, keys, w1, b1, w2, b2, w3, b3))
+    B, D = q.shape
+    kk = k[None].expand(B, -1, -1)
+    qq = q[:, None].expand(-1, k.shape[0], -1)
+    h = torch.relu(torch.cat([kk, qq, kk - qq, kk * qq], -1) @ w1 + b1)
+    return (torch.relu(h @ w2 + b2) @ w3 + b3)[..., 0]
+
+
+def din_oracle_fp64(query, keys, mask, w1, b1, w2, b2, w3, b3):
+    """``din_attention_plain``'s unit run in fp64 throughout (its mask
+    constant, softmax over l, pool of the keys), for holding an fp32 run
+    at scores in the hundreds."""
+    import torch
+    s = din_scores_fp64(query, keys, mask, w1, b1, w2, b2, w3, b3)
+    s = torch.where(mask[None].bool(), s, torch.full_like(s, -1e30))
+    return torch.softmax(s, dim=-1) @ keys.double()
 
 
 def moe_loop_oracle(x, ffn, cfg):
@@ -2041,9 +2065,11 @@ def main() -> int:
         for k, n in read_launches().items():
             tot[k] = tot.get(k, 0) + n
         host = host_by_path.setdefault(path, {"prepares": 0,
-                                              "stride_copies": 0})
+                                              "stride_copies": 0,
+                                              "din_prepares": 0})
         host["prepares"] += sum(mm.PREPARES.values())
         host["stride_copies"] += sum(mm.STRIDE_COPIES.values())
+        host["din_prepares"] += sum(da.PREPARES.values())
 
     # ---- phase 1: kernels against their plain versions ---------------------
     gen = torch.Generator(device=dev)
@@ -2393,22 +2419,78 @@ def main() -> int:
                 lambda: ge.gather_einsum(spec, x1, tg, i1))
         del t64
     del x, w, pw, u_of, rows
-    # the coalesced engine's q against T at DIN's public D = 128 (phase 3's
-    # din128 path): 2 B L H D FLOP on the CUDA cores, which make it bound
-    # by operations there, with the bound by bytes beside it
+    # fp32 bd,uldh->blh past D = 40 on the tensor cores (3xTF32 wgmma, the
+    # rows grouped by user through a counting sort on the card): the
+    # coalesced engine's q against T at DIN's public D = 128 (phase 3b's
+    # din128 path). Checked at D 41 / 64 / 128 / 130 in random order, runs,
+    # clamped and over 64 slots, a row's bits its own (a slice, a
+    # permutation); timed at D = 128 in random order, runs and 64 slots,
+    # beside the CUDA-core kernel that took it before (the library's
+    # gather_einsum_f32 entry, which keeps D <= 40) and einsum on the
+    # gathered (B, L, D, H) operand (16.8 GB, gathered before the timing)
     spec, D128 = "bd,uldh->blh", 128
-    xg, tg = randn(B, D128), randn(U, L, D128, H)
-    e128 = max_err(ge.gather_einsum(spec, xg, tg, idx),
-                   ge.gather_einsum_plain(spec, xg, tg, idx))
-    ms = time_ms(lambda: ge.gather_einsum(spec, xg, tg, idx))
+    tc_errs = []
+    for Dt in (41, 64, D128, 130):
+        xt, tt, t64 = randn(B, Dt), randn(U, L, Dt, H), randn(64, L, Dt, H)
+        for tab, it in ((tt, idx), (tt, torch.sort(idx).values),
+                        (tt, randidx(B, U + 3, lo=-2)), (t64, randidx(B, 64))):
+            tc_errs.append(max_err(ge.gather_einsum(spec, xt, tab, it),
+                                   ge.gather_einsum_plain(spec, xt, tab,
+                                                          it)))
+        del xt, tt, t64
+    xg, tg, t64 = randn(B, D128), randn(U, L, D128, H), randn(64, L, D128, H)
+    runs, idx64 = torch.sort(idx).values, randidx(B, 64)
+    full = ge.gather_einsum(spec, xg, tg, idx)
+    perm = torch.randperm(B, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    if not (torch.equal(ge.gather_einsum(spec, xg[1000:2100], tg,
+                                         idx[1000:2100]), full[1000:2100])
+            and torch.equal(ge.gather_einsum(spec, xg[perm], tg, idx[perm]),
+                            full[perm])):
+        raise AssertionError("gather_einsum tensor-core route: a row's bits "
+                             "depend on B or on the rows' order")
+    del full
+    ge_lib = ge.ops._lib()
+    cc_out = torch.empty(B, L, H, device=dev)
+
+    def cuda_core(i):
+        rc = ge_lib.gather_einsum_f32(
+            0, xg.data_ptr(), tg.data_ptr(), i.data_ptr(), cc_out.data_ptr(),
+            B, U, L, D128, H, torch.cuda.current_stream(dev).cuda_stream)
+        ge.ops.build.check(ge_lib, rc, "gather_einsum (CUDA cores)")
+
+    flops = 2 * B * L * H * D128
     nbytes = 4 * (B * D128 + U * L * D128 * H + B * L * H + B)
-    entries[f"gather_einsum/{spec}"]["at_d128"] = dict(
-        B=B, U=U, L=L, D=D128, H=H, ms=ms, max_abs_err=e128,
+    b_ms, b_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+    ms = time_ms(lambda: ge.gather_einsum(spec, xg, tg, idx))
+    entry = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_einsum.cu",
+        replaces="src/repro/kernels/gather_einsum/kernel.py:79",
+        max_abs_err=max(tc_errs), ms=ms,
+        ms_runs=time_ms(lambda: ge.gather_einsum(spec, xg, tg, runs)),
+        u64=dict(ms=time_ms(lambda: ge.gather_einsum(spec, xg, t64,
+                                                     idx64))),
+        cuda_core_ms=time_ms(lambda: cuda_core(idx)),
+        cuda_core_ms_runs=time_ms(lambda: cuda_core(runs)),
         plain_ms=time_ms(lambda: ge.gather_einsum_plain(spec, xg, tg, idx)),
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
         bound_bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
-        bound_operations_ms=2 * B * L * H * D128 / PEAK_FP32_FLOPS * 1e3,
-        share_of_bound=bound(nbytes, 2 * B * L * H * D128)[0] / ms)
-    del xg, tg
+        bound_3xtf32_ms=3 * flops / PEAK_TF32_FLOPS * 1e3,
+        shape=dict(B=B, U=U, L=L, D=D128, H=H, checked_D=[41, 64, D128, 130]),
+        bound_note="3xTF32: three TF32 products at 495 TFLOP/s; bytes: x, "
+                   "T, out and the index once",
+        timing="ms: user_index in random order; ms_runs: the engine's "
+               "runs; u64: a 64-slot table in random order; cuda_core_ms: "
+               "the CUDA-core kernel the route replaces past D = 40",
+        library="torch.einsum on pre-gathered rows")
+    del t64
+    rows = tg.index_select(0, idx)
+    row_spec = ge.parse_spec(spec)[3]
+    entry["library_ms"] = time_ms(lambda: torch.einsum(row_spec, xg, rows),
+                                  iters=5)
+    entries[f"gather_einsum/{ge.ops.TC_KEY}"] = entry
+    del xg, tg, rows, cc_out
+    torch.cuda.empty_cache()
 
     # DLRM interaction at a full bucket: B=4096, F=27, D=128 -> P=351
     F, D = 27, 128
@@ -2907,10 +2989,6 @@ def main() -> int:
     errs += [r["max_abs_err"] for r in long_bf16.values()]
     (b_ms, b_by), _, _ = din_bound(SINGLE_CALL_B, Lq, Dq, H1, H2, True)
     ms = time_ms(lambda: da.din_attention(*dargs))
-    # the bf16 entry through the fp32 pipeline with its zero products left
-    # out, the build it replaced
-    with variant(da.ops, "din_attention_bf16_tf32"):
-        tf32_ms = time_ms(lambda: da.din_attention(*dargs))
     lib = da.ops._lib()
     entries["din_attention/bf16"] = dict(
         route="cuda", source="src/repro_torch/csrc/din_attention.cu",
@@ -2935,14 +3013,10 @@ def main() -> int:
                       + -(-H1 // 16) * -(-H2 // 8) * 2),
         mma_per_tile_fp32_pipeline=3 * (-(-Dq // 8) * -(-H1 // 8)
                                         + -(-H1 // 8) * -(-H2 // 8)),
-        tf32_pipeline_ms=tf32_ms,
         bound_note="bf16: two bytes a value; the per-pair products once "
                    "at 989 TFLOP/s (the kernel runs them on the bf16 "
                    "tensor cores: mma.sync m16n8k8 and m16n8k16, h1 as "
                    "two bf16 halves in the second), the rest at 67",
-        timing="tf32_pipeline_ms: the DIN_ATTENTION_BF16_TF32 build (the "
-               "bf16 entry widened into the 3xTF32 pipeline, its zero "
-               "products left out)",
         library="none: no single PyTorch call computes the unit")
     del dargs
 
@@ -2963,21 +3037,29 @@ def main() -> int:
         return tuple(t.bfloat16() if bf16 and t.is_floating_point() else t
                      for t in a)
 
-    # fp32 at din_args' 0.2 scale, recorded and not held to TOL: scores
-    # large enough that the softmax is near an argmax, where a changed
-    # summation order moves the output (max_abs_err, beside max |score|)
+    # fp32 at din_args' 0.2 scale: scores large enough that the softmax is
+    # near an argmax, where a changed summation order moves the output.
+    # The wide route and the plain version are each held against the plain
+    # unit run in fp64 (din_oracle_fp64): the route no farther from it than
+    # the plain fp32 run, or within TOL of it (max_abs_err, the kernel
+    # against the plain version, beside max |score|)
     at_0_2 = {}
     for w in DIN_WIDE_CHECKED[1:3]:
         a = din_args(64, 100, *w)
-        d = (da.din_attention(*a) - da.din_attention_plain(*a)).abs().max()
-        k_, q_ = a[1][None].expand(64, -1, -1), a[0][:, None].expand(
-            -1, 100, -1)
-        h = torch.relu(torch.cat([k_, q_, k_ - q_, k_ * q_], -1) @ a[3]
-                       + a[4])
-        sc = torch.relu(h @ a[5] + a[6]) @ a[7] + a[8]
-        at_0_2[",".join(map(str, w))] = dict(
-            max_abs_err=float(d), max_abs_score=float(sc.abs().max()))
-        del a, k_, q_, h, sc
+        got = da.din_attention(*a, prepared=da.prepare_din_weights(a[3],
+                                                                  a[5]))
+        plain = da.din_attention_plain(*a)
+        oracle = din_oracle_fp64(*a)
+        at_0_2[",".join(map(str, w))] = r = dict(
+            max_abs_err=float((got - plain).abs().max()),
+            kernel_vs_fp64=float((got.double() - oracle).abs().max()),
+            plain_vs_fp64=float((plain.double() - oracle).abs().max()),
+            max_abs_score=din_scores_fp64(*a).abs().max().item())
+        if r["kernel_vs_fp64"] > max(r["plain_vs_fp64"], TOL["atol"]):
+            raise AssertionError(f"din_attention wide at 0.2 scale {w}: "
+                                 f"farther from fp64 than the plain "
+                                 f"version ({r})")
+        del a, got, plain, oracle
     lib = da.ops._lib()
     for bf16 in (False, True):
         errs, tol = [], BF16_TOL if bf16 else TOL
@@ -2985,22 +3067,26 @@ def main() -> int:
                                             for w in DIN_WIDE_CHECKED),
                     (16, 10_000) + DIN_WIDE_CHECKED[1]):
             a = din_wide_args(*shp, bf16)
-            got = da.din_attention(*a)
+            pw = da.prepare_din_weights(a[3], a[5])
+            got = da.din_attention(*a, prepared=pw)
             errs.append(max_err(got, da.din_attention_plain(*a), tol))
             half = shp[0] // 2
             torch.cuda.synchronize()
             if not torch.equal(da.din_attention(a[0][half:].contiguous(),
-                                                *a[1:]), got[half:]):
+                                                *a[1:], prepared=pw),
+                               got[half:]):
                 raise AssertionError(f"din_attention wide {shp}: a row's "
                                      f"result depends on B")
-            del a, got
+            del a, got, pw
         dargs = din_wide_args(SINGLE_CALL_B, Lq, *DIN_WIDE, bf16)
-        errs.append(max_err(da.din_attention(*dargs),
+        dprep = da.prepare_din_weights(dargs[3], dargs[5])
+        errs.append(max_err(da.din_attention(*dargs, prepared=dprep),
                             da.din_attention_plain(*dargs), tol))
         (b_ms, b_by), flops, simt_ms = din_bound(SINGLE_CALL_B, Lq,
                                                  *DIN_WIDE, bf16)
-        ms = time_ms(lambda: da.din_attention(*dargs))
-        split = profile_call(lambda: da.din_attention(*dargs))["top_kernels"]
+        ms = time_ms(lambda: da.din_attention(*dargs, prepared=dprep))
+        split = profile_call(lambda: da.din_attention(
+            *dargs, prepared=dprep))["top_kernels"]
         name = "din_attention/wide" + ("/bf16" if bf16 else "")
         smem = (lib.din_attention_bf16_smem_bytes if bf16
                 else lib.din_attention_smem_bytes)(Lq, *DIN_WIDE)
@@ -3028,11 +3114,11 @@ def main() -> int:
                         "once at 989 TFLOP/s" if bf16 else
                         "3xTF32: the least work's two per-pair products as "
                         "3xTF32 at 495 TFLOP/s") + ", the rest at 67",
-            timing="ms: the wrapper's call (the workspace's prep launch, "
-                   "then the unit; kernels_ms splits one call by "
-                   "torch.profiler)",
+            timing="ms: the wrapper's call on weights prepared once "
+                   "(prepare_din_weights): K1 and Q1's fold launch, then "
+                   "the unit; kernels_ms splits one call by torch.profiler",
             library="none: no single PyTorch call computes the unit")
-        del dargs
+        del dargs, dprep
 
     Vb, Bb, Hb, Db = pad_vocab(int(DLRM_TABLE_ROWS[20] * 0.1)), B, 100, 128
     tab = randn(Vb, Db).bfloat16()
@@ -4742,7 +4828,7 @@ def main() -> int:
             p10_p90_ms=[float(np.percentile(ms, q)) for q in (10, 90)],
             calls=DIN128_CALLS, launches=launched,
             din_attention_kernels=[k for k in prof["top_kernels"]
-                                   if "din_wide" in k[0]],
+                                   if "din_w" in k[0]],
             profile=prof, max_abs_kernels_vs_plain=d, tol=tol,
             dtype="bfloat16" if opts else "float32")
         del prog, params, feeds, serve, got, want
@@ -4822,7 +4908,7 @@ def main() -> int:
     held = {"paper+din": [k for k in entries
                           if k.startswith(("mari_matmul/", "gather_einsum/"))
                           and k not in OFF_PATH
-                          and not k.endswith("/bf16")]}
+                          and not k.endswith(("/bf16", "/tc"))]}
     held["device_twin"] = ["mari_matmul/gather"] + [
         k for k in held["paper+din"] if k.startswith("gather_einsum/")]
     held["service"] = held["service_default_hedging"] = [
@@ -4845,7 +4931,7 @@ def main() -> int:
     held["sharded"] = ["mari_matmul/broadcast"]
     held["generic"] = ["gather_einsum/generic", "gather_einsum/generic/bf16"]
     held["din128_engine"] = ["mari_matmul/gather",
-                             "gather_einsum/bd,uldh->blh",
+                             f"gather_einsum/{ge.ops.TC_KEY}",
                              "gather_einsum/bl,uld->bd"]
     held["din128_single"] = ["din_attention/wide", "din_attention/wide/bf16",
                              "mari_matmul/broadcast", "mari_matmul/bf16"]
@@ -4859,6 +4945,13 @@ def main() -> int:
     if prepared_late:
         raise AssertionError(f"mari_matmul prepared weights inside calls: "
                              f"{prepared_late}")
+    # and din_attention's wide route its prepared weights
+    # (prepare_din_params at load; the single calls before their loop)
+    din_late = {p: h["din_prepares"] for p, h in host_by_path.items()
+                if h["din_prepares"]}
+    if din_late:
+        raise AssertionError(f"din_attention prepared weights inside calls: "
+                             f"{din_late}")
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in entries}
     if missing:

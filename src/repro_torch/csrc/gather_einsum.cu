@@ -99,6 +99,40 @@
 // The C fragments go through shared memory so that stores are 16 bytes
 // along L*H.
 //
+// SPEC_Q_T in fp32 past D = 40 (gather_einsum_q_t_tc_f32, the wrapper's
+// route there). Each output's 2 D FLOP on the CUDA cores (67 TFLOP/s)
+// outgrow its 4-byte store (3.35 TB/s) past D = 40: at DIN's public D =
+// 128 (B = 4096, U = 8, L = 100, H = 80) the 8.39 GFLOP take 0.125 ms
+// there, and q_t_kernel reached about a tenth of that rate. On the tensor
+// cores in 3xTF32 the bound is 0.051 ms by operations (3 x 8.39 GFLOP at
+// 495 TFLOP/s), level with the bytes' 0.0495. The design:
+//   * Rows grouped by user across the whole batch: a stable counting sort
+//     of the clamped index on the card (ge_sort_hist / _scan / _scatter:
+//     per-tile counts, their scan, a ranked scatter, as embedding_bag's CSR
+//     preparation), then row tiles of up to TC_WG x nr rows of one user.
+//     Each user's T slice is read once per row tile, whatever the order.
+//   * Swap-AB: tf32 wgmma reads B only K-major, and T (U, L, D, H) has H
+//     innermost, so T is A: 64 columns (l, h) of L*H by an 8-deep d step,
+//     staged (d, column) by cp.async TC_STAGES - 1 k tiles ahead, read into
+//     registers and split into tf32 hi / lo there (mari_matmul's A); B is
+//     the tile's x rows (d innermost: K-major), split into hi / lo once a
+//     block into shared memory with the 128-byte swizzle; N = nr rows (64
+//     at D <= 128, fewer for wider D, zero rows past the user's). Two
+//     warpgroups a block share each staged A tile, each with its own nr
+//     rows; one warpgroup's next fragment is loaded while its products run.
+//   * The sum over d in a fixed order: each 32-deep k tile sums from zero
+//     on the tensor cores (lo*hi, hi*lo, hi*hi a step) and is added to the
+//     fp32 sum with ordinary adds, mari_matmul's rule. The order depends on
+//     D alone: a row's bits depend neither on B, nor on the rows' order,
+//     nor on its neighbours (a deliberate divergence from the CUDA-core
+//     order, held within 2e-4 of the plain version).
+//   * The accumulator (columns x rows) is staged transposed in shared
+//     memory and each row's 64 columns stored at the row's own place in
+//     16-byte stores, while the next column tile's first products run.
+// The workspace (gather_einsum_q_t_work_bytes: counts, row tiles,
+// permutation) is the wrapper's. Past D = 1024 (x's rows no longer fit)
+// and up to D = 40 q_t_kernel keeps SPEC_Q_T.
+//
 // Every other spec parse_spec accepts (the TPU kernel runs any
 // "b...,u...->b..." spec through one jnp.einsum on the gathered tile) takes
 // the generic route (gather_einsum_generic_f32 / _bf16): a plan that
@@ -1156,6 +1190,594 @@ int launch_rows_vec(const T* x, const T* t, const int* idx, T* out, int B,
   return 0;
 }
 
+// ---- SPEC_Q_T fp32 past D = 40: the tensor cores, rows grouped by user ----
+
+// Up to D = 40 each output's 2 D CUDA-core FLOP (at 67 TFLOP/s) stay under
+// its 4-byte store (at 3.35 TB/s), so q_t_kernel stands there; past that
+// the products take the tensor cores (see the note at the top)
+constexpr int TC_MIN_D = 41;
+constexpr int TC_COLS = 64;            // wgmma's M: columns of L*H a tile
+constexpr int TC_KT = 32;              // d a k tile: one 128-byte row of x
+constexpr int TC_KS = TC_KT / 8;       // 8-deep k steps a k tile
+constexpr int TC_AS = TC_COLS + 8;     // row stride of a staged A k tile
+constexpr int TC_OS = TC_COLS + 4;     // row stride of the output staging
+constexpr int TC_STAGES = 4;           // A k tiles in flight
+constexpr int TC_WG = 2;               // warpgroups a block, sharing A
+constexpr int TC_THREADS = 128 * TC_WG;
+constexpr int TC_X_BYTES = 128 * 1024; // the block's x rows, hi and lo
+constexpr int TC_BLOCKS_PER_SM = 4;    // blocks aimed at, for a block's run
+constexpr int GS_TILE = 256;           // rows a tile of the counting sort
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
+// the 128-byte swizzle (tile base 1024-byte aligned): stride byte offset
+// 1024 (eight rows); a 32-byte k step adds 2
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+  uint64_t d = (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of registers an in-flight wgmma
+// reads or writes across the fence / commit / wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// wgmma with A (64 x 8 tf32) from registers, one instance per N
+template <int N>
+struct Wg;
+
+template <>
+struct Wg<8> {
+  // D (64 x 8, f32) += A (64 x 8, tf32, registers) * B (8 x 8 in smem)
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wg<16> {
+  // D (64 x 16, f32) += A (64 x 8, tf32, registers) * B (16 x 8 in smem)
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wg<32> {
+  // D (64 x 32, f32) += A (64 x 8, tf32, registers) * B (32 x 8 in smem)
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wg<64> {
+  // D (64 x 64, f32) += A (64 x 8, tf32, registers) * B (64 x 8 in smem)
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a,
+                                              uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+
+// rows of x a warpgroup holds (wgmma's N) at this D: the most of 64, 32,
+// 16, 8 whose hi and lo (D padded to k tiles) for the block's TC_WG
+// warpgroups fit TC_X_BYTES; 0 past D = 1024
+__host__ __device__ inline int tc_rows(int D) {
+  const long long dp = (D + TC_KT - 1) / TC_KT * TC_KT;
+  for (int nr = 64; nr >= 8; nr /= 2)
+    if (TC_WG * nr * dp * 8 <= TC_X_BYTES) return nr;
+  return 0;
+}
+
+// bytes of the tile kernel's dynamic shared memory: x's hi and lo (k tiles
+// of TC_WG nr rows of 128 bytes), the A ring, each warpgroup's output
+// staging, and 1024 to align the swizzled tiles
+inline size_t tc_smem_bytes(int D, int nr) {
+  const size_t kt = (D + TC_KT - 1) / TC_KT;
+  return 1024 + 2 * kt * TC_WG * nr * TC_KT * sizeof(float) +
+         (size_t)TC_STAGES * TC_KT * TC_AS * sizeof(float) +
+         (size_t)TC_WG * nr * TC_OS * sizeof(float);
+}
+
+inline long long up256(long long n) { return (n + 255) & ~255LL; }
+
+// the route's workspace, offsets in bytes: counts (n_t x U int: per sort
+// tile and user, then each one's first position), the row tiles (start,
+// rows, user: max_tiles x 3 int), their number (1 int), the permutation
+// (B int: sorted position -> row)
+struct TcWork {
+  int n_t, max_tiles;
+  long long counts, tiles, ntiles, perm, total;
+};
+
+TcWork tc_work(int B, int U, int nr) {
+  TcWork w;
+  w.n_t = (B + GS_TILE - 1) / GS_TILE;
+  w.max_tiles = (B + nr - 1) / nr + (U < B ? U : B);
+  w.counts = 0;
+  w.tiles = up256(4LL * w.n_t * U);
+  w.ntiles = w.tiles + up256(12LL * w.max_tiles);
+  w.perm = w.ntiles + 256;
+  w.total = w.perm + up256(4LL * B);
+  return w;
+}
+
+// exclusive scan of v over the block (blockDim.x a multiple of 32); *total
+// the block's sum
+__device__ __forceinline__ int block_scan(int v, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc += o;
+  }
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const int x = scratch[w];
+    if (w < warp) before += x;
+    all += x;
+  }
+  __syncthreads();
+  *total = all;
+  return before + inc - v;
+}
+
+// the stable counting sort of the clamped user index, in three launches:
+// (1) each sort tile of GS_TILE rows counts its users into its row of
+// counts (integer atomics: their order cannot change a count)
+__global__ void __launch_bounds__(GS_TILE)
+    ge_sort_hist(const int* __restrict__ idx, int B, int U,
+                 int* __restrict__ counts) {
+  int* row = counts + (size_t)blockIdx.x * U;
+  for (int k = threadIdx.x; k < U; k += GS_TILE) row[k] = 0;
+  __syncthreads();
+  const int b = blockIdx.x * GS_TILE + threadIdx.x;
+  if (b < B) atomicAdd(&row[clamp_slot(idx[b], U)], 1);
+}
+
+// (2) one block: a user's count in each tile becomes its rows in earlier
+// tiles plus the rows of smaller users (its first sorted position in that
+// tile); each user's rows are cut into row tiles of nr, listed in user
+// order (start, rows, user), and their number written to *ntiles
+__global__ void __launch_bounds__(1024)
+    ge_sort_scan(int* __restrict__ counts, int n_t, int U, int nr,
+                 int* __restrict__ tiles, int* __restrict__ ntiles) {
+  __shared__ int scratch[32];
+  int base_rows = 0, base_tiles = 0;
+  for (int u0 = 0; u0 < U; u0 += blockDim.x) {
+    const int u = u0 + threadIdx.x;
+    int total = 0;
+    if (u < U)                     // 8 tiles' counts loaded before any is
+      for (int t0 = 0; t0 < n_t; t0 += 8) {      // rewritten
+        int v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = t0 + j < n_t ? counts[(size_t)(t0 + j) * U + u] : 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (t0 + j < n_t) counts[(size_t)(t0 + j) * U + u] = total;
+          total += v[j];
+        }
+      }
+    const int nt = (total + nr - 1) / nr;
+    int sum_rows, sum_tiles;
+    const int off = base_rows + block_scan(total, scratch, &sum_rows);
+    const int toff = base_tiles + block_scan(nt, scratch, &sum_tiles);
+    if (u < U) {
+      for (int t0 = 0; t0 < n_t; t0 += 8) {
+        int v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = t0 + j < n_t ? counts[(size_t)(t0 + j) * U + u] : 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t0 + j < n_t) counts[(size_t)(t0 + j) * U + u] = v[j] + off;
+      }
+      for (int i = 0; i < nt; ++i) {
+        int* p = tiles + 3 * (size_t)(toff + i);
+        p[0] = off + i * nr;
+        p[1] = min(nr, total - i * nr);
+        p[2] = u;
+      }
+    }
+    base_rows += sum_rows;
+    base_tiles += sum_tiles;
+  }
+  if (threadIdx.x == 0) *ntiles = base_tiles;
+}
+
+// (3) each row goes to its user's first position in its tile plus the
+// rows of that user before it in the tile
+__global__ void __launch_bounds__(GS_TILE)
+    ge_sort_scatter(const int* __restrict__ idx, int B, int U,
+                    const int* __restrict__ counts, int* __restrict__ perm) {
+  __shared__ int sk[GS_TILE];
+  const int b = blockIdx.x * GS_TILE + threadIdx.x;
+  const int key = b < B ? clamp_slot(idx[b], U) : -1;
+  sk[threadIdx.x] = key;
+  __syncthreads();
+  if (b < B) {
+    int rank = 0;
+    for (int j = 0; j < (int)threadIdx.x; ++j) rank += sk[j] == key;
+    perm[counts[(size_t)blockIdx.x * U + key] + rank] = b;
+  }
+}
+
+// out[b, e] for the rows of one row tile (TC_WG NR rows of one user, in
+// sorted order; warpgroup w takes NR of them) and a run of column tiles,
+// each (64 columns of L*H) x (NR rows) a warpgroup on the tensor cores: A
+// = the user's T slice (column e = l*H + h, d), staged by cp.async a k
+// tile at a time (one copy for both warpgroups) and split into tf32 hi /
+// lo in registers; B = the warpgroup's x rows, split once into hi / lo and
+// kept in shared memory (K-major, 128-byte swizzle); each 32-deep k tile
+// summed from zero (lo*hi, hi*lo, hi*hi per 8-deep step) and added to the
+// fp32 sum with ordinary adds; the sum staged (row, column) in shared
+// memory for 16-byte row stores
+template <int NR>
+__global__ void __launch_bounds__(TC_THREADS)
+    q_t_tc_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                  const int* __restrict__ perm, const int* __restrict__ tiles,
+                  const int* __restrict__ ntiles, float* __restrict__ out,
+                  int L, int D, int H, int cg, int vec_x, int vec_t,
+                  int vec_out) {
+  constexpr int R = NR / 2;                   // accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align x's tiles to it
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tile = blockIdx.x;
+  if (tile >= *ntiles) return;
+  const int LH = L * H;
+  const int nct = (LH + TC_COLS - 1) / TC_COLS;
+  const int ct0 = blockIdx.y * cg;
+  if (ct0 >= nct) return;
+  const int nc = min(cg, nct - ct0);
+  const int start = tiles[3 * tile], nrows = tiles[3 * tile + 1];
+  const float* tu = t + (size_t)tiles[3 * tile + 2] * LH * D;
+  const int kt_n = (D + TC_KT - 1) / TC_KT;
+  constexpr int XR = TC_WG * NR;               // the block's x rows
+  float* xhi = reinterpret_cast<float*>(smem);
+  float* xlo = xhi + kt_n * XR * TC_KT;
+  float* sA = xlo + kt_n * XR * TC_KT;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, g = lane >> 2, tq = lane & 3;
+  const int ml = warp * 16 + g;               // A rows (columns) ml, ml + 8
+  float* sO = sA + TC_STAGES * TC_KT * TC_AS + wg * NR * TC_OS;
+  const int r0 = wg * NR;                     // this warpgroup's first row
+
+  // step s: column tile ct0 + s / kt_n, k tile s % kt_n; its A (TC_KT d x
+  // 64 columns, zeros past D and L*H) to ring slot s % TC_STAGES
+  const int nsteps = nc * kt_n;
+  auto stage = [&](int s) {
+    if (s < nsteps) {
+      const int e0 = (ct0 + s / kt_n) * TC_COLS, d0 = (s % kt_n) * TC_KT;
+      float* dst = sA + (s % TC_STAGES) * TC_KT * TC_AS;
+      for (int i = tid; i < TC_KT * (TC_COLS / 4); i += TC_THREADS) {
+        const int dd = i / (TC_COLS / 4), q = i % (TC_COLS / 4);
+        const int d = d0 + dd, e = e0 + 4 * q;
+        float* o = dst + dd * TC_AS + 4 * q;
+        if (vec_t && d < D && e < LH) {
+          const int l = e / H, h = e - l * H;
+          cp_async<16>(o, tu + ((size_t)l * D + d) * H + h);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int l = (e + j) / H, h = e + j - l * H;
+            if (d < D && e + j < LH)
+              cp_async<4>(o + j, tu + ((size_t)l * D + d) * H + h);
+            else
+              o[j] = 0.f;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < TC_STAGES - 1; ++i) stage(i);
+
+  // the tile's x rows, hi and lo, value (r, d) at k tile d / 32, row r,
+  // 16-byte chunk (d % 32 / 4) ^ (r % 8); zero rows past the tile's. A
+  // thread takes chunks of 4 d, TC_XB of them loaded (16 bytes each where
+  // x allows) before any is split, so the loads are in flight together
+  constexpr int TC_XB = 8;
+  const int nq = XR * kt_n * (TC_KT / 4);
+  for (int i0 = 0; i0 < nq; i0 += TC_XB * TC_THREADS) {
+    float4 v[TC_XB];
+#pragma unroll
+    for (int u = 0; u < TC_XB; ++u) {
+      const int i = i0 + u * TC_THREADS + tid;
+      const int r = i / (kt_n * (TC_KT / 4));
+      const int d = 4 * (i - r * (kt_n * (TC_KT / 4)));
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < nq && r < nrows && d < D) {
+        const float* xr = x + (size_t)perm[start + r] * D;
+        if (vec_x) {
+          v[u] = ld4(xr + d);
+        } else {
+          v[u].x = xr[d];
+          if (d + 1 < D) v[u].y = xr[d + 1];
+          if (d + 2 < D) v[u].z = xr[d + 2];
+          if (d + 3 < D) v[u].w = xr[d + 3];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TC_XB; ++u) {
+      const int i = i0 + u * TC_THREADS + tid;
+      if (i < nq) {
+        const int r = i / (kt_n * (TC_KT / 4));
+        const int d = 4 * (i - r * (kt_n * (TC_KT / 4)));
+        const int c = (d % TC_KT) >> 2;
+        const int o =
+            ((d / TC_KT) * XR + r) * TC_KT + ((c ^ (r & 7)) << 2);
+        const float vs[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        float4 hi4, lo4;
+        float* h = &hi4.x;
+        float* l = &lo4.x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t hb = tf32_rna(vs[j]);
+          h[j] = __uint_as_float(hb);
+          l[j] = __uint_as_float(tf32_rna(vs[j] - __uint_as_float(hb)));
+        }
+        *reinterpret_cast<float4*>(xhi + o) = hi4;
+        *reinterpret_cast<float4*>(xlo + o) = lo4;
+      }
+    }
+  }
+
+  // x's tiles are written by the threads and read by wgmma (the async
+  // proxy): make the writes visible to it before the first barrier
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  // step s's A fragment to (ah, al), once its stage has landed: k step kk
+  // holds (ml, 8kk + tq), (ml + 8, 8kk + tq), (ml, 8kk + tq + 4), (ml + 8,
+  // 8kk + tq + 4), split into tf32 hi / lo (zeros past D are staged, so
+  // every k tile issues its 4 steps and no wgmma sits on a branch). The
+  // barrier also frees step s - 1's slot, which takes step s + 2.
+  auto frags = [&](int s, uint32_t (&ah)[TC_KS][4],
+                   uint32_t (&al)[TC_KS][4]) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    stage(s + TC_STAGES - 1);
+    const float* as = sA + (s % TC_STAGES) * TC_KT * TC_AS;
+#pragma unroll
+    for (int kk = 0; kk < TC_KS; ++kk) {
+      const float* a0 = as + (8 * kk + tq) * TC_AS + ml;
+      const float* a1 = a0 + 4 * TC_AS;
+      const float v[4] = {a0[0], a0[8], a1[0], a1[8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[kk][i] = tf32_rna(v[i]);
+        al[kk][i] = tf32_rna(v[i] - __uint_as_float(ah[kk][i]));
+      }
+    }
+  };
+  float acc[R], part[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = part[i] = 0.f;
+  // step s on the tensor cores from (ah, al); while its products run, step
+  // s + 1's fragment is loaded into (nh, nl); then the sum, and at a column
+  // tile's last k tile its store
+  // column tile ct's sums: accumulator register 4j + 2h + c holds (column
+  // ml + 8h, row 8j + 2tq + c), staged (row, column), then each row's 64
+  // columns stored; acc zeroed
+  auto store = [&](int ct) {
+    const int e0 = (ct0 + ct) * TC_COLS;
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          sO[(8 * j + 2 * tq + c) * TC_OS + ml + 8 * h] =
+              acc[4 * j + 2 * h + c];
+    __syncthreads();
+    for (int i = tid & 127; i < NR * (TC_COLS / 4); i += 128) {
+      const int n = i / (TC_COLS / 4), q = i % (TC_COLS / 4);
+      const int e = e0 + 4 * q;
+      if (r0 + n < nrows && e < LH) {
+        float* o = out + (size_t)perm[start + r0 + n] * LH + e;
+        const float4 v =
+            *reinterpret_cast<const float4*>(sO + n * TC_OS + 4 * q);
+        if (vec_out) {
+          st4(o, v);
+        } else {
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (e + j < LH) o[j] = vs[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  };
+  // step s on the tensor cores from (ah, al); while its products run, step
+  // s + 1's fragment is loaded into (nh, nl) and, at a column tile's first
+  // k tile, the last column tile stored; then the sum
+  auto step = [&](int s, const uint32_t (&ah)[TC_KS][4],
+                  const uint32_t (&al)[TC_KS][4], uint32_t (&nh)[TC_KS][4],
+                  uint32_t (&nl)[TC_KS][4]) {
+    const int kt = s % kt_n;
+    const uint64_t dhi = smem_desc(xhi + (kt * XR + r0) * TC_KT);
+    const uint64_t dlo = smem_desc(xlo + (kt * XR + r0) * TC_KT);
+    fence_regs<R>(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_KS; ++kk) {
+      Wg<NR>::tf32(part, al[kk], dhi + 2 * kk, kk > 0);   // lo * hi
+      Wg<NR>::tf32(part, ah[kk], dlo + 2 * kk, 1);        // hi * lo
+      Wg<NR>::tf32(part, ah[kk], dhi + 2 * kk, 1);        // hi * hi
+    }
+    wgmma_commit();
+    if (s + 1 < nsteps) frags(s + 1, nh, nl);
+    if (kt == 0 && s > 0) store(s / kt_n - 1);
+    wgmma_wait_all();
+    fence_regs<R>(part);
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] += part[i];
+  };
+  // two fragment sets, alternating (a register array indexed by a
+  // runtime value would live in local memory)
+  uint32_t hA[TC_KS][4], lA[TC_KS][4], hB[TC_KS][4], lB[TC_KS][4];
+  frags(0, hA, lA);
+  for (int s = 0; s < nsteps; s += 2) {
+    step(s, hA, lA, hB, lB);
+    if (s + 1 < nsteps) step(s + 1, hB, lB, hA, lA);
+  }
+  store(nc - 1);
+  cp_async_wait<0>();
+}
+
+int sm_count() {
+  static std::atomic<int> sms{0};
+  int n = sms.load();
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      return 0;
+    sms.store(n);
+  }
+  return n;
+}
+
+// bytes of the tensor-core route's workspace, or 0 where it does not take
+// (B, U, D): D <= 40 (q_t_kernel) or past tc_rows' reach
+long long tc_work_bytes(int B, int U, int D) {
+  if (B <= 0 || U <= 0 || D < TC_MIN_D || tc_rows(D) == 0) return 0;
+  return tc_work(B, U, TC_WG * tc_rows(D)).total;
+}
+
+template <int NR>
+int launch_q_t_tc(const float* x, const float* t, const TcWork& w,
+                  unsigned char* work, float* out, int B, int L, int D,
+                  int H, cudaStream_t s) {
+  const int LH = L * H;
+  const int nct = (LH + TC_COLS - 1) / TC_COLS;
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  // a run of column tiles a block: enough blocks to fill the card many
+  // times over, each reading its rows' x once for its whole run
+  const long long want = (long long)sms * TC_BLOCKS_PER_SM;
+  int cg = (int)(((long long)w.max_tiles * nct + want - 1) / want);
+  cg = max(cg, (nct + MAX_GRID_Y - 1) / MAX_GRID_Y);
+  cg = min(max(cg, 1), nct);
+  const size_t smem = tc_smem_bytes(D, NR);
+  cudaError_t e = cudaFuncSetAttribute(
+      q_t_tc_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(w.max_tiles, (nct + cg - 1) / cg);
+  const int vec_x = D % 4 == 0 && aligned(x, 16);
+  const int vec_t = H % 4 == 0 && aligned(t, 16);
+  const int vec_out = LH % 4 == 0 && aligned(out, 16);
+  q_t_tc_kernel<NR><<<grid, TC_THREADS, smem, s>>>(
+      x, t, reinterpret_cast<const int*>(work + w.perm),
+      reinterpret_cast<const int*>(work + w.tiles),
+      reinterpret_cast<const int*>(work + w.ntiles), out, L, D, H, cg, vec_x,
+      vec_t, vec_out);
+  return 0;
+}
+
+int run_q_t_tc(const float* x, const float* t, const int* idx, float* out,
+               int B, int U, int L, int D, int H, void* work, void* stream) {
+  if (B <= 0) return 0;
+  const int nr = tc_rows(D);
+  if (U <= 0 || D < TC_MIN_D || nr == 0 || work == nullptr ||
+      (long long)L * H <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TcWork w = tc_work(B, U, TC_WG * nr);
+  unsigned char* wk = static_cast<unsigned char*>(work);
+  int* counts = reinterpret_cast<int*>(wk + w.counts);
+  ge_sort_hist<<<w.n_t, GS_TILE, 0, s>>>(idx, B, U, counts);
+  ge_sort_scan<<<1, 1024, 0, s>>>(counts, w.n_t, U, TC_WG * nr,
+                                  reinterpret_cast<int*>(wk + w.tiles),
+                                  reinterpret_cast<int*>(wk + w.ntiles));
+  ge_sort_scatter<<<w.n_t, GS_TILE, 0, s>>>(
+      idx, B, U, counts, reinterpret_cast<int*>(wk + w.perm));
+  if (const cudaError_t e = cudaGetLastError()) return (int)e;
+  int rc;
+  switch (nr) {
+    case 64: rc = launch_q_t_tc<64>(x, t, w, wk, out, B, L, D, H, s); break;
+    case 32: rc = launch_q_t_tc<32>(x, t, w, wk, out, B, L, D, H, s); break;
+    case 16: rc = launch_q_t_tc<16>(x, t, w, wk, out, B, L, D, H, s); break;
+    default: rc = launch_q_t_tc<8>(x, t, w, wk, out, B, L, D, H, s); break;
+  }
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int run(int spec, const T* x, const T* t, const int* idx, T* out, int B,
         int U, int d1, int d2, int d3, void* stream) {
@@ -1313,6 +1935,25 @@ int gather_einsum_generic_bf16(const __nv_bfloat16* x,
                                __nv_bfloat16* out, int B, int U,
                                const GePlan* plan, void* stream) {
   return run_generic(x, t, idx, out, B, U, plan, stream);
+}
+
+// The tensor-core route of SPEC_Q_T in fp32 (x (B, D), table (U, L, D,
+// H), out (B, L, H), int32 idx (B,); see the note at the top): bytes of
+// the workspace it takes, or 0 where it does not take the call (D <= 40,
+// where gather_einsum_f32's CUDA-core kernel runs, or D past 1024).
+long gather_einsum_q_t_work_bytes(int B, int U, int D) {
+  return (long)tc_work_bytes(B, U, D);
+}
+
+// That route: `work` (gather_einsum_q_t_work_bytes of device memory,
+// aligned to 256 bytes) is scratch. Four launches on `stream` (the
+// counting sort's three, then the tiles), no allocation, no
+// synchronisation. Returns cudaGetLastError() after the launches (0 =
+// launched).
+int gather_einsum_q_t_tc_f32(const float* x, const float* t, const int* idx,
+                             float* out, int B, int U, int L, int D, int H,
+                             void* work, void* stream) {
+  return run_q_t_tc(x, t, idx, out, B, U, L, D, H, work, stream);
 }
 
 const char* repro_error_string(int e) {

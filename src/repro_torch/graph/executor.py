@@ -484,7 +484,7 @@ class Executor:
 
     def _target_attention(self, n: Node, params, vals, ins) -> Tensor:
         p = params[n.name]
-        nlayers = len(p)
+        nlayers = sum(k.startswith("layer_") for k in p)
         q, keys = ins[0], ins[1]
         if n.attrs.get("has_mask"):
             mask = ins[2]
@@ -501,10 +501,14 @@ class Executor:
             if (self.use_pallas and keys.shape[0] == 1 and mask.shape[0] == 1
                     and nlayers == 3
                     and all("b" in p[f"layer_{li}"] for li in range(3))):
+                # the wide route's weights, where prepare_din_params
+                # prepared them at load
+                prep = ({"prepared": p["din_prep"]} if "din_prep" in p
+                        else {})
                 return din_kernel.din_attention(
                     q, keys[0], mask[0], *(p[f"layer_{li}"][k]
                                            for li in range(3)
-                                           for k in ("w", "b")))
+                                           for k in ("w", "b")), **prep)
 
             def mlp_apply(x):
                 for li in range(nlayers):

@@ -11,10 +11,12 @@ D,h1,h2``; DIN's, D = 18, h1 = 80, h2 = 40 of ``configs/din.py``, by
 default), in fp32 or bf16, and is launched through its C entry for that
 type alike: ``din_attention_f32`` / ``_bf16``, or past the register tiles
 (where the library has it) ``din_attention_wide_f32`` / ``_bf16`` with a
-workspace of ``din_attention_work_bytes``, allocated once. ``--variant
-MACRO`` adds this checkout's source built with ``-DMACRO``
-(``DIN_ATTENTION_BF16_TF32``: the bf16 entry through the fp32 pipeline)
-as one more contender. Each round times this checkout's build, then each
+workspace of ``din_attention_work_bytes``, allocated once, and, where the
+source's entry takes prepared weights (its parameter list, read by
+``turns.c_params``, has ``wprep``), this checkout's
+``prepare_din_weights``, made once (a source laid out otherwise cannot be
+compared). ``--variant MACRO`` adds this checkout's source built with
+``-DMACRO`` as one more contender. Each round times this checkout's build, then each
 other's, then the same in reverse order (``turns.take_turns``). Prints
 one JSON line: the ms per launch of every turn, their medians, each
 source's median over this checkout's, the largest difference of each
@@ -23,6 +25,7 @@ output from this checkout's, and whether it is bit for bit the same.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 from pathlib import Path
@@ -69,24 +72,39 @@ def main(argv=None) -> int:
     wide = "din_attention_wide_bf16" if bf16 else "din_attention_wide_f32"
     stream = torch.cuda.current_stream(dev).cuda_stream
     libs = {"checkout": ops._lib()}
-    libs.update((f"checkout -D{m}", ops._lib((m,))) for m in args.variant)
+    texts = {"checkout": (build.CSRC / "din_attention.cu").read_text()}
+    for m in args.variant:
+        libs[f"checkout -D{m}"] = ops._lib((m,))
+        texts[f"checkout -D{m}"] = texts["checkout"]
     for p in args.other:
         libs[str(p)] = turns.load_source("din_attention", p)
-    work = {}                 # name -> workspace, where the wide route runs
+        texts[str(p)] = p.read_text()
+    prepared = (None if ops.within_tiles(D, H1, H2)
+                else ops.prepare_din_weights(weights[0], weights[2]))
+    work = {}   # name -> [prepared weights,] workspace: the wide route runs
     for name, lib in libs.items():
         build.bind(lib, {entry: ops._SIGNATURES[entry]})
         if hasattr(lib, wide):
-            build.bind(lib, {k: ops._SIGNATURES[k]
-                             for k in (wide, "din_attention_work_bytes")})
+            params = turns.c_params(texts[name], wide)
+            takes_prep = any(p.endswith("wprep") for p in params)
+            argtypes = ops._SIGNATURES[wide][0]
+            if not takes_prep:             # an entry from before wprep
+                argtypes = argtypes[:-3] + argtypes[-2:]
+            build.bind(lib, {wide: (argtypes, ctypes.c_int),
+                             "din_attention_work_bytes":
+                             ops._SIGNATURES["din_attention_work_bytes"]})
             n = lib.din_attention_work_bytes(B, L, D, H1, H2, int(bf16))
             if n > 0:
-                work[name] = torch.empty(n, dtype=torch.uint8, device=dev)
+                buf = torch.empty(n, dtype=torch.uint8, device=dev)
+                work[name] = ([prepared.buf.data_ptr()] if takes_prep
+                              else []) + [buf.data_ptr()]
+                work[name + " buf"] = buf
     outs = {name: torch.empty(B, D, device=dev, dtype=dtype) for name in libs}
 
     def launcher(name):
         lib = libs[name]
         fn = getattr(lib, wide if name in work else entry)
-        extra = [work[name].data_ptr()] if name in work else []
+        extra = work[name] if name in work else []
 
         def launch():
             rc = fn(q.data_ptr(), keys.data_ptr(), mask.data_ptr(),
@@ -100,7 +118,7 @@ def main(argv=None) -> int:
     others = [n for n in libs if n != "checkout"]
     print(json.dumps(dict(
         B=B, L=L, D=D, h1=H1, h2=H2, dtype=args.dtype, iters=args.iters,
-        wide_route=sorted(work),
+        wide_route=sorted(n for n in work if n in libs),
         **turns.summary(ms, "checkout"),
         max_abs_vs_checkout={n: float((outs[n].float()
                                        - outs["checkout"].float())

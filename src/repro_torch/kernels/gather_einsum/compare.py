@@ -4,11 +4,17 @@ commit's, say), on one card, taking turns.
 
     python -m repro_torch.kernels.gather_einsum.compare OTHER.cu [...] \\
         [--spec bd,uldh->blh] [--dtype bfloat16] [--order runs ...] \\
-        [--variant MACRO] [--batch 4096] [--rounds 4] [--iters 200]
+        [--variant MACRO] [--batch 4096] [--dim 18] [--hidden 80] \
+        [--rounds 4] [--iters 200]
 
-Every library gets the same inputs at DIN's width (L = 100, D = 18, H =
-80; ``configs/din.py``), in fp32 or bf16, and is launched through its C
-entry for that type (``gather_einsum_f32`` / ``_bf16``) alike. Each
+Every library gets the same inputs, at DIN's width by default (L = 100,
+D = 18, H = 80; ``configs/din.py``; ``--dim`` / ``--hidden`` set D and
+H, e.g. DIN's public D = 128), in fp32 or bf16, and is launched through
+its C entry for that type (``gather_einsum_f32`` / ``_bf16``) alike, but
+an fp32 ``bd,uldh->blh`` past D = 40 through the tensor-core entry
+``gather_einsum_q_t_tc_f32`` (with a workspace of
+``gather_einsum_q_t_work_bytes``, allocated once) where the library has
+it, as the wrapper does. Each
 ``--order`` (repeatable) is one user index: ``runs`` (8 slots, each
 user's rows one run of random length: the engine's layout), ``random``
 (8 slots), ``random64`` / ``runs64`` (64 slots) and ``short64`` (64
@@ -33,7 +39,7 @@ import torch
 from repro_torch.kernels import build, turns
 from repro_torch.kernels.gather_einsum import ops
 
-L, D, H = 100, 18, 80
+L = 100
 ORDERS = ("runs", "random", "random64", "runs64", "short64")
 
 
@@ -61,6 +67,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", choices=ORDERS, action="append")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--dim", type=int, default=18, help="D")
+    ap.add_argument("--hidden", type=int, default=80, help="H")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=200)
     args = ap.parse_args(argv)
@@ -71,15 +79,18 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    B, spec = args.batch, args.spec
+    B, spec, D, H = args.batch, args.spec, args.dim, args.hidden
     entry = "gather_einsum_f32" if dtype == torch.float32 \
         else "gather_einsum_bf16"
     libs = {"checkout": ops._lib()}
     libs.update((f"checkout -D{m}", ops._lib((m,))) for m in args.variant)
     for p in args.other:
         libs[str(p)] = turns.load_source("gather_einsum", p)
+    tc_entries = ("gather_einsum_q_t_tc_f32", "gather_einsum_q_t_work_bytes")
     for lib in libs.values():
         build.bind(lib, {entry: ops._SIGNATURES[entry]})
+        if all(hasattr(lib, e) for e in tc_entries):
+            build.bind(lib, {e: ops._SIGNATURES[e] for e in tc_entries})
     stream = torch.cuda.current_stream(dev).cuda_stream
     for order in args.order or ["runs"]:
         U, idx = user_index(order, B, g)
@@ -97,21 +108,35 @@ def main(argv=None) -> int:
 
         def launcher(name):
             lib = libs[name]
+            nwork = (lib.gather_einsum_q_t_work_bytes(B, U, D)
+                     if spec == "bd,uldh->blh" and dtype == torch.float32
+                     and hasattr(lib, tc_entries[0]) else 0)
+            work = torch.empty(max(nwork, 1), dtype=torch.uint8, device=dev)
+            if nwork > 0:
+                tc.append(name)
 
             def launch():
-                rc = getattr(lib, entry)(
-                    ops.KERNEL_SPECS.index(spec), x.data_ptr(),
-                    table.data_ptr(), idx.data_ptr(), outs[name].data_ptr(),
-                    B, U, *dims, stream)
+                if nwork > 0:
+                    rc = lib.gather_einsum_q_t_tc_f32(
+                        x.data_ptr(), table.data_ptr(), idx.data_ptr(),
+                        outs[name].data_ptr(), B, U, L, D, H,
+                        work.data_ptr(), stream)
+                else:
+                    rc = getattr(lib, entry)(
+                        ops.KERNEL_SPECS.index(spec), x.data_ptr(),
+                        table.data_ptr(), idx.data_ptr(),
+                        outs[name].data_ptr(), B, U, *dims, stream)
                 build.check(lib, rc, f"gather_einsum ({name})")
             return launch
+
+        tc = []
 
         ms = turns.take_turns({n: launcher(n) for n in libs}, args.rounds,
                               args.iters)
         others = [n for n in libs if n != "checkout"]
         print(json.dumps(dict(
             spec=spec, order=order, B=B, U=U, L=L, D=D, H=H,
-            dtype=args.dtype, iters=args.iters,
+            dtype=args.dtype, iters=args.iters, tensor_core_route=tc,
             **turns.summary(ms, "checkout"),
             max_abs_vs_checkout={n: float((outs[n].float()
                                            - outs["checkout"].float())

@@ -15,7 +15,10 @@ the widened operands, rounded once; ``bd,uldh->blh`` runs on the bf16
 tensor cores, its f32 sums in the ``mma``'s order. ``LAUNCHES`` counts
 kernel launches per spec, fp32 under the spec and bf16 under
 ``<spec>/bf16``, the generic route under ``generic`` and
-``generic/bf16``.
+``generic/bf16``. fp32 ``bd,uldh->blh`` past D = 40 runs on the tensor
+cores (3xTF32 ``wgmma``, the rows grouped by user through a counting sort
+on the card, a workspace the wrapper allocates) and counts under
+``TC_KEY``; its sums over d go by 32-deep k tiles, fixed by D alone.
 
 Index contract (shared with ``mari_matmul``'s gather init): ``user_index``
 is ``(B,)`` integer, row ``b`` reads ``table[user_index[b]]``, and
@@ -37,8 +40,13 @@ Tensor = torch.Tensor
 # the decomposed-attention contractions, in csrc Spec enum order
 KERNEL_SPECS = ("bd,uldh->blh", "bl,uld->bd", "blh,uh->bl")
 
+# fp32 ``bd,uldh->blh`` past D = 40 runs on the tensor cores (csrc
+# TC_MIN_D): its launches count under this key
+TC_KEY = "bd,uldh->blh/tc"
+TC_MIN_D = 41
+
 # kernel launches per spec (one per launch, counted nowhere else)
-LAUNCHES = dict.fromkeys(KERNEL_SPECS + ("generic",)
+LAUNCHES = dict.fromkeys(KERNEL_SPECS + (TC_KEY, "generic")
                          + tuple(f"{s}/bf16"
                                  for s in KERNEL_SPECS + ("generic",)), 0)
 
@@ -193,8 +201,12 @@ def _c_plan(plan: dict) -> GePlan:
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 _GENERIC = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+_TC = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 _SIGNATURES = {"gather_einsum_f32": (_ARGTYPES, ctypes.c_int),
                "gather_einsum_bf16": (_ARGTYPES, ctypes.c_int),
+               "gather_einsum_q_t_work_bytes": ([ctypes.c_int] * 3,
+                                                ctypes.c_long),
+               "gather_einsum_q_t_tc_f32": (_TC, ctypes.c_int),
                "gather_einsum_generic_f32": (_GENERIC, ctypes.c_int),
                "gather_einsum_generic_bf16": (_GENERIC, ctypes.c_int)}
 
@@ -231,6 +243,19 @@ def _launch(spec: str, x: Tensor, table: Tensor, user_index: Tensor,
         build.check(lib, rc, f"gather_einsum {spec!r}")
         build.count_launch(LAUNCHES, "generic/bf16" if bf16 else "generic")
         return out
+    if spec == "bd,uldh->blh" and not bf16:
+        U, L, D, H = table.shape
+        nwork = lib.gather_einsum_q_t_work_bytes(x.shape[0], U, D)
+        if nwork > 0:                     # past D = 40: the tensor cores
+            work = torch.empty(nwork, dtype=torch.uint8, device=x.device)
+            with torch.cuda.device(x.device):
+                rc = lib.gather_einsum_q_t_tc_f32(
+                    x.data_ptr(), table.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(), x.shape[0], U, L, D, H, work.data_ptr(),
+                    stream)
+            build.check(lib, rc, f"gather_einsum {spec!r}")
+            build.count_launch(LAUNCHES, TC_KEY)
+            return out
     dims = list(table.shape[1:]) + [0] * (4 - table.ndim)
     if spec == "blh,uh->bl":
         dims[1] = x.shape[1]            # the kernel also needs L

@@ -514,8 +514,9 @@ def _recsys_train(mod, batch: int, mesh=None, opts=frozenset()
 class CompiledServe:
     """``serve(params, feeds) -> scores``: the executor behind one
     ``CompiledRun`` per feed signature. With ``use_pallas`` the
-    ``mari_dense`` products run the ``mari_matmul`` kernel on weights
-    prepared once per params object (``prepare_mari_params``)."""
+    ``mari_dense`` products run the ``mari_matmul`` kernel and a wide
+    DIN unit the ``din_attention`` kernel on weights prepared once per
+    params object (``prepare_mari_params``, ``prepare_din_params``)."""
 
     def __init__(self, graph, mode: str, *, device: torch.device,
                  use_pallas: bool):
@@ -533,10 +534,12 @@ class CompiledServe:
 
     def __call__(self, params: dict, feeds: dict) -> torch.Tensor:
         if self.use_pallas:
+            from repro_torch.kernels.din_attention import prepare_din_params
             from repro_torch.kernels.mari_matmul import prepare_mari_params
             hit = self._prepared.get(id(params))
             if hit is None or hit[0] is not params:
-                hit = (params, prepare_mari_params(self.graph, params))
+                hit = (params, prepare_din_params(
+                    self.graph, prepare_mari_params(self.graph, params)))
                 self._prepared[id(params)] = hit
             params = hit[1]
         return self.run(params, feeds)["scores"]
@@ -564,9 +567,12 @@ class MeshServe:
         if hit is None or hit[0] is not params:
             local = _row_params(params, self.L, False)
             if self.use_pallas:
+                from repro_torch.kernels.din_attention import (
+                    prepare_din_params)
                 from repro_torch.kernels.mari_matmul import (
                     prepare_mari_params)
-                local = prepare_mari_params(self.graph, local)
+                local = prepare_din_params(
+                    self.graph, prepare_mari_params(self.graph, local))
             hit = self._prepared[id(params)] = (params, local)
         return hit[1]
 

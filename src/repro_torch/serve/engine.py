@@ -155,6 +155,7 @@ from repro_torch.ft.recovery import CircuitBreaker
 from repro_torch.graph.compiled import CompiledRun, GraphPool
 from repro_torch.graph.executor import USER_INDEX_FEED, Executor
 from repro_torch.graph.ir import Graph, infer_shapes
+from repro_torch.kernels.din_attention import prepare_din_params
 from repro_torch.kernels.mari_matmul.ops import (prepare_mari_params,
                                                  stream_weight_blocks)
 from repro_torch.mem import ColdRepStore, PromotionWorker, RepWarmer
@@ -386,8 +387,11 @@ class ServingEngine:
             self.params = _precat_mari_weights(batched_graph, self.params)
         self.use_pallas = plan.kernel.use_pallas
         if self.use_pallas and self.device.type == "cuda":
-            # the mari_matmul kernel's weights, prepared once at load
-            self.params = prepare_mari_params(batched_graph, self.params)
+            # the mari_matmul and din_attention kernels' weights,
+            # prepared once at load
+            self.params = prepare_din_params(
+                batched_graph,
+                prepare_mari_params(batched_graph, self.params))
         self.kernel_gather = plan.kernel.kernel_gather
         self.gather_attention = plan.kernel.gather_attention
 

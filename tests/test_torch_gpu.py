@@ -442,6 +442,51 @@ def test_gather_einsum_row_bit_identical_whatever_the_batch(cuda, spec,
         assert torch.equal(full[lo:hi], part)
 
 
+# fp32 bd,uldh->blh past D = 40: the tensor-core route (rows grouped by
+# user, 3xTF32 wgmma), at D one past the CUDA cores' reach, 64, DIN's public
+# 128 and 130 (a ragged k tile), in every index order of GE_CASES
+@pytest.mark.parametrize("D", [41, 64, 128, 130])
+@pytest.mark.parametrize("order,U,B,L,H", sorted({c[:4] + c[5:]
+                                                  for c in GE_CASES}))
+def test_gather_einsum_tensor_core_route_index_orders(cuda, order, U, B, L,
+                                                      H, D):
+    """Within 2e-4 of the plain version, launched once under ``TC_KEY``."""
+    spec = "bd,uldh->blh"
+    g = _gen(cuda, U * B + L * H + D)
+    x, table = _ge_operands(g, spec, B, U, L, D, H)
+    idx = _ge_index(g, order, B, U)
+    before = dict(ge.LAUNCHES)
+    got = ge.gather_einsum(spec, x, table, idx)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES[ge.ops.TC_KEY] == before[ge.ops.TC_KEY] + 1
+    assert sum(ge.LAUNCHES.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(got, ge.gather_einsum_plain(spec, x, table,
+                                                           idx), **TOL)
+
+
+@pytest.mark.parametrize("order,U", [("random", 8), ("runs", 8),
+                                     ("random", 64), ("short_runs", 64),
+                                     ("clamped", 8)])
+def test_gather_einsum_tensor_core_rows_free_of_batch_and_order(cuda, order,
+                                                                U):
+    """At D = 128 a row's bits depend on its own x and user alone: a slice
+    of the rows (other row tiles, other neighbours) and the rows in
+    another order give the same bits (its sums over d go by k tiles fixed
+    by D)."""
+    spec, B = "bd,uldh->blh", 1000
+    g = _gen(cuda, 11)
+    x, table = _ge_operands(g, spec, B, U, 100, 128, 80)
+    idx = _ge_index(g, order, B, U)
+    full = ge.gather_einsum(spec, x, table, idx)
+    for lo, hi in ((117, 203), (0, 1), (250, 1000), (64, 70)):
+        part = ge.gather_einsum(spec, x[lo:hi].contiguous(), table,
+                                idx[lo:hi].contiguous())
+        assert torch.equal(full[lo:hi], part)
+    perm = torch.randperm(B, generator=g, device=cuda)
+    assert torch.equal(ge.gather_einsum(spec, x[perm].contiguous(), table,
+                                        idx[perm].contiguous()), full[perm])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,H,shift", [
     (301, 100, 1, 0), (301, 100, 3, 0), (301, 100, 81, 0), (77, 9, 257, 0),
@@ -832,12 +877,12 @@ def test_din_attention_kernel_longest_history(cuda, L):
 
 def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
     """bf16 is taken, mixed dtypes are not; every width is taken (the wide
-    route past the register tiles) up to the D whose 16-key chunk, 16
-    query rows and their pooled sums fill a block's shared memory (1200 in
-    fp32, 1800 in bf16), past which the wrapper raises naming that bound;
-    within the
-    tiles the narrow pipelines' layouts stand (the widest unit takes
-    32-key chunks and 10,000 keys)."""
+    route past the register tiles) up to the D whose 16-key chunk, the
+    block's 8 query rows and their pooled sums and two weight tiles fill
+    its shared memory (1480 in fp32, 2624 in bf16), past which the wrapper
+    raises naming that bound; within the tiles the narrow pipelines'
+    layouts stand (the widest unit takes 32-key chunks and 10,000
+    keys)."""
     args = _din_case(cuda, 8, 10, 6, 16, 8)
     with pytest.raises(TypeError, match="query bfloat16, keys float32"):
         da.din_attention(args[0].bfloat16(), *args[1:])
@@ -846,8 +891,8 @@ def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
                            for a in args))
     lib = da.ops._lib()
     assert (lib.din_attention_max_dim(0), lib.din_attention_max_dim(1)) \
-        == (1200, 1800)
-    for bf16, D in ((False, 1201), (True, 1801)):
+        == (1480, 2624)
+    for bf16, D in ((False, 1481), (True, 2625)):
         wide = _din_case(cuda, 2, 3, D, 8, 8)
         if bf16:
             wide = _bf16(wide)
@@ -863,13 +908,13 @@ def test_din_attention_kernel_refuses_what_it_cannot_take(cuda):
                                da.din_attention_plain(*widest), **TOL)
     # DIN at configs/din.py width stages 106832 bytes: two blocks an SM
     assert lib.din_attention_smem_bytes(100, 18, 80, 40) == 106832
-    # DIN's public D = 128: the wide route, 16 rows a block, fragments
-    # staged (W1d's 16 x 10 x 512 B and W2's 10 x 5 x 512 in fp32; keys 100
-    # x 132, rows 16 x 132, pooled sums 16 x 128, scores 16 x 100, mask 100:
-    # 183,760 bytes); in bf16 W1d's 16 x 10 x 128 B, W2's 5 x 5 x 256, keys
-    # 100 x 136 bf16, rows 16 x 136, sums, scores and mask: 73,424
-    assert lib.din_attention_smem_bytes(100, 128, 80, 40) == 183760
-    assert lib.din_attention_bf16_smem_bytes(100, 128, 80, 40) == 73424
+    # DIN's public D = 128: the wide route, 8 rows a block, a round's 7
+    # weight tiles resident in 20,480-byte slots (fp32; W1d's 4, W2's 3),
+    # keys 100 x 132, rows 8 x 132, pooled sums 8 x 128, scores 8 x 100,
+    # mask 100 and 1,024 to align: 209,104 bytes; in bf16 4 slots of
+    # 10,240, keys 100 x 136 bf16, rows 8 x 136, sums, scores, mask: 79,056
+    assert lib.din_attention_smem_bytes(100, 128, 80, 40) == 209104
+    assert lib.din_attention_bf16_smem_bytes(100, 128, 80, 40) == 79056
     assert lib.din_attention_chunk_keys(128, 80, 40) == 112
     with pytest.raises(ValueError, match="4D -> h1 -> h2 -> 1"):
         da.din_attention(args[0], args[1], args[2], args[3][:-1], *args[4:])
@@ -895,15 +940,20 @@ DIN_WIDE_UNITS = [(128, 80, 40), (65, 129, 65), (256, 512, 256),
 @pytest.mark.parametrize("D,h1,h2", DIN_WIDE_UNITS)
 def test_din_attention_wide_units_match_plain(cuda, D, h1, h2, dtype):
     """Units past the register tiles (D > 64, h1 > 128 or h2 > 64, and
-    all) take the wide route: fp32 within 2e-4 of the plain version, bf16
-    within 2e-2 of it and of the fp32 kernel on the widened values; a
-    row's bits do not depend on B; counted under wide / wide/bf16."""
+    all) take the wide route on weights prepared once
+    (``prepare_din_weights``; no call prepares them again: ``PREPARES``
+    stays): fp32 within 2e-4 of the plain version, bf16 within 2e-2 of it
+    and of the fp32 kernel on the widened values; a row's bits do not
+    depend on B; counted under wide / wide/bf16. A call without them
+    prepares them itself, counted, with the same bits."""
     args = _din_glorot(cuda, 67, 100, D, h1, h2, seed=D + h1)
     key, tol = "wide", TOL
     if dtype == "bfloat16":
         args, key, tol = _bf16(args), "wide/bf16", BF16_TOL
+    pw = da.prepare_din_weights(args[3], args[5])
+    prepares = dict(da.PREPARES)
     before = dict(da.LAUNCHES)
-    got = da.din_attention(*args)
+    got = da.din_attention(*args, prepared=pw)
     torch.cuda.synchronize()
     assert da.LAUNCHES[key] == before[key] + 1
     assert sum(da.LAUNCHES.values()) == sum(before.values()) + 1
@@ -912,11 +962,16 @@ def test_din_attention_wide_units_match_plain(cuda, D, h1, h2, dtype):
                                da.din_attention_plain(*args).float(), **tol)
     if dtype == "bfloat16":
         wide = tuple(a.float() if a.is_floating_point() else a for a in args)
-        torch.testing.assert_close(got.float(), da.din_attention(*wide),
-                                   **BF16_TOL)
+        pw32 = da.prepare_din_weights(wide[3], wide[5])
+        torch.testing.assert_close(
+            got.float(), da.din_attention(*wide, prepared=pw32), **BF16_TOL)
     for lo, hi in ((33, 67), (1, 2)):
         assert torch.equal(da.din_attention(args[0][lo:hi].contiguous(),
-                                            *args[1:]), got[lo:hi])
+                                            *args[1:], prepared=pw),
+                           got[lo:hi])
+    assert da.PREPARES == prepares
+    assert torch.equal(da.din_attention(*args), got)
+    assert da.PREPARES[dtype] == prepares[dtype] + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -929,15 +984,37 @@ def test_din_attention_wide_unit_longest_history(cuda, dtype):
     tol = TOL
     if dtype == "bfloat16":
         args, tol = _bf16(args), BF16_TOL
-    full = da.din_attention(*args)
+    pw = da.prepare_din_weights(args[3], args[5])
+    prepares = dict(da.PREPARES)
+    full = da.din_attention(*args, prepared=pw)
     torch.testing.assert_close(full.float(),
                                da.din_attention_plain(*args).float(), **tol)
     assert torch.equal(da.din_attention(args[0][5:11].contiguous(),
-                                        *args[1:]), full[5:11])
+                                        *args[1:], prepared=pw), full[5:11])
     masked = (args[0], args[1], torch.zeros_like(args[2])) + args[3:]
     torch.testing.assert_close(
-        da.din_attention(*masked).float(),
+        da.din_attention(*masked, prepared=pw).float(),
         da.din_attention_plain(*masked).float(), **tol)
+    assert da.PREPARES == prepares
+
+
+@pytest.mark.parametrize("D,h1,h2", [(256, 512, 256), (18, 2048, 1024)])
+def test_din_attention_wide_route_at_0_2_scale_against_fp64(cuda, D, h1, h2):
+    """At ``_din_case``'s 0.2-scale weights scores reach the hundreds and
+    the softmax is near an argmax, where any change in summation order
+    moves the output: the wide route is held against the unit run in fp64
+    (``chip_smoke.din_oracle_fp64``), no farther from it than the plain
+    version's fp32 run is (or within 2e-4 of it)."""
+    cs = _chip_smoke()
+    args = _din_case(cuda, 64, 100, D, h1, h2, seed=D + h1)
+    got = da.din_attention(*args, prepared=da.prepare_din_weights(args[3],
+                                                                  args[5]))
+    oracle = cs.din_oracle_fp64(*args)
+    kernel = float((got.double() - oracle).abs().max())
+    plain = float((da.din_attention_plain(*args).double() - oracle)
+                  .abs().max())
+    assert cs.din_scores_fp64(*args).abs().max() > 100
+    assert kernel <= max(plain, TOL["atol"]), (kernel, plain)
 
 
 @pytest.fixture(scope="module")
@@ -1018,53 +1095,6 @@ def test_din_attention_bf16_kernel_matches_plain(cuda, B, L, D, h1, h2):
         assert torch.equal(got[B // 2:], part)
 
 
-@pytest.fixture(scope="module")
-def din_bf16_widened_source():
-    """The bf16 entry as commit 38d4546 built it (widened into the 3xTF32
-    pipeline, every product kept; its source under tests/data), built
-    with the checkout's flags."""
-    from repro_torch.kernels import turns
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    lib = turns.load_source(
-        "din_attention", pathlib.Path(__file__).parent / "data"
-        / "din_attention_38d4546.cu")
-    build_mod = da.ops.build
-    build_mod.bind(lib, {"din_attention_bf16":
-                         da.ops._SIGNATURES["din_attention_bf16"]})
-    return lib
-
-
-@pytest.mark.parametrize("B,L,D,h1,h2", [(2048, 100, 18, 80, 40),
-                                         (512, 921, 18, 80, 40),
-                                         (300, 37, 33, 128, 64),
-                                         (20, 3000, 64, 128, 64),
-                                         (1, 7, 6, 12, 5)])
-def test_din_attention_bf16_tf32_build_is_the_widened_run_bit_for_bit(
-        cuda, din_bf16_widened_source, B, L, D, h1, h2):
-    """The DIN_ATTENTION_BF16_TF32 build leaves out the products that are
-    exact zeros in bf16 (the lo halves of bf16(k*q), W1d and W2): adding
-    an exact 0 to an f32 sum changes nothing, so its bf16 entry gives the
-    bits of the widened run it replaced (commit 38d4546's source)."""
-    args = _bf16(_din_case(cuda, B, L, D, h1, h2, seed=B + L))
-    q, keys, mask, *w = args
-    mask_i = mask.to(torch.int32)
-    want = torch.empty(B, D, dtype=torch.bfloat16, device=cuda)
-    lib = din_bf16_widened_source
-    rc = lib.din_attention_bf16(
-        q.data_ptr(), keys.data_ptr(), mask_i.data_ptr(),
-        *(t.data_ptr() for t in w), want.data_ptr(), B, L, D, h1, h2,
-        torch.cuda.current_stream(cuda).cuda_stream)
-    da.ops.build.check(lib, rc, "din_attention (38d4546)")
-    saved = da.ops._lib
-    da.ops._lib = lambda: saved(("DIN_ATTENTION_BF16_TF32",))
-    try:
-        got = da.din_attention(*args)
-    finally:
-        da.ops._lib = saved
-    assert torch.equal(got, want)
-
-
 def test_din_attention_bf16_layout(cuda):
     """The bf16 instance's shared memory, worked out by hand: at DIN's
     width (L 100, D 18 -> 24 with key rows of 24 bf16, h1 80, h2 40) the
@@ -1074,16 +1104,17 @@ def test_din_attention_bf16_layout(cuda):
     fp32); the widest unit (D 64 -> rows of 72 bf16, h1 128 -> K1 rows of
     136 floats, h2 64) keeps 112-key chunks: 65,536 + 16,384 + 60,928 +
     4352 + 16,128 + 1152 + 512 + 256 + 256 + 3584 + 448 = 169,536. One
-    past the tiles (D 65 -> 72, h1 16, h2 8, L 10) takes the wide route:
-    W1d's fragments 9 x 2 x 128 B and W2's 1 x 1 x 256 staged, keys 10 x
-    72 bf16 (1440), 16 rows x 72 (2304), pooled sums 16 x 72 x 4, scores
-    16 x 10 x 4, mask 40: 11,592 bytes."""
+    past the tiles (D 65 -> 80, h1 16, h2 8, L 10) takes the wide route:
+    a round's 3 weight tiles resident (W1d's 2 k tiles of 64 d and W2's 1,
+    8,192 bytes each: h1 and h2 in 64-wide groups), keys 10 x 88 bf16
+    (1760), 8 rows x 88 (1408), pooled sums 8 x 80 x 4, scores 8 x 10 x 4,
+    mask 40 and 1,024 to align: 31,688 bytes."""
     lib = da.ops._lib()
     assert lib.din_attention_bf16_smem_bytes(100, 18, 80, 40) == 69200
     assert lib.din_attention_bf16_chunk_keys(18, 80, 40) == 112
     assert lib.din_attention_bf16_chunk_keys(64, 128, 64) == 112
     assert lib.din_attention_bf16_smem_bytes(10_000, 64, 128, 64) == 169536
-    assert lib.din_attention_bf16_smem_bytes(10, 65, 16, 8) == 11592
+    assert lib.din_attention_bf16_smem_bytes(10, 65, 16, 8) == 31688
 
 
 @pytest.mark.parametrize("keep_self", [False, True])

@@ -117,10 +117,14 @@ def _ge_case(spec, U, seed, B=23, L=7, D=6, H=5):
     return x, table, uidx
 
 
-@pytest.mark.parametrize("U", [1, 3, 5])
+@pytest.mark.parametrize("U", [1, 3, 5, pytest.param(4, id="4-D128")])
 @pytest.mark.parametrize("spec", ge.KERNEL_SPECS)
 def test_gather_einsum_matches_reference(spec, U):
-    x, table, uidx = _ge_case(spec, U, seed=U)
+    """The plain version against the TPU kernel in interpret mode; the
+    ``4-D128`` case at DIN's public D = 128 (on the card, fp32
+    ``bd,uldh->blh`` takes the tensor-core route past D = 40)."""
+    x, table, uidx = _ge_case(spec, U, seed=U, **({"D": 128} if U == 4
+                                                   else {}))
     want = jax_gather_einsum(spec, x, table, uidx, interpret=True)
     before = dict(ge.LAUNCHES)
     got = gather_einsum(spec, _t(x), _t(table), _t(uidx))
@@ -298,11 +302,13 @@ def _din_case(B, L, D, h1=16, h2=8, seed=0):
 
 
 @pytest.mark.parametrize("B,L,D,h1,h2", [(5, 9, 72, 136, 72),
-                                         (3, 11, 130, 20, 9)])
+                                         (3, 11, 130, 20, 9),
+                                         (4, 100, 18, 2048, 1024)])
 def test_din_attention_wide_units_match_reference(B, L, D, h1, h2):
     """Units past the CUDA kernel's register tiles (its wide route on the
     card): the plain version against the reference's Pallas kernel in
-    interpret mode, which takes any width."""
+    interpret mode, which takes any width; (18, 2048, 1024) at
+    ``_din_case``'s 0.2-scale weights, where scores reach the hundreds."""
     args = _din_case(B, L, D, h1, h2, seed=D)
     got = da.din_attention(*(_t(a) for a in args)).numpy()
     np.testing.assert_allclose(
