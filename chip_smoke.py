@@ -52,9 +52,12 @@
    replaces there and ``einsum`` on the gathered operand); the generic
    route (``gather_einsum/generic`` and
    ``/generic/bf16``) runs every ``GENERIC_SPECS`` spec, held to its plain
-   version, bf16 bit for bit the fp32 route on widened operands, and
-   timed (``gather_einsum_generic`` line; its launches are path
-   ``generic``: no model forms such a spec).
+   version and bit for bit to commit 521130a's generic entries (built from
+   ``GENERIC_PARENT`` beside the kernels), bf16 bit for bit the fp32 route
+   on widened operands, a row's bits free of B and of the rows' order, and
+   timed beside the plain version, 521130a's kernel and ``einsum`` on
+   pre-gathered rows (``gather_einsum_generic`` line; its launches are
+   path ``generic``: no model forms such a spec).
 2. Paper ranking model at full ``PaperRankingConfig()`` width: serves three
    users (1000 / 3000 / 5000 candidates) per request and coalesced under the
    ``tpu`` preset and under ``tpu`` without ``kernel_gather``, against a
@@ -306,6 +309,7 @@ import sys
 import tempfile
 import time
 import types
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -346,9 +350,14 @@ DIN_LONG_L, DIN_LONG_B = (921, 2048, 10_000), 512
 DIN_WIDE = (128, 80, 40)
 DIN_WIDE_CHECKED = ((65, 129, 65), (256, 512, 256), (18, 2048, 1024),
                     (1024, 80, 40))
-# gather_einsum's generic route: specs past KERNEL_SPECS
+# gather_einsum's generic route: specs past KERNEL_SPECS (with a dim
+# summed in x alone, one in the table alone, and a multi-head target
+# attention's scores and pool), held bit for bit to the route as commit
+# 521130a built it (its source under tests/data)
 GENERIC_SPECS = ("bd,uldh->bhl", "bi,uij->bj", "bij,uj->bi", "bl,ul->bl",
-                 "bd,ud->b", "bdk,ukh->bdh", "bx,uy->bxy")
+                 "bd,ud->b", "bdk,ukh->bdh", "bx,uy->bxy", "bij,uj->b",
+                 "bi,uij->bi", "bhd,ulhd->bhl", "bhl,ulhd->bhd")
+GENERIC_PARENT = os.path.join("tests", "data", "gather_einsum_521130a.cu")
 # builds of a kernel's source with one part left out or swapped, timed
 # beside it: name -> (source, macros)
 VARIANTS = {"gather_einsum": ("gather_einsum", ("GATHER_EINSUM_NO_ROW_SORT",)),
@@ -1998,6 +2007,7 @@ def main() -> int:
                                            make_recsys_feeds)
     from repro_torch.examples.train_then_convert import teacher_batches
     from repro_torch.kernels import build, read_launches, reset_launches
+    from repro_torch.kernels import turns
     from repro_torch.kernels import din_attention as da
     from repro_torch.kernels import dot_interaction as di
     from repro_torch.kernels import embedding_bag as eb
@@ -2032,12 +2042,15 @@ def main() -> int:
     # pipeline; dot_interaction's ring plan at every batch): all nvcc
     # processes at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1 + len(VARIANTS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2 + len(VARIANTS)) as pool:
         variant_builds = [pool.submit(build.build_all, (n,), d)
                           for n, d in VARIANTS.values()]
+        parent_build = pool.submit(turns.load_source, "gather_einsum",
+                                   Path(ROOT, GENERIC_PARENT))
         libs = build.build_all()
         for f in variant_builds:
             f.result()
+        ge_parent = parent_build.result()
     ptxas = {}
     for name, lib in libs.items():
         logf = lib.with_suffix(".log")
@@ -2858,10 +2871,33 @@ def main() -> int:
     # the generic route: specs past KERNEL_SPECS, which no model forms (the
     # TPU kernel's tests alone do), so these checks are its runner: their
     # launches are path "generic". fp32 within TOL of the plain version,
-    # bf16 bit for bit the fp32 route on the widened operands, a row's bits
-    # its own when the last half of the rows is launched alone; each spec
-    # timed beside its plain version at B = 4096, U = 8
+    # bf16 bit for bit the fp32 route on the widened operands, both bit for
+    # bit commit 521130a's generic entries on an index out of range both
+    # ways, a row's bits its own when the last half of the rows is launched
+    # alone or the rows come in another order; each spec timed (random
+    # order and the engine's runs) beside its plain version, 521130a's
+    # kernel and einsum on pre-gathered rows at B = 4096, U = 8
     gsz = dict(i=128, j=80, l=100, d=18, k=8, h=80, x=40, y=30)
+    old_generic = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 2
+    build.bind(ge_parent, {f"gather_einsum_generic_{k}": (old_generic,
+                                                          ctypes.c_int)
+                           for k in ("f32", "bf16")})
+
+    def parent_generic(spec, x, t, idx):
+        """``spec`` through commit 521130a's generic entry (its GePlan)."""
+        plan = ge.ops.c_plan(ge.ops.generic_plan(spec, x.shape, t.shape))
+        out = torch.empty(ge.ops.out_shape(spec, x, t, idx), dtype=x.dtype,
+                          device=dev)
+        fn = (ge_parent.gather_einsum_generic_bf16
+              if x.dtype == torch.bfloat16
+              else ge_parent.gather_einsum_generic_f32)
+        build.check(ge_parent, fn(
+            x.data_ptr(), t.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            x.shape[0], t.shape[0], ctypes.byref(plan),
+            torch.cuda.current_stream(dev).cuda_stream), "521130a generic")
+        return out
+
     by_spec, errs = {}, {"fp32": [], "bf16": []}
     with counting("generic"):
         for spec in GENERIC_SPECS:
@@ -2869,50 +2905,73 @@ def main() -> int:
             xg = randn(B, *(gsz[c] for c in xs_[1:]))
             tg = randn(U, *(gsz[c] for c in ts_[1:]))
             ig = randidx(B, U + 3, lo=-2)
-            got = ge.gather_einsum(spec, xg, tg, ig)
-            errs["fp32"].append(max_err(got, ge.gather_einsum_plain(
-                spec, xg, tg, ig)))
+            order = torch.randperm(B, generator=gen, device=dev)
             half = B // 2
-            got_b = ge.gather_einsum(spec, xg.bfloat16(), tg.bfloat16(), ig)
-            errs["bf16"].append(max_err(got_b, ge.gather_einsum_plain(
-                spec, xg.bfloat16(), tg.bfloat16(), ig), BF16_TOL))
-            same_bits(got_b, ge.gather_einsum(
-                spec, xg.bfloat16().float(), tg.bfloat16().float(),
-                ig).bfloat16(), f"gather_einsum {spec}")
-            torch.cuda.synchronize()
-            if not (torch.equal(ge.gather_einsum(spec, xg[half:], tg,
-                                                 ig[half:]), got[half:])
-                    and torch.equal(ge.gather_einsum(
-                        spec, xg[half:].bfloat16(), tg.bfloat16(),
-                        ig[half:]), got_b[half:])):
-                raise AssertionError(f"gather_einsum {spec} (generic): a "
-                                     f"row's result depends on B")
-            out_n = got.numel()
+            for dt, (xa, ta) in (("fp32", (xg, tg)),
+                                 ("bf16", (xg.bfloat16(), tg.bfloat16()))):
+                got = ge.gather_einsum(spec, xa, ta, ig)
+                # bf16 against the plain version on the widened operands:
+                # the route sums in f32 and rounds once, where einsum in
+                # bf16 may sum in bf16 (10,240 terms in bij,uj->b)
+                errs[dt].append(max_err(got, ge.gather_einsum_plain(
+                    spec, xa.float(), ta.float(), ig),
+                    BF16_TOL if dt == "bf16" else TOL))
+                if dt == "bf16":
+                    same_bits(got, ge.gather_einsum(
+                        spec, xa.float(), ta.float(), ig).bfloat16(),
+                        f"gather_einsum {spec}")
+                torch.cuda.synchronize()
+                if not torch.equal(got, parent_generic(spec, xa, ta, ig)):
+                    raise AssertionError(
+                        f"gather_einsum {spec} (generic, {dt}): not the bits "
+                        f"of commit 521130a's generic route")
+                if not (torch.equal(ge.gather_einsum(spec, xa[half:], ta,
+                                                     ig[half:]), got[half:])
+                        and torch.equal(ge.gather_einsum(
+                            spec, xa[order], ta, ig[order]), got[order])):
+                    raise AssertionError(f"gather_einsum {spec} (generic, "
+                                         f"{dt}): a row's result depends on "
+                                         f"B or on the rows' order")
+                del got
+            out_n = B * math.prod(gsz[c] for c in os_[1:])
             sum_n = math.prod(gsz[c] for c in set(xs_[1:] + ts_[1:])
                               if c not in os_)
             nval = xg.numel() + tg.numel() + out_n
-            rows = tg.index_select(0, ig.clamp(0, U - 1))
-            xb, tb, rb = xg.bfloat16(), tg.bfloat16(), rows.bfloat16()
+            ir = randidx(B, U)
+            runs = torch.sort(ir).values
             row = {}
-            for dt, a, lib_fn, size in (
-                    ("fp32", (xg, tg, ig),
-                     lambda: torch.einsum(row_spec, xg, rows), 4),
-                    ("bf16", (xb, tb, ig),
-                     lambda: torch.einsum(row_spec, xb, rb), 2)):
+            for dt, size, peak in (("fp32", 4, PEAK_FP32_FLOPS),
+                                   ("bf16", 2, PEAK_BF16_FLOPS)):
+                xa, ta = ((xg, tg) if dt == "fp32"
+                          else (xg.bfloat16(), tg.bfloat16()))
+                rows = ta.index_select(0, ir)
                 b_ms, b_by = bound(size * nval + 4 * B, 2 * out_n * sum_n,
-                                   PEAK_BF16_FLOPS if size == 2
-                                   else PEAK_FP32_FLOPS)
-                ms = time_ms(lambda: ge.gather_einsum(spec, *a))
-                row[dt] = dict(ms=ms, plain_ms=time_ms(
-                    lambda: ge.gather_einsum_plain(spec, *a)),
+                                   peak)
+                ms = time_ms(lambda: ge.gather_einsum(spec, xa, ta, ir))
+                row[dt] = dict(
+                    ms=ms, ms_runs=time_ms(
+                        lambda: ge.gather_einsum(spec, xa, ta, runs)),
+                    parent_ms=time_ms(
+                        lambda: parent_generic(spec, xa, ta, ir), 5),
+                    plain_ms=time_ms(
+                        lambda: ge.gather_einsum_plain(spec, xa, ta, ir)),
+                    library_ms=time_ms(
+                        lambda: torch.einsum(row_spec, xa, rows)),
                     bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
-                    library_ms=time_ms(lib_fn))
+                    tiling=ge.ops.generic_tile(
+                        spec, tuple(xa.shape), tuple(ta.shape), size,
+                        ge.ops._sms(0))[1])
+                row[dt]["vs_library"] = ms / row[dt]["library_ms"]
+                row[dt]["vs_parent"] = row[dt]["parent_ms"] / ms
+                del rows
             by_spec[spec] = dict(x=list(xg.shape), table=list(tg.shape),
                                  plan=ge.ops.generic_plan(spec, xg.shape,
                                                           tg.shape), **row)
-            del xg, tg, rows, xb, tb, rb, got, got_b
+            del xg, tg
+            torch.cuda.empty_cache()
     for dt in ("fp32", "bf16"):
-        head = by_spec[GENERIC_SPECS[0]][dt]
+        head = dict(by_spec[GENERIC_SPECS[0]][dt])
+        del head["tiling"]
         entries["gather_einsum/generic" + ("/bf16" if dt == "bf16" else "")
                 ] = dict(
             route="cuda", source="src/repro_torch/csrc/gather_einsum.cu",
@@ -2930,6 +2989,8 @@ def main() -> int:
                        "and at the bf16 peak (989 TFLOP/s) in bf16, whose "
                        "products are exact in f32; bytes: x, table, out "
                        "once (2 bytes a value in bf16) and the index",
+            parent="commit 521130a's generic entries "
+                   f"({GENERIC_PARENT}), bit for bit",
             runner="phase 1's checks (path generic): no model forms "
                    "such a spec",
             library="torch.einsum on pre-gathered rows")

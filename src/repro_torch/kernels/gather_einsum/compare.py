@@ -7,6 +7,14 @@ commit's, say), on one card, taking turns.
         [--variant MACRO] [--batch 4096] [--dim 18] [--hidden 80] \
         [--rounds 4] [--iters 200]
 
+``--spec`` takes any spec ``parse_spec`` accepts: one past ``KERNEL_SPECS``
+runs each library's generic entry, this checkout's with its
+``generic_tile`` (and the workspace it asks for), a library without
+``gather_einsum_generic_work_bytes`` (commit 521130a's,
+``tests/data/gather_einsum_521130a.cu``) with ``GePlan``; its dims take
+``chip_smoke.py``'s generic sizes (``GENERIC_DIMS`` here, d and h from
+``--dim`` / ``--hidden``).
+
 Every library gets the same inputs, at DIN's width by default (L = 100,
 D = 18, H = 80; ``configs/din.py``; ``--dim`` / ``--hidden`` set D and
 H, e.g. DIN's public D = 128), in fp32 or bf16, and is launched through
@@ -30,6 +38,7 @@ checkout's, and whether it is bit for bit the same.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 from pathlib import Path
@@ -41,6 +50,10 @@ from repro_torch.kernels.gather_einsum import ops
 
 L = 100
 ORDERS = ("runs", "random", "random64", "runs64", "short64")
+# the sizes of a generic spec's dims (chip_smoke.py's)
+GENERIC_DIMS = dict(i=128, j=80, l=L, d=18, k=8, h=80, x=40, y=30)
+_OLD_GENERIC = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 2)
 
 
 def user_index(order: str, B: int,
@@ -60,8 +73,7 @@ def user_index(order: str, B: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, nargs="*")
-    ap.add_argument("--spec", choices=ops.KERNEL_SPECS,
-                    default="bd,uldh->blh")
+    ap.add_argument("--spec", default="bd,uldh->blh")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="bfloat16")
     ap.add_argument("--order", choices=ORDERS, action="append")
@@ -80,12 +92,15 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     B, spec, D, H = args.batch, args.spec, args.dim, args.hidden
-    entry = "gather_einsum_f32" if dtype == torch.float32 \
-        else "gather_einsum_bf16"
+    ops.parse_spec(spec)
     libs = {"checkout": ops._lib()}
     libs.update((f"checkout -D{m}", ops._lib((m,))) for m in args.variant)
     for p in args.other:
         libs[str(p)] = turns.load_source("gather_einsum", p)
+    if spec not in ops.KERNEL_SPECS:
+        return generic(args, libs, dev, dtype, g)
+    entry = "gather_einsum_f32" if dtype == torch.float32 \
+        else "gather_einsum_bf16"
     tc_entries = ("gather_einsum_q_t_tc_f32", "gather_einsum_q_t_work_bytes")
     for lib in libs.values():
         build.bind(lib, {entry: ops._SIGNATURES[entry]})
@@ -138,6 +153,73 @@ def main(argv=None) -> int:
             spec=spec, order=order, B=B, U=U, L=L, D=D, H=H,
             dtype=args.dtype, iters=args.iters, tensor_core_route=tc,
             **turns.summary(ms, "checkout"),
+            max_abs_vs_checkout={n: float((outs[n].float()
+                                           - outs["checkout"].float())
+                                          .abs().max()) for n in others},
+            bitwise_vs_checkout={n: bool(torch.equal(outs[n],
+                                                     outs["checkout"]))
+                                 for n in others},
+            device=torch.cuda.get_device_name(0))), flush=True)
+    return 0
+
+
+def generic(args, libs, dev, dtype, g) -> int:
+    """Turns of every library's generic entry on ``args.spec`` (see the
+    module note), one JSON line per ``--order`` as ``main``."""
+    spec, B = args.spec, args.batch
+    sizes = dict(GENERIC_DIMS, d=args.dim, h=args.hidden)
+    xs, ts, _, _ = ops.parse_spec(spec)
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for lib in libs.values():
+        if hasattr(lib, "gather_einsum_generic_work_bytes"):
+            build.bind(lib, {k: ops._SIGNATURES[k] for k in (
+                f"gather_einsum_generic_{suffix}",
+                "gather_einsum_generic_work_bytes")})
+        else:
+            build.bind(lib, {f"gather_einsum_generic_{suffix}": (
+                _OLD_GENERIC, ctypes.c_int)})
+    for order in args.order or ["random"]:
+        U, idx = user_index(order, B, g)
+        x = torch.randn((B,) + tuple(sizes[c] for c in xs[1:]), generator=g,
+                        device=dev).to(dtype)
+        table = torch.randn((U,) + tuple(sizes[c] for c in ts[1:]),
+                            generator=g, device=dev).to(dtype)
+        shape = ops.out_shape(spec, x, table, idx)
+        outs = {n: torch.empty(shape, device=dev, dtype=dtype) for n in libs}
+        tile, tiling = ops.generic_tile(spec, tuple(x.shape),
+                                        tuple(table.shape), x.element_size(),
+                                        ops._sms(dev.index or 0))
+        plan = ops.c_plan(ops.generic_plan(spec, x.shape, table.shape))
+
+        def launcher(name):
+            lib = libs[name]
+            fn = getattr(lib, f"gather_einsum_generic_{suffix}")
+            args_ = [x.data_ptr(), table.data_ptr(), idx.data_ptr(),
+                     outs[name].data_ptr(), B, U]
+            if hasattr(lib, "gather_einsum_generic_work_bytes"):
+                nwork = lib.gather_einsum_generic_work_bytes(
+                    B, U, ctypes.byref(tile))
+                work = torch.empty(max(nwork, 1), dtype=torch.uint8,
+                                   device=dev)
+                args_ += [ctypes.byref(tile),
+                          work.data_ptr() if nwork > 0 else None]
+            else:
+                args_.append(ctypes.byref(plan))
+
+            def launch():
+                build.check(lib, fn(*args_, stream),
+                            f"gather_einsum {spec!r} ({name})")
+            launch.work = args_     # keeps the workspace alive
+            return launch
+
+        ms = turns.take_turns({n: launcher(n) for n in libs}, args.rounds,
+                              args.iters)
+        others = [n for n in libs if n != "checkout"]
+        print(json.dumps(dict(
+            spec=spec, order=order, B=B, U=U, x=list(x.shape),
+            table=list(table.shape), dtype=args.dtype, iters=args.iters,
+            tiling=tiling, **turns.summary(ms, "checkout"),
             max_abs_vs_checkout={n: float((outs[n].float()
                                            - outs["checkout"].float())
                                           .abs().max()) for n in others},

@@ -5,6 +5,7 @@ card run ``python -m pytest -m gpu tests/test_torch_gpu.py``. Kernels are
 held against their plain PyTorch versions on the same device at fp32
 rtol = atol = 2e-4 (tests/test_kernels.py).
 """
+import ctypes
 import pathlib
 
 import numpy as np
@@ -653,6 +654,165 @@ def test_gather_einsum_generic_matches_plain(cuda, spec, B, U):
         assert torch.equal(ge.gather_einsum(spec, x[half:].bfloat16(),
                                             table.bfloat16(), idx[half:]),
                            got_b[half:])
+
+
+class ParentGePlan(ctypes.Structure):
+    """The plan commit 521130a's generic entries take (its ``GePlan``),
+    frozen here as that source declares it."""
+    _fields_ = [("n_out", ctypes.c_int), ("n_sum", ctypes.c_int),
+                ("x_row", ctypes.c_longlong), ("t_row", ctypes.c_longlong),
+                ("out_row", ctypes.c_longlong),
+                ("out_count", ctypes.c_longlong),
+                ("sum_count", ctypes.c_longlong)] + [
+        (f, ctypes.c_longlong * 8) for f in (
+            "out_size", "out_x", "out_t", "out_o", "sum_size", "sum_x",
+            "sum_t")]
+
+
+@pytest.fixture(scope="module")
+def ge_generic_parent():
+    """``gather_einsum`` as commit 521130a built it (its source under
+    tests/data), its generic entries bound, built with the checkout's
+    flags."""
+    from repro_torch.kernels import turns
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = turns.load_source(
+        "gather_einsum", pathlib.Path(__file__).parent / "data"
+        / "gather_einsum_521130a.cu")
+    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    ge.ops.build.bind(lib, {f"gather_einsum_generic_{k}": (args, ctypes.c_int)
+                            for k in ("f32", "bf16")})
+    return lib
+
+
+def _ge_parent_generic(lib, spec, x, table, idx):
+    """``spec`` through 521130a's generic entry, its plan laid out by hand
+    from ``generic_plan``."""
+    plan = ge.ops.generic_plan(spec, x.shape, table.shape)
+    c = ParentGePlan(n_out=len(plan["out"]), n_sum=len(plan["sum"]),
+                     x_row=plan["x_row"], t_row=plan["t_row"],
+                     out_row=plan["out_row"],
+                     out_count=int(np.prod([d[0] for d in plan["out"]])),
+                     sum_count=int(np.prod([d[0] for d in plan["sum"]])))
+    for i, d in enumerate(plan["out"]):
+        c.out_size[i], c.out_x[i], c.out_t[i], c.out_o[i] = d
+    for i, d in enumerate(plan["sum"]):
+        c.sum_size[i], c.sum_x[i], c.sum_t[i] = d
+    out = torch.empty(ge.ops.out_shape(spec, x, table, idx), dtype=x.dtype,
+                      device=x.device)
+    fn = (lib.gather_einsum_generic_bf16 if x.dtype == torch.bfloat16
+          else lib.gather_einsum_generic_f32)
+    rc = fn(x.data_ptr(), table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            x.shape[0], table.shape[0], ctypes.byref(c),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    ge.ops.build.check(lib, rc, f"gather_einsum {spec!r} (521130a)")
+    return out
+
+
+# a dim summed in x alone, one in the table alone, a multi-head target
+# attention's scores and pool: with GE_OTHER_SPECS every role
+GE_NEW_SPECS = ["bij,uj->b", "bi,uij->bi", "bhd,ulhd->bhl", "bhl,ulhd->bhd"]
+
+
+def _ge_orders(g, B, U):
+    """The index orders a generic check runs: random, the engine's runs, one
+    user, out of range both ways."""
+    rnd = torch.randint(0, U, (B,), generator=g, device=g.device,
+                        dtype=torch.int32)
+    return {"random": rnd, "runs": torch.sort(rnd).values,
+            "one_user": torch.full((B,), U - 1, dtype=torch.int32,
+                                   device=g.device),
+            "clamped": torch.randint(-3, U + 3, (B,), generator=g,
+                                     device=g.device, dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,U", [(1000, 8), (1, 1), (301, 64)])
+@pytest.mark.parametrize("spec", GE_OTHER_SPECS + GE_NEW_SPECS)
+def test_gather_einsum_generic_is_the_parents_bit_for_bit(
+        cuda, ge_generic_parent, spec, B, U, dtype):
+    """The redesigned generic route sums each output in 521130a's order
+    (row-major over the plan's summed dims, fmaf from 0), whatever layout
+    its tiling picks: every index order gives that source's bits, fp32 and
+    bf16."""
+    xs, ts, _, _ = ge.parse_spec(spec)
+    g = _gen(cuda, B + U + len(spec) + dtype.itemsize)
+    x = _randn(g, B, *(GE_DIMS[c] for c in xs[1:])).to(dtype)
+    table = _randn(g, U, *(GE_DIMS[c] for c in ts[1:])).to(dtype)
+    for name, idx in _ge_orders(g, B, U).items():
+        got = ge.gather_einsum(spec, x, table, idx)
+        want = _ge_parent_generic(ge_generic_parent, spec, x, table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+# (spec, dims, B, U, layout, mode): every layout and mode of the tiling,
+# among them summed spaces of thousands at U 64 (every user's table
+# slices cannot be staged at once: the rows are sorted by user on the
+# card, GROUPED) and walks longer than one staged chunk
+GE_LAYOUT_CASES = [
+    ("bdk,ukh->bdh", dict(d=18, k=3000, h=80), 301, 64, "W staged",
+     "grouped"),
+    ("bi,uij->bj", dict(i=5000, j=50), 301, 64, "W staged", "grouped"),
+    ("bhl,ulhd->bhd", dict(h=8, l=2000, d=18), 301, 64, "W staged",
+     "grouped"),
+    ("bd,uldh->bhl", dict(l=100, d=18, h=80), 1000, 8, "W staged",
+     "grouped"),
+    ("bhl,ulhd->bhd", dict(h=80, l=100, d=18), 1000, 8, "W resident",
+     "grouped"),
+    ("bdk,ukh->bdh", dict(d=18, k=8, h=80), 1000, 8, "W resident", "users"),
+    ("bij,uj->bi", dict(i=37, j=50), 1000, 8, "P", "users"),
+    ("bij,uij->bi", dict(i=37, j=50), 1000, 8, "P", "rows"),
+    ("bij,uij->b", dict(i=100, j=100), 301, 64, "P", "rows"),
+    ("bd,ud->b", dict(d=18), 1000, 8, "flat", "flat")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec,dims,B,U,layout,mode", GE_LAYOUT_CASES)
+def test_gather_einsum_generic_layouts_are_the_parents_bit_for_bit(
+        cuda, ge_generic_parent, spec, dims, B, U, layout, mode, dtype):
+    """Each layout and mode the tiling picks (W resident or staged, P,
+    flat; USERS, ROWS, GROUPED) gives 521130a's bits in every index order,
+    fp32 and bf16."""
+    xs, ts, _, _ = ge.parse_spec(spec)
+    g = _gen(cuda, B + U + len(spec) + dtype.itemsize)
+    x = _randn(g, B, *(dims[c] for c in xs[1:])).to(dtype)
+    table = _randn(g, U, *(dims[c] for c in ts[1:])).to(dtype)
+    _, tiling = ge.ops.generic_tile(spec, tuple(x.shape), tuple(table.shape),
+                                    x.element_size(),
+                                    ge.ops._sms(cuda.index or 0))
+    assert (tiling["layout"], tiling["mode"]) == (layout, mode)
+    for name, idx in _ge_orders(g, B, U).items():
+        got = ge.gather_einsum(spec, x, table, idx)
+        want = _ge_parent_generic(ge_generic_parent, spec, x, table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec", GE_OTHER_SPECS + GE_NEW_SPECS)
+def test_gather_einsum_generic_rows_free_of_batch_and_order(cuda, spec,
+                                                             dtype):
+    """A row's bits are its own: the same with the last half of the rows
+    launched alone, with the rows reversed, and at B = 4096 (the staged
+    layouts' full steps) as at 1000."""
+    xs, ts, _, _ = ge.parse_spec(spec)
+    g = _gen(cuda, 17 + len(spec))
+    B, U = 4096, 8
+    x = _randn(g, B, *(GE_DIMS[c] for c in xs[1:])).to(dtype)
+    table = _randn(g, U, *(GE_DIMS[c] for c in ts[1:])).to(dtype)
+    idx = torch.randint(-2, U + 2, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    got = ge.gather_einsum(spec, x, table, idx)
+    rev = torch.arange(B - 1, -1, -1, device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(ge.gather_einsum(spec, x[B // 2:], table,
+                                        idx[B // 2:]), got[B // 2:])
+    assert torch.equal(ge.gather_einsum(spec, x[rev], table, idx[rev]),
+                       got[rev])
+    assert torch.equal(ge.gather_einsum(spec, x[:1000], table, idx[:1000]),
+                       got[:1000])
 
 
 @pytest.mark.parametrize("keep_self", [False, True])

@@ -137,9 +137,12 @@ def test_gather_einsum_matches_reference(spec, U):
 
 # specs past the three KERNEL_SPECS (the generic route on CUDA): a row
 # contraction, a per-row vector product, an elementwise product, a dot, a
-# batched small matmul, an outer product, a permuted output
+# batched small matmul, an outer product, a permuted output; a dim summed in
+# x alone, one summed in the table alone, and a multi-head target
+# attention's scores and pool (together every role: S, M, N, K, Kx, Kt)
 OTHER_SPECS = ["bi,uij->bj", "bij,uj->bi", "bl,ul->bl", "bd,ud->b",
-               "bdk,ukh->bdh", "bx,uy->bxy", "bd,uldh->bhl"]
+               "bdk,ukh->bdh", "bx,uy->bxy", "bd,uldh->bhl", "bij,uj->b",
+               "bi,uij->bi", "bhd,ulhd->bhl", "bhl,ulhd->bhd"]
 DIM_SIZES = dict(i=4, j=5, l=6, d=7, k=3, h=5, x=4, y=3)
 
 
@@ -229,6 +232,150 @@ def test_gather_einsum_generic_plan_merges_and_bounds():
     with pytest.raises(ValueError, match="generic route's 8 of each"):
         ge.ops.generic_plan(f"b{many},u->b{many[::-1]}", (1,) + (2,) * 9,
                             (3,))
+
+
+# each spec's roles at DIM_SIZES (x (B, ...), table (U, ...) strides):
+# output dims S (x and table), M (x only), N (table only); summed dims K,
+# Kx (x only), Kt (table only)
+ROLES = {
+    "bhd,ulhd->bhl": dict(S=[(5, 7, 7, 6)], N=[(6, 0, 35, 1)],
+                          K=[(7, 1, 1)]),
+    "bi,uij->bi": dict(S=[(4, 1, 5, 1)], Kt=[(5, 0, 1)]),
+    "bhl,ulhd->bhd": dict(S=[(5, 6, 7, 7)], N=[(7, 0, 1, 1)],
+                          K=[(6, 1, 35)]),
+    "bij,uj->b": dict(Kx=[(4, 5, 0)], K=[(5, 1, 1)]),
+    "bdk,ukh->bdh": dict(M=[(7, 3, 0, 5)], N=[(5, 0, 1, 1)],
+                         K=[(3, 1, 5)]),
+    "bl,ul->bl": dict(S=[(6, 1, 1, 1)]),
+}
+
+
+@pytest.mark.parametrize("spec", sorted(ROLES))
+def test_gather_einsum_generic_roles(spec):
+    """Each merged dim of the plan takes its role from its zero strides:
+    an output dim in x and the table is S, in x alone M, in the table alone
+    N; a summed dim in both is K, in x alone Kx, in the table alone Kt."""
+    x, table, _ = _other_case(spec, B=5, U=4)
+    roles = ge.ops.generic_roles(spec, x.shape, table.shape)
+    want = dict.fromkeys(("S", "M", "N", "K", "Kx", "Kt"), [])
+    assert roles == dict(want, **ROLES[spec])
+
+
+def _tile_eval(spec, x, table, idx, sms=132):
+    """The generic route's tiling (``generic_tile``'s struct) evaluated by
+    its lists in plain torch: every (row, G, A, N) output at its out offset,
+    summed over the K list, the table at the row's clamped user; GROUPED's
+    A list walks M alone beside the S dims it fixes a block (G)."""
+    c, t = ge.ops.generic_tile(spec, tuple(x.shape), tuple(table.shape),
+                               x.element_size(), sms)
+
+    def offsets(n, size, *strides):
+        count = int(np.prod([size[i] for i in range(n)]))
+        rem = torch.arange(count)
+        outs = [torch.zeros(count, dtype=torch.long) for _ in strides]
+        for d in reversed(range(n)):
+            cd = rem % size[d]
+            rem = rem // size[d]
+            for o, s_ in zip(outs, strides):
+                o += cd * s_[d]
+        return outs
+
+    ax, at, ao = offsets(c.n_a, c.a_size, c.a_x, c.a_t, c.a_o)
+    gx, gt, go = offsets(c.n_g, c.g_size, c.g_x, c.g_t, c.g_o)
+    nt, no = offsets(c.n_n, c.n_size, c.n_t, c.n_o)
+    kx, kt = offsets(c.n_k, c.k_size, c.k_x, c.k_t)
+    assert (len(ax), len(gx), len(nt), len(kx)) == (
+        c.a_count, c.g_count, c.n_count, c.k_count)
+    B, U = x.shape[0], table.shape[0]
+    b = torch.arange(B).view(B, 1, 1, 1, 1)
+    u = idx.long().clamp(0, U - 1).view(B, 1, 1, 1, 1)
+    xo = (b * c.x_row + gx.view(1, -1, 1, 1, 1) + ax.view(1, 1, -1, 1, 1)
+          + kx.view(1, 1, 1, 1, -1))
+    to = (u * c.t_row + gt.view(1, -1, 1, 1, 1) + at.view(1, 1, -1, 1, 1)
+          + nt.view(1, 1, 1, -1, 1) + kt.view(1, 1, 1, 1, -1))
+    vals = (x.reshape(-1)[xo] * table.reshape(-1)[to]).sum(-1)
+    oo = (b[..., 0] * c.out_row + go.view(1, -1, 1, 1)
+          + ao.view(1, 1, -1, 1) + no.view(1, 1, 1, -1))
+    shape = ge.ops.out_shape(spec, x, table, idx)
+    out = torch.full((int(np.prod(shape)),), float("nan"), dtype=x.dtype)
+    out[oo.reshape(-1)] = vals.reshape(-1)
+    return out.reshape(shape), c, t
+
+
+@pytest.mark.parametrize("B,U", [(5, 4), (2, 1), (9, 64)])
+@pytest.mark.parametrize("spec", OTHER_SPECS)
+def test_gather_einsum_generic_tile_walks_to_einsum(spec, B, U):
+    """The tiling the wrapper hands the kernel covers every output once and
+    equals torch.einsum on the gathered rows; a mode's promise holds: one
+    table slice serves every A coordinate of a block (USERS, GROUPED: the A
+    list carries no table stride), ROWS and P only where N is empty."""
+    x, table, uidx = _other_case(spec, B=B, U=U, seed=len(spec) + B)
+    x, table, idx = _t(x).double(), _t(table).double(), _t(uidx)
+    got, c, t = _tile_eval(spec, x, table, idx)
+    want = torch.einsum(parse_spec(spec)[3], x,
+                        table[idx.long().clamp(0, table.shape[0] - 1)])
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    if t["mode"] in ("users", "grouped"):
+        assert all(c.a_t[i] == 0 for i in range(c.n_a))
+    if t["mode"] != "grouped":
+        assert c.n_g == 0
+    assert (t["kind"] in (1, 3)) == (c.n_n > 0)
+    assert t["mode"] != "rows" or t["kind"] == 0
+    if t["kind"] == 2:      # every output dim, e its own out offset
+        assert t["mode"] == "flat" and c.out_row == c.a_count
+    assert t["kind"] != 1 or t["mode"] == "grouped"   # W staged
+    assert t["kind"] != 0 or t["mode"] != "grouped"   # P
+    assert 1 <= t["kc"] <= ge.ops.GT_MAX_KC
+    assert t["smem"] <= ge.ops.GT_MAX_SMEM
+
+
+# the tilings at chip_smoke.py's generic shapes (B 4096, U 8): what each
+# mode and layout is for
+SMOKE_DIMS = dict(i=128, j=80, l=100, d=18, k=8, h=80, x=40, y=30)
+SMOKE_TILES = {"bd,uldh->bhl": ("grouped", 1), "bhd,ulhd->bhl": ("grouped", 1),
+               "bhl,ulhd->bhd": ("grouped", 3), "bij,uj->bi": ("users", 0),
+               "bij,uj->b": ("users", 0), "bi,uij->bi": ("flat", 2),
+               "bl,ul->bl": ("flat", 2), "bd,ud->b": ("flat", 2),
+               "bx,uy->bxy": ("flat", 2), "bdk,ukh->bdh": ("users", 3),
+               "bi,uij->bj": ("flat", 2)}
+
+
+@pytest.mark.parametrize("spec", sorted(SMOKE_TILES))
+def test_gather_einsum_generic_tile_modes(spec):
+    """At B 4096, U 8, fp32: the heavy contractions (590 M products) group
+    rows by user (a short sum staged, a long one beside resident slices);
+    where N is empty and x streams, a ring staged by the copy engine with
+    every user's slices beside it; every user's slices resident where they
+    fit; short sums, sums whose reads coalesce and sums on one x value take
+    the flat layout. At bf16 too the tiling fits the card's shared
+    memory."""
+    xs, ts, _, _ = parse_spec(spec)
+    x_shape = (4096,) + tuple(SMOKE_DIMS[c] for c in xs[1:])
+    t_shape = (8,) + tuple(SMOKE_DIMS[c] for c in ts[1:])
+    _, t = ge.ops.generic_tile(spec, x_shape, t_shape, 4, 132)
+    assert (t["mode"], t["kind"]) == SMOKE_TILES[spec]
+    for esize in (4, 2):
+        _, t = ge.ops.generic_tile(spec, x_shape, t_shape, esize, 132)
+        assert t["smem"] <= ge.ops.GT_MAX_SMEM
+        if t["mode"] == "grouped":
+            assert t["nr"] % (t["ta"] // t["a_blk"]) == 0
+
+
+def test_gather_einsum_generic_magic_division():
+    """The walks divide by magic numbers (CUTLASS's FastDivmod rule): for
+    every dividend and divisor below 2^31, (n * mul >> 32) >> shr == n //
+    d."""
+    rng = np.random.default_rng(0)
+    ds = list(range(1, 2000)) + list(rng.integers(1, 2 ** 31, 2000)) + [
+        2 ** 31 - 1, 2 ** 30, 2 ** 30 + 1]
+    for d in map(int, ds):
+        mul, shr = ge.ops.magic(d)
+        assert 0 <= mul < 2 ** 32
+        ns = [0, 1, d - 1, d, d + 1, 2 ** 31 - 1] + list(
+            map(int, rng.integers(0, 2 ** 31, 20)))
+        for n in ns:
+            q = n if d == 1 else (n * mul >> 32) >> shr
+            assert q == n // d, (n, d)
 
 
 BAD_SPECS = ["bd,uldh", "bd->blh", "xd,uldh->blh", "bd,xldh->blh",
