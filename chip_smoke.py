@@ -13,10 +13,11 @@
    ``din_attention`` has no single-call counterpart in PyTorch).
    ``dot_interaction`` is also timed at the service's buckets 256 .. 2048
    (``by_batch``) and checked on both copy instances (TMA, 4-byte
-   ``cp.async``); the CSR entry of ``embedding_bag`` with sorted and
-   shuffled segment ids, its counting sort alone (``prep_ms``) and the
-   sort-based preparation it replaced (``old_prep_ms``), whose output it
-   must equal bit for bit.
+   ``cp.async``); the CSR entry of ``embedding_bag`` (fp32 and bf16) with
+   sorted and shuffled segment ids, its preparation alone (``prep_ms``:
+   one pass over sorted ids, the counting sort over shuffled ones) and,
+   in fp32, the sort-based preparation (``old_prep_ms``), whose output
+   it must equal bit for bit in both dtypes.
    ``mari_matmul`` (3xTF32 on the tensor cores) is also checked and timed
    beside ``addmm`` at every ``mari_dense`` shape of the served models, in
    each init mode, at B = 4096 and 2048 (``mari_matmul_shapes``); its
@@ -2059,6 +2060,7 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln
                        or "warning" in ln][:32]
     log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    t_phase1 = time.perf_counter()
 
     by_path: dict[str, dict[str, int]] = {}
     # mari_matmul's weights prepared inside a call (a raw w) and x operands
@@ -2719,9 +2721,9 @@ def main() -> int:
                      mbytes_for_bound=(Db * 4 * rows_read + 4 * Bb * Hb
                                        + 4 * Bb * Db) / 1e6)
     # the CSR entry with the segment ids sorted (as above) and shuffled,
-    # and its preparation (the counting sort) alone; beside them the
-    # sort-based preparation it replaced (csr_prep_plain, then the same
-    # bag kernel), whose output the entry must equal bit for bit
+    # and its preparation alone; beside them the sort-based preparation
+    # (csr_prep_plain, then the same bag kernel), whose output the entry
+    # must equal bit for bit
     perm = torch.randperm(flat.numel(), generator=gen, device=dev)
     flat_sh, segs_sh = flat[perm].contiguous(), segs[perm].contiguous()
 
@@ -2769,10 +2771,12 @@ def main() -> int:
                                                    mode="sum")),
         **csr_timing,
         shape=dict(bag_shape, segment_ids="int64, sorted (ms) or shuffled "
-                   "(ms_shuffled)", note="ms includes the counting sort "
-                   "(prep_ms alone); old_prep_ms: csr_prep_plain's stable "
-                   "sort + searchsorted + gathers, then the same bag kernel; "
-                   "bound adds the int64 segment ids read"),
+                   "(ms_shuffled)", note="ms includes the preparation "
+                   "(prep_ms alone: one pass when the segment ids are in "
+                   "order, else the counting sort); old_prep_ms: "
+                   "csr_prep_plain's stable sort + searchsorted + gathers, "
+                   "then the same bag kernel; bound adds the int64 segment "
+                   "ids read"),
         library="torch.nn.functional.embedding_bag (mode='sum', offsets)")
     del tab, bag_ids, flat, segs, offs, flat_sh, segs_sh
 
@@ -3211,22 +3215,42 @@ def main() -> int:
         same_bits(got, eb.embedding_bag(t_.float(), i_.reshape(-1), s_, S_,
                                         comb, w_).bfloat16(),
                   "embedding_bag/csr")
-    for variant_, fn, plain, extra in (
+    # the CSR entry with the segment ids sorted and shuffled (its own
+    # generator: the draws after this point stay as they were) bit for bit
+    # the sort-based preparation feeding the same bag kernel, and timed
+    # with its preparation alone, as the fp32 entry above
+    perm = torch.randperm(flat.numel(), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    flat_sh, segs_sh = flat[perm].contiguous(), segs[perm].contiguous()
+    for f_, s_ in ((flat, segs), (flat_sh, segs_sh)):
+        order, o_ = eb.csr_prep_plain(s_, Bb)
+        if not torch.equal(eb.embedding_bag(tab, f_, s_, Bb),
+                           eb.ops._launch("csr", tab, f_[order], o_, None,
+                                          Bb, 0, "sum")):
+            raise AssertionError("embedding_bag/csr/bf16 differs from the "
+                                 "sort-based preparation")
+    csr_bf16_timing = dict(
+        ms_shuffled=time_ms(lambda: eb.embedding_bag(tab, flat_sh, segs_sh,
+                                                     Bb)),
+        prep_ms=time_ms(lambda: eb.csr_prep(segs, flat, None, Bb)),
+        prep_ms_shuffled=time_ms(lambda: eb.csr_prep(segs_sh, flat_sh, None,
+                                                     Bb)))
+    for variant_, fn, plain, extra, timing in (
             ("fixed", lambda: eb.embedding_bag_fixed(tab, bag_ids),
-             lambda: eb.embedding_bag_fixed_plain(tab, bag_ids), 0),
+             lambda: eb.embedding_bag_fixed_plain(tab, bag_ids), 0, {}),
             ("csr", lambda: eb.embedding_bag(tab, flat, segs, Bb),
              lambda: eb.embedding_bag_plain(tab, flat, segs, Bb),
-             8 * Bb * Hb)):
+             8 * Bb * Hb, csr_bf16_timing)):
         bf16_entry(f"embedding_bag/{variant_}/bf16",
                    f"embedding_bag/{variant_}", fn, plain,
                    lambda: F.embedding_bag(flat, tab, offs, mode="sum"),
                    Db * 2 * rows_read + 4 * Bb * Hb + 2 * Bb * Db + extra,
-                   Bb * Hb * Db, errs[variant_],
+                   Bb * Hb * Db, errs[variant_], **timing,
                    shape=dict(bag_shape, dtype="bfloat16",
                               distinct_rows_read=rows_read),
                    library="torch.nn.functional.embedding_bag (mode='sum', "
                            "offsets), bf16")
-    del tab, bag_ids, flat, segs, offs
+    del tab, bag_ids, flat, segs, offs, flat_sh, segs_sh
     # "blh,uh->bl" is a spec the kernel supports but the executor's
     # decomposed attention never reaches, no served model keeps the gram's
     # diagonal, no path calls the CSR entry of embedding_bag (the
@@ -3241,7 +3265,8 @@ def main() -> int:
                 "embedding_bag/csr", "embedding_bag/fixed/bf16",
                 "embedding_bag/csr/bf16") + tuple(
                     f"gather_einsum/{s}/bf16" for s in ge.KERNEL_SPECS)
-    log("kernels_vs_plain", tol=TOL, bf16_tol=BF16_TOL,
+    log("kernels_vs_plain", seconds=time.perf_counter() - t_phase1,
+        tol=TOL, bf16_tol=BF16_TOL,
         max_abs_err={k: v["max_abs_err"] for k, v in entries.items()},
         ms={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                   "library_ms")}

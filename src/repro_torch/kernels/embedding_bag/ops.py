@@ -9,11 +9,13 @@ reduction, one warp per bag):
   ids with the bag (segment) each belongs to, sorted or not; returns
   ``(num_segments, D)``. On the card the CSR offsets and the ids (and
   weights) in bag order come from a stable counting sort by segment in
-  three hand-written launches (``embedding_bag_csr_prep``: tile
-  histograms, a scan over (segment, tile), a stable scatter; no host
-  sync), tiled by ``csr_plan``; ``csr_prep_plain`` is the sort-based
-  preparation it replaced, kept as its plain version. An empty bag is 0
-  and ``mean`` is ``sum / max(count, 1)``.
+  one hand-written cooperative launch (``embedding_bag_csr_prep``, tiled
+  by ``csr_plan``; no host sync): where the segment ids never decrease it
+  writes the bag boundaries and a flag on the device, and the bag kernel
+  reads the caller's ids in place; otherwise tile histograms, a scan over
+  (segment, tile) and a stable scatter follow in the same launch.
+  ``csr_prep_plain`` is the sort-based preparation, kept as its plain
+  version. An empty bag is 0 and ``mean`` is ``sum / max(count, 1)``.
 * ``embedding_bag_fixed(table, ids, combiner, weights=None)`` — a fixed
   hotness: ids ``(B, H)``, bag ``b`` is row ``b`` (implicit offsets
   ``b * H``), so nothing is sorted. This is the executor's pooled
@@ -32,6 +34,7 @@ counts kernel launches per entry, bf16 under ``<entry>/bf16``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,7 +47,7 @@ VARIANTS = ("csr", "fixed")
 COMBINERS = ("sum", "mean")
 # kernel launches per entry (one per launch, counted nowhere else)
 LAUNCHES = dict.fromkeys(VARIANTS + tuple(f"{v}/bf16" for v in VARIANTS), 0)
-CSR_TILE = 4096                 # segment ids per tile of the counting sort
+CSR_TILE = 4096                 # most segment ids a tile, where counts allow
 CSR_MAX_SCRATCH = 1 << 22       # bound on tiles * (S + 1) int32 counts
 
 
@@ -103,15 +106,22 @@ def embedding_bag_fixed_plain(table: Tensor, ids: Tensor,
     return out.to(table.dtype)
 
 
-def csr_plan(nnz: int, num_segments: int) -> tuple[int, int]:
-    """(tile, n_tiles) of the counting sort: tiles of ``CSR_TILE`` ids (a
-    multiple of 32), larger where (n_tiles * (S + 1)) counts would pass
-    ``CSR_MAX_SCRATCH``; at least one tile, so an empty input still
-    writes its offsets."""
+def csr_plan(nnz: int, num_segments: int, blocks: int) -> tuple[int, int]:
+    """(tile, n_tiles) of the counting sort launched as ``blocks`` blocks
+    (one an SM): a tile each where nnz allows (a multiple of 32, at most
+    ``CSR_TILE``, so small inputs still fill the card), larger where
+    (n_tiles * (S + 1)) counts would pass ``CSR_MAX_SCRATCH``; at least
+    one tile, so an empty input still writes its offsets."""
     keys = num_segments + 1
-    tile = max(CSR_TILE, -(-nnz // max(1, CSR_MAX_SCRATCH // keys)))
-    tile = -(-tile // 32) * 32
+    tile = min(CSR_TILE, -(-nnz // blocks))
+    tile = max(tile, -(-nnz // max(1, CSR_MAX_SCRATCH // keys)))
+    tile = max(32, -(-tile // 32) * 32)
     return tile, max(1, -(-nnz // tile))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def csr_prep_plain(segment_ids: Tensor, num_segments: int
@@ -131,14 +141,14 @@ def csr_prep_plain(segment_ids: Tensor, num_segments: int
 
 
 _BAG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
         + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _SIGNATURES = {
     "embedding_bag_f32": (_BAG, ctypes.c_int),
     "embedding_bag_bf16": (_BAG, ctypes.c_int),
     "embedding_bag_csr_prep": (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 3
+         ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 4
         + [ctypes.c_void_p] * 5, ctypes.c_int),
 }
 
@@ -148,10 +158,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def csr_prep(segment_ids: Tensor, ids: Tensor, weights: Tensor | None,
-             S: int) -> tuple[Tensor, Tensor, Tensor | None]:
-    """The CUDA preparation alone: the counting sort's three launches give
-    (offsets, ids in bag order, weights in bag order); every size comes
-    from the host, so nothing synchronises."""
+             S: int) -> tuple[Tensor, Tensor, Tensor | None, Tensor]:
+    """The CUDA preparation alone, one launch: ``(offsets, ids_bag,
+    w_bag, in_order)``. ``in_order`` (one int32 on the card) is 1 where
+    the segment ids never decrease: then ``ids`` and ``weights`` are
+    already in bag order and ``ids_bag`` / ``w_bag`` are left unwritten;
+    where it is 0 they hold the ids (and weights) in bag order. Every size
+    comes from the host, so nothing synchronises."""
     dev = ids.device
     if segment_ids.device != dev:
         raise ValueError(f"embedding_bag: segment_ids on "
@@ -162,12 +175,14 @@ def csr_prep(segment_ids: Tensor, ids: Tensor, weights: Tensor | None,
     if nnz >= 2 ** 31:
         raise ValueError(f"embedding_bag: {nnz} ids, the CSR entry takes "
                          f"fewer than 2**31")
-    tile, n_tiles = csr_plan(nnz, S)
+    blocks = _sm_count(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    tile, n_tiles = csr_plan(nnz, S, blocks)
     seg = segment_ids.contiguous()
     ids = ids.contiguous()
     weights = weights.contiguous() if weights is not None else None
-    scratch = torch.empty(n_tiles * (S + 1) + -(-(S + 1) // 32) + n_tiles
-                          + 2, dtype=torch.int32, device=dev)
+    scratch = torch.empty(1 + n_tiles + blocks + n_tiles * (S + 1),
+                          dtype=torch.int32, device=dev)
     offsets = torch.empty(S + 1, dtype=torch.int64, device=dev)
     ids_out = torch.empty_like(ids)
     w_out = torch.empty_like(weights) if weights is not None else None
@@ -177,12 +192,12 @@ def csr_prep(segment_ids: Tensor, ids: Tensor, weights: Tensor | None,
             seg.data_ptr(), int(seg.dtype == torch.int64), ids.data_ptr(),
             int(ids.dtype == torch.int64),
             weights.data_ptr() if weights is not None else None, nnz, S,
-            tile, n_tiles, scratch.data_ptr(), offsets.data_ptr(),
+            tile, n_tiles, blocks, scratch.data_ptr(), offsets.data_ptr(),
             ids_out.data_ptr(),
             w_out.data_ptr() if w_out is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "embedding_bag CSR preparation")
-    return offsets, ids_out, w_out
+    return offsets, ids_out, w_out, scratch[:1]
 
 
 def _check_launch(table: Tensor, ids: Tensor, weights: Tensor | None,
@@ -204,8 +219,12 @@ def _check_launch(table: Tensor, ids: Tensor, weights: Tensor | None,
 
 def _launch(variant: str, table: Tensor, ids: Tensor,
             offsets: Tensor | None, weights: Tensor | None, S: int,
-            H: int, combiner: str) -> Tensor:
+            H: int, combiner: str, bag: tuple | None = None) -> Tensor:
+    """One bag-kernel launch. ``bag``: ``csr_prep``'s ``(ids_bag, w_bag,
+    in_order)``, read in place of ``ids`` / ``weights`` where its flag
+    is 0."""
     _check_launch(table, ids, weights, offsets)
+    ids_bag, w_bag, in_order = bag if bag is not None else (None,) * 3
     V, D = table.shape
     out = torch.empty((S, D), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
@@ -223,6 +242,8 @@ def _launch(variant: str, table: Tensor, ids: Tensor,
             table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
             offsets.data_ptr() if offsets is not None else None,
             weights.data_ptr() if weights is not None else None,
+            *(t.data_ptr() if t is not None else None
+              for t in (ids_bag, w_bag, in_order)),
             out.data_ptr(), S, D, V, H, int(combiner == "mean"),
             torch.cuda.current_stream(table.device).cuda_stream)
     build.check(lib, rc, "embedding_bag")
@@ -261,8 +282,9 @@ def embedding_bag(table: Tensor, ids: Tensor, segment_ids: Tensor,
     _check_launch(table, ids, weights)
     # ids of dropped segments land past the last bag: they sit beyond
     # offsets[S] and the kernel never reads them
-    offsets, ids_bag, w_bag = csr_prep(segment_ids, ids, weights, S)
-    return _launch("csr", table, ids_bag, offsets, w_bag, S, 0, combiner)
+    offsets, *bag = csr_prep(segment_ids, ids, weights, S)
+    return _launch("csr", table, ids, offsets, weights, S, 0, combiner,
+                   bag=tuple(bag))
 
 
 @shard_local("embedding_bag_fixed", rows=("ids", "weights"))

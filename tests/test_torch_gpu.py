@@ -1627,6 +1627,120 @@ def test_embedding_bag_csr_bitwise_old_preparation(cuda, S, nnz, order,
                                                  combiner, weights))
 
 
+@pytest.fixture(scope="module")
+def bag_parent():
+    """``embedding_bag`` as commit 7dd2236 built it (its source under
+    tests/data: the three-launch counting sort and the bag kernel before
+    the flag), built with the checkout's flags and called through the
+    compare tool's ``Library``, as its wrapper called it."""
+    from repro_torch.kernels import turns
+    from repro_torch.kernels.embedding_bag import compare
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src = pathlib.Path(__file__).parent / "data" / "embedding_bag_7dd2236.cu"
+    return compare.Library(turns.load_source("embedding_bag", src),
+                           src.read_text())
+
+
+def _bag_segments(g, dev, S, nnz, order):
+    if order == "sorted":
+        return torch.randint(0, S, (nnz,), generator=g, device=dev).sort()[0]
+    if order == "shuffled":
+        return torch.randint(0, S, (nnz,), generator=g, device=dev)
+    # out of range, every other bag
+    return 2 * torch.randint(-1, (S + 3) // 2, (nnz,), generator=g,
+                             device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("id_dtype,seg_dtype", [
+    (torch.int32, torch.int64), (torch.int64, torch.int32),
+    (torch.int64, torch.int64)])
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "dropped_empty"])
+@pytest.mark.parametrize("S,nnz", [(4096, 409_600), (300, 2000),
+                                   (100_000, 300_000), (1, 50),
+                                   (4096, 1_000_000), (20_000, 100_000)])
+def test_embedding_bag_csr_is_the_parents_bit_for_bit(
+        cuda, bag_parent, S, nnz, order, id_dtype, seg_dtype, combiner,
+        dtype):
+    """The one-launch preparation (sorted ids read in place, shuffled ones
+    ranked by the new plan; tiles looped where nnz passes the card's
+    blocks, W = 0 at S = 100,000) gives every bag of both dtypes commit
+    7dd2236's bits, with and without weights."""
+    g = _gen(cuda, S + nnz + 1)
+    table = _randn(g, 3000, 64).to(dtype)
+    ids = torch.randint(-2, 3002, (nnz,), generator=g,
+                        device=cuda).to(id_dtype)
+    segs = _bag_segments(g, cuda, S, nnz, order).to(seg_dtype)
+    w = torch.rand(nnz, generator=g, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for weights in (None, w):
+        got = eb.embedding_bag(table, ids, segs, S, combiner, weights)
+        b = bag_parent.prepared(segs, ids, S, 1, weights)
+        bag_parent.prep(b, S, stream)
+        want = torch.empty_like(got)
+        bag_parent.bag(table, want, stream, ids, S, b=b,
+                       mean=int(combiner == "mean"))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("V,B,H,D", [(2_564_352, 4096, 100, 128),
+                                     (1000, 300, 7, 128), (97, 33, 3, 18),
+                                     (500, 5, 1, 64), (40, 17, 12, 1)])
+def test_embedding_bag_fixed_is_the_parents_bit_for_bit(
+        cuda, bag_parent, V, B, H, D, combiner, dtype):
+    """The fixed-hotness entries (the multi-hot DLRM path's) keep commit
+    7dd2236's bits: int32 and int64 ids, with and without weights."""
+    g = _gen(cuda, V + B + H)
+    table = _randn(g, V, D).to(dtype)
+    ids = torch.randint(0, V, (B, H), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(B, H, generator=g, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for ids_, weights in ((ids, None), (ids.long(), w)):
+        got = eb.embedding_bag_fixed(table, ids_, combiner, weights)
+        want = torch.empty_like(got)
+        bag_parent.bag(table, want, stream, ids_, B, H, weights=weights,
+                       mean=int(combiner == "mean"))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S,nnz", [(4096, 409_600), (1, 50), (300, 0),
+                                   (100_000, 300_000), (4096, 1_000_000)])
+def test_embedding_bag_csr_prep_flag_and_offsets(cuda, S, nnz):
+    """Segment ids that never decrease (ids past S at the end count as in
+    order) set the flag and get csr_prep_plain's offsets in one pass; any
+    decrease (a dropped id first, a swap) clears it and the copies are
+    the stable sort's, dropped ids last."""
+    g = _gen(cuda, S + nnz + 2)
+    ids = torch.randint(0, 50, (nnz,), generator=g, device=cuda)
+    w = torch.rand(nnz, generator=g, device=cuda)
+    segs = torch.randint(0, S, (nnz,), generator=g, device=cuda).sort()[0]
+    tail = segs.clone()
+    tail[nnz - nnz // 10:] = S + 5
+    cases = [(segs, 1), (tail, 1)]
+    if nnz > 1:
+        head = segs.clone()
+        head[0] = -1
+        cases.append((head, 0))
+    if nnz > 1 and S > 1:
+        swap = segs.clone()
+        swap[[nnz // 2, nnz // 2 + 1]] = torch.tensor([S - 1, 0],
+                                                      device=cuda)
+        cases.append((swap, 0))
+    for seg, flag in cases:
+        offsets, ids_bag, w_bag, in_order = eb.csr_prep(seg, ids, w, S)
+        order, want = eb.csr_prep_plain(seg, S)
+        assert int(in_order) == flag
+        assert torch.equal(offsets, want)
+        if not flag:
+            assert torch.equal(ids_bag, ids[order])
+            assert torch.equal(w_bag, w[order])
+
+
 def test_kernel_wrappers_do_not_synchronise(cuda):
     """Neither the CSR entry (its counting sort included) nor the
     dot_interaction wrapper makes a host synchronisation."""
