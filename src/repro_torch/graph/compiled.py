@@ -24,6 +24,19 @@ of the replay, so the CPU tests cover the copy-in / copy-out logic.
 replay raises (``GraphCaptureError`` for a capture): nothing runs the
 eager body on the card in a graph's place.
 
+Tracing (``set_tracer``; the engine names its runs ``stage1`` and
+``stage2``): each call records the three steps as spans ``<name>.copy_in``,
+``<name>.replay`` and ``<name>.copy_out`` with ``graph=`` the entry's
+ordinal (one ``Tracer.steps`` entry), and ``<name>.lock`` when it had to
+wait for the pool's lock. An entry built on the card while a tracer is
+attached, and no profiler is running, also gets a *kernel map*: one
+profiled run of its steps in set-up (the body eagerly inside the caller's
+``node_ranges``, then one replay) names each device op a step launches
+and, per kernel of the graph, the executor node and host op that launched
+it in the eager run (``obs.kernel_map``). The map is pinned in the tracer
+as a ``<name>.graph`` event; what is captured is the same with tracing on
+or off. With no tracer a call reads no clock.
+
 Traps, and what this module does about each:
 
 * **Static outputs are overwritten by the next replay.** The engine keeps
@@ -100,6 +113,7 @@ import contextlib
 import dataclasses
 import gc
 import threading
+import time
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -107,6 +121,7 @@ import torch
 
 from repro_torch.common import resolve_device, tree_leaves
 from repro_torch.kernels import build
+from repro_torch.obs import kernel_map as kmaps
 
 Tensor = torch.Tensor
 Feed = Any          # Tensor | np.ndarray | sequence of Tensors (stacked)
@@ -158,6 +173,8 @@ class _Entry:
     launches: list = dataclasses.field(default_factory=list)
     # a training entry's warm-up outputs: the first call's step
     first: dict[str, Tensor] | None = None
+    gid: int = 0                  # the entry's ordinal (trace ``graph=``)
+    kmap: dict | None = None      # kernel map (``obs.kernel_map``), traced
 
 
 def _feed_spec(v: Feed) -> tuple[tuple[int, ...], torch.dtype]:
@@ -193,9 +210,18 @@ class CompiledRun:
 
     def __init__(self, fn: Callable[[Any, dict], Mapping[str, Tensor]], *,
                  device: str | torch.device = "cuda",
-                 pool: GraphPool | None = None, grad: bool = False):
+                 pool: GraphPool | None = None, grad: bool = False,
+                 name: str = "run",
+                 node_ranges: Callable[[], Any] = contextlib.nullcontext):
         self.fn = fn
         self.grad = grad
+        self.tracer = None
+        self.name = name
+        # the context a kernel map's eager run is made in: one profiler
+        # range per node of ``fn`` (``graph.executor.node_ranges``)
+        self.node_ranges = node_ranges
+        self._steps = tuple(f"{name}.{k}"
+                            for k in ("copy_in", "replay", "copy_out"))
         self.device = resolve_device(device)
         self.pool = pool if pool is not None else GraphPool(self.device)
         if self.pool.device.type != self.device.type:
@@ -210,6 +236,24 @@ class CompiledRun:
         """Entries built (graphs captured on CUDA; static-buffer sets on
         the CPU): jit's cache size."""
         return len(self._entries)
+
+    def set_tracer(self, tracer) -> None:
+        """Attach a ``Tracer`` (None detaches it). Each call then records
+        ``<name>.copy_in``, ``<name>.replay`` and ``<name>.copy_out`` spans
+        (``graph=`` the entry's ordinal), and ``<name>.lock`` when another
+        thread held the pool's lock. An entry built on the card while one
+        is attached also gets a kernel map (``obs.kernel_map``), pinned in
+        it as a ``<name>.graph`` event; the maps built so far are pinned in
+        a newly attached tracer."""
+        self.tracer = tracer
+        if tracer is not None:
+            for entry in self._entries.values():
+                self._pin(tracer, entry)
+
+    def _pin(self, tracer, entry: _Entry) -> None:
+        if entry.kmap is not None:
+            tracer.pin(f"{self.name}.graph", entry.gid, graph=entry.gid,
+                       **entry.kmap)
 
     def _params_key(self, params) -> tuple:
         hit = self._param_keys.get(id(params))
@@ -250,21 +294,67 @@ class CompiledRun:
                 if entry is None:
                     entry = self._build(params, feeds, refs)
                     self._entries[key] = entry
-        pool = self.pool
-        with pool.lock:
+        trc, lock = self.tracer, self.pool.lock
+        if trc is None:
+            lock.acquire()
+        else:
+            t0 = time.perf_counter()
+            if not lock.acquire(blocking=False):
+                lock.acquire()
+                t1 = time.perf_counter()
+                trc.complete(f"{self.name}.lock", t0, t1 - t0)
+                t0 = t1
+        try:
             if entry.first is not None:      # the warm-up was this step
                 out, entry.first = entry.first, None
                 return out
             for k, v in feeds.items():
                 _copy_in(entry.static[k], v)
+            if trc is not None:
+                t1 = time.perf_counter()
             if entry.graph is not None:
                 entry.graph.replay()
                 out = entry.out
             else:
                 out = self.fn(params, {**entry.static, **entry.refs})
+            if trc is not None:
+                t2 = time.perf_counter()
             out = {k: v.clone() for k, v in out.items()}
+            if trc is not None:
+                trc.steps(self._steps, (t0, t1, t2, time.perf_counter()),
+                          graph=entry.gid)
+        finally:
+            lock.release()
         build.add_launches(entry.launches)
         return out
+
+    def _kernel_map(self, entry: _Entry, params, feeds: Mapping[str, Feed],
+                    args: dict) -> dict:
+        """Profile one run of a built entry's steps (the feeds copied in,
+        the body run eagerly inside ``node_ranges`` on the capture stream,
+        one replay, the outputs copied out) and read its kernel map. Under
+        the pool's lock and the capture lock, in set-up; its launches are
+        not counted."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+        cur = torch.cuda.current_stream(self.device)
+        side = self.pool.capture_stream
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(kmaps.STEP_RANGE + "copy_in"):
+                for k, v in feeds.items():
+                    _copy_in(entry.static[k], v)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side), \
+                    record_function(kmaps.STEP_RANGE + "eager"), \
+                    self.node_ranges(), build.recording_launches():
+                self.fn(params, args)
+            cur.wait_stream(side)
+            with record_function(kmaps.STEP_RANGE + "replay"):
+                entry.graph.replay()
+            with record_function(kmaps.STEP_RANGE + "copy_out"):
+                _ = [v.clone() for v in entry.out.values()]
+            cur.synchronize()
+        return kmaps.kernel_map(*kmaps.profile_events(prof))
 
     def _build(self, params, feeds: Mapping[str, Feed],
                refs: dict[str, Tensor]) -> _Entry:
@@ -272,7 +362,8 @@ class CompiledRun:
         for k, v in feeds.items():
             shape, dtype = _feed_spec(v)
             static[k] = torch.empty(shape, dtype=dtype, device=self.device)
-        entry = _Entry(static=static, refs=refs, params=params)
+        entry = _Entry(static=static, refs=refs, params=params,
+                       gid=len(self._entries))
         if self.device.type != "cuda":
             return entry
         pool = self.pool
@@ -323,7 +414,13 @@ class CompiledRun:
             pool.reserved_bytes += (torch.cuda.memory_reserved(self.device)
                                     - reserved0)
             pool.captures += 1
-        entry.graph, entry.out, entry.launches = graph, out, list(rec)
+            entry.graph, entry.out, entry.launches = graph, out, list(rec)
+            # traced only, and never inside an operator's own profiler
+            trc = self.tracer
+            if (trc is not None and not self.grad
+                    and not kmaps.profiler_running()):
+                entry.kmap = self._kernel_map(entry, params, feeds, args)
+                self._pin(trc, entry)
         return entry
 
 

@@ -26,6 +26,8 @@ for CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Mapping
 
 import torch
@@ -44,6 +46,7 @@ from repro_torch.kernels.mari_matmul import (empty_stream,
                                              stream_ld)
 from repro_torch.nn.attention import NEG_INF, cross_attention, target_attention
 from repro_torch.nn.layers import ACTIVATIONS, dense_apply
+from repro_torch.obs.kernel_map import NODE_RANGE_PREFIX
 
 Tensor = torch.Tensor
 
@@ -53,6 +56,26 @@ Tensor = torch.Tensor
 # moves into the consuming kernel. Out-of-range indices (padded batch rows)
 # clamp everywhere.
 USER_INDEX_FEED = "__user_index__"
+
+# per thread, ``record_function`` while ``node_ranges`` is open: each node
+# this thread evaluates then runs inside a profiler range ``node <op> <name>``
+_NODE_RANGE = threading.local()
+
+
+@contextlib.contextmanager
+def node_ranges():
+    """Open a ``torch.profiler`` range ``node <op> <name>`` around every
+    node an executor evaluates on this thread inside the block, so a
+    profiled run names the node behind each kernel (``obs.kernel_map``).
+    Ranges launch nothing: what runs is unchanged."""
+    from torch.profiler import record_function
+    prev = getattr(_NODE_RANGE, "fn", None)
+    _NODE_RANGE.fn = record_function
+    try:
+        yield
+    finally:
+        _NODE_RANGE.fn = prev
+
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "int32": torch.int32,
@@ -327,8 +350,13 @@ class Executor:
         batch = max((v.shape[0] for k, v in feeds.items()
                      if k not in self._user_inputs and k != USER_INDEX_FEED),
                     default=1)
+        rng = getattr(_NODE_RANGE, "fn", None)
         for n in self.graph.topo_order():
-            vals[n.name] = self._eval(n, params, vals, feeds, batch)
+            if rng is None:
+                vals[n.name] = self._eval(n, params, vals, feeds, batch)
+            else:
+                with rng(f"{NODE_RANGE_PREFIX}{n.op} {n.name}"):
+                    vals[n.name] = self._eval(n, params, vals, feeds, batch)
         return {o: vals[o] for o in self.graph.outputs}
 
     def _gather_einsum(self, spec, x, table, uidx) -> Tensor:

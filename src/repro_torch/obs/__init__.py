@@ -10,4 +10,9 @@ from repro_torch.obs.export import (  # noqa: F401
     write_trace,
 )
 from repro_torch.obs.metrics import Histogram, MetricsRegistry  # noqa: F401
-from repro_torch.obs.trace import DEFAULT_CAPACITY, Tracer  # noqa: F401
+from repro_torch.obs.trace import (  # noqa: F401
+    BATCHER_SPANS,
+    DEFAULT_CAPACITY,
+    PORT_SPANS,
+    Tracer,
+)

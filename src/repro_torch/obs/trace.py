@@ -36,10 +36,20 @@ Event tuples are ``(ph, name, ts, dur, tid, track, args)``:
   ``"E"`` begin/end pair (used for the synthetic per-group tracks,
   whose end is only known at ``collect``), ``"i"`` instant;
 * ``ts`` / ``dur`` — perf_counter seconds (export converts to µs);
-* ``tid`` — ``threading.get_ident()`` of the recording thread;
+* ``tid`` — ``threading.get_native_id()`` of the recording thread: the
+  operating system's id, which ``torch.profiler`` records beside each CUDA
+  runtime call, so a span can be joined with the calls its thread made;
 * ``track`` — None for "the recording thread's track", or a synthetic
   track name (e.g. ``"group:0"``) the exporter maps to its own timeline
   row so overlapping groups are visibly concurrent in Perfetto.
+
+Two kinds of record keep the hot path's cost down and what describes the
+process out of the ring; ``events()`` lists both as ``"X"`` spans:
+
+* ``steps`` — consecutive spans of one call (a compiled stage's copy-in,
+  replay and copy-out) held as one ring entry;
+* ``pin`` — a standing event (a captured graph's kernel map), kept apart
+  from the ring: never overwritten, never cleared, listed first.
 """
 from __future__ import annotations
 
@@ -50,6 +60,21 @@ from contextlib import contextmanager
 from typing import Any, Iterator
 
 DEFAULT_CAPACITY = 65536
+
+# The port's spans beside the reference's events, under dotted names that
+# never equal one of those: each nests, on its thread, inside the span it
+# splits — ``stage1.*`` inside ``stage1``, ``pack.*`` inside ``pack``,
+# ``stage2.*`` inside ``dispatch``, ``collect.*`` inside ``collect``.
+# Recorded on every traced engine call; besides these, on the card only,
+# ``collect.wait`` (a pack's CUDA event) and each captured graph's kernel
+# map (``stage1.graph`` / ``stage2.graph``), and ``stage1.lock`` /
+# ``stage2.lock`` while another thread holds the graph pool's lock.
+PORT_SPANS = ("stage1.copy_in", "stage1.replay", "stage1.copy_out",
+              "stage1.sync", "pack.alloc", "pack.fill", "stage2.copy_in",
+              "stage2.replay", "stage2.copy_out", "collect.unpack")
+# the batcher thread's own work around the engine's spans
+BATCHER_SPANS = ("batcher.wait", "batcher.linger", "batcher.claim",
+                 "batcher.resolve")
 
 
 class Tracer:
@@ -71,12 +96,15 @@ class Tracer:
         self._lock = threading.Lock()
         self._events: deque = deque(maxlen=capacity)
         self._thread_names: dict[int, str] = {}
+        self._pinned: dict[tuple, tuple] = {}
         self.recorded = 0        # total events ever pushed
 
     # -- recording -----------------------------------------------------------
     def _push(self, ph: str, name: str, ts: float, dur: float,
               track: str | None, args: dict | None) -> None:
-        tid = threading.get_ident()
+        # the OS id the Thread object holds: get_native_id() is a system
+        # call on every event
+        tid = threading.current_thread().native_id
         with self._lock:
             if tid not in self._thread_names:
                 self._thread_names[tid] = threading.current_thread().name
@@ -94,6 +122,23 @@ class Tracer:
         in perf_counter seconds) — for phases whose timing the caller
         already measured."""
         self._push("X", name, t0, dur_s, track, args or None)
+
+    def steps(self, names: tuple, bounds: tuple, **args: Any) -> None:
+        """Record consecutive spans as one ring entry: ``names[i]`` from
+        ``bounds[i]`` to ``bounds[i + 1]`` (a None name leaves that
+        interval out), each with ``args``. ``events()`` lists them as
+        separate complete spans."""
+        self._push("S", names, bounds[0], bounds, None, args or None)
+
+    def pin(self, name: str, key: Any, **args: Any) -> None:
+        """Record a standing event, kept apart from the ring: it is never
+        overwritten or cleared, and ``events()`` lists it first, as a
+        zero-length span at the time it was pinned. A second pin of the
+        same ``(name, key)`` replaces the first."""
+        ev = ("X", name, time.perf_counter(), 0.0,
+              threading.current_thread().native_id, None, args or None)
+        with self._lock:
+            self._pinned[(name, key)] = ev
 
     @contextmanager
     def span(self, name: str, *, track: str | None = None,
@@ -125,9 +170,19 @@ class Tracer:
 
     # -- inspection ----------------------------------------------------------
     def events(self) -> list[tuple]:
-        """Snapshot the buffer (oldest first)."""
+        """Snapshot the pinned events, then the buffer (oldest first), with
+        each ``steps`` entry listed as its spans."""
         with self._lock:
-            return list(self._events)
+            out = list(self._pinned.values())
+            raw = list(self._events)
+        for ev in raw:
+            if ev[0] != "S":
+                out.append(ev)
+                continue
+            _, names, _, b, tid, track, args = ev
+            out.extend(("X", n, b[i], b[i + 1] - b[i], tid, track, args)
+                       for i, n in enumerate(names) if n is not None)
+        return out
 
     def thread_names(self) -> dict[int, str]:
         with self._lock:

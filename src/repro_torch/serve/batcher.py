@@ -2,7 +2,13 @@
 (port of ``repro.serve.batcher``, with its request-tracing instants:
 ``submit``, ``admission_shed``, ``admission_degrade``, ``queue_claim``,
 ``group_launch``, ``resolve``, ``retry``, ``retry_exhausted``,
-``worker_crash``, ``worker_respawn``).
+``worker_crash``, ``worker_respawn``; and spans of its worker's own work
+around the engine's: ``batcher.wait`` (a blocking get with nothing in
+flight), ``batcher.linger`` (a group's forming, with ``reqs``, ``rows``,
+``depth`` — the requests queued when it opened — and the tracer's
+``dropped``), ``batcher.claim`` and ``batcher.resolve`` (the waiters'
+done callbacks included)). The ``queued`` gauge counts the admitted requests not yet
+claimed.
 
 At "millions of users" scale the compiled stage-2 buckets sit mostly idle
 if each request is served alone: every ragged pool pays its own padding and
@@ -228,6 +234,8 @@ class CoalescingBatcher:
                      "retries_exhausted", "worker_crashes",
                      "worker_respawns"):
             self.metrics.gauge(name, lambda n=name: getattr(self, n))
+        # admitted requests not yet claimed by the worker
+        self.metrics.gauge("queued", lambda: self._queued)
         if auto_start:
             self.start()
 
@@ -518,6 +526,10 @@ class CoalescingBatcher:
             except queue.Empty:
                 if prof is not None:
                     prof.add("queue_idle", time.perf_counter() - t_idle)
+                trc = self.tracer
+                if trc is not None:
+                    trc.complete("batcher.wait", t_idle,
+                                 time.perf_counter() - t_idle)
                 if self._stop.is_set():
                     return
                 continue
@@ -527,6 +539,11 @@ class CoalescingBatcher:
                 idle = time.perf_counter() - t_idle
                 if idle > 1e-4:
                     prof.add("queue_idle", idle)
+            if t_idle is not None:
+                trc = self.tracer
+                if trc is not None:
+                    trc.complete("batcher.wait", t_idle,
+                                 time.perf_counter() - t_idle)
             if item.req is None:      # wake marker (close() or stale)
                 continue
             group = self._form_group(item, inflight)
@@ -541,8 +558,13 @@ class CoalescingBatcher:
             self._harvest(inflight)
 
     def _form_group(self, item: _Item, inflight: deque) -> list[_Item]:
+        trc = self.tracer
         with self._lock:
+            if trc is not None:
+                depth = self._queued          # this item included
             self._queued -= 1
+        if trc is not None:
+            t0 = time.perf_counter()
         # crash-visible formation state: if the loop dies past this line,
         # the supervisor owns every item in the list and resolves it
         group = self._forming = [item]
@@ -577,6 +599,10 @@ class CoalescingBatcher:
             # remaining linger to its own (shrunken) window
             deadline = min(deadline,
                            self._linger_until(nxt, time.perf_counter()))
+        if trc is not None:
+            trc.complete("batcher.linger", t0, time.perf_counter() - t0,
+                         reqs=len(group), rows=rows, depth=depth,
+                         dropped=trc.dropped)
         return group
 
     def _launch_group(self, group: list[_Item], inflight: deque,
@@ -597,6 +623,9 @@ class CoalescingBatcher:
                             wait_ms=round(wait_ms, 3))
         claimed = [it for it in group
                    if it.fut.set_running_or_notify_cancel()]
+        if trc is not None:
+            trc.complete("batcher.claim", now, time.perf_counter() - now,
+                         reqs=len(claimed))
         if not claimed:
             return
         reqs = [it.req for it in claimed]
@@ -733,3 +762,7 @@ class CoalescingBatcher:
             if trc is not None and trc.sampled(it.seq):
                 trc.instant("resolve", req=it.seq)
             it.fut.set_result(res)
+        if trc is not None:
+            # the waiters' done callbacks ran on this thread, inside it
+            trc.complete("batcher.resolve", now, time.perf_counter() - now,
+                         reqs=len(claimed))

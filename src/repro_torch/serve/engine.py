@@ -54,7 +54,14 @@ at the same places — a ``group`` begin/end per call on its own track,
 spans (and a sharded engine's ``gather``), ``cache_hit`` /
 ``cache_miss``, ``fork_armed``, ``corruption_detected``, ``breaker_*``
 and ``breaker_fallback`` instants; the caches, the fault injector and the
-batcher add theirs.
+batcher add theirs. Beneath those spans the port records its own
+(``obs.PORT_SPANS``): stage 1's ``stage1.copy_in`` / ``.replay`` /
+``.copy_out`` (its compiled run) and ``stage1.sync``; ``pack.alloc`` (the
+pinned buffers) and ``pack.fill``; stage 2's ``stage2.copy_in`` /
+``.replay`` / ``.copy_out`` inside ``dispatch``; ``collect.wait`` (the
+pack's event, on the card) and ``collect.unpack`` — the ``device`` and
+``unpack`` phases' intervals — and each captured graph's kernel map
+(``graph.compiled``).
 
 Device-resident tier (``plan.cache.device_resident``): cached stage-1 reps
 also live in a ``DeviceRepStore`` — ONE persistent ``(capacity, ...)``
@@ -153,7 +160,8 @@ from repro_torch.dist.topology import candidate_shards
 from repro_torch.ft.faults import CORRUPT, FaultInjector
 from repro_torch.ft.recovery import CircuitBreaker
 from repro_torch.graph.compiled import CompiledRun, GraphPool
-from repro_torch.graph.executor import USER_INDEX_FEED, Executor
+from repro_torch.graph.executor import (USER_INDEX_FEED, Executor,
+                                        node_ranges)
 from repro_torch.graph.ir import Graph, infer_shapes
 from repro_torch.kernels.din_attention import prepare_din_params
 from repro_torch.kernels.mari_matmul.ops import (prepare_mari_params,
@@ -347,7 +355,9 @@ class ServingEngine:
             # stage 1 at batch 1: one graph per user-feed signature
             self._stage1_run = CompiledRun(self._stage1.run,
                                            device=self.device,
-                                           pool=self.graph_pool)
+                                           pool=self.graph_pool,
+                                           name="stage1",
+                                           node_ranges=node_ranges)
             # a list, not a set: its order is the stage-1 graphs' feed order
             self._stage1_inputs = [
                 n.name for n in self.split.stage1.input_nodes()]
@@ -413,7 +423,8 @@ class ServingEngine:
         self.lazy_gather_inputs = self._stage2_ex.lazy_gather_inputs
         # the port's _build_rowwise: one graph per (u_dim, bucket, route)
         self._stage2_run = CompiledRun(self._stage2_body, device=self.device,
-                                       pool=self.graph_pool)
+                                       pool=self.graph_pool, name="stage2",
+                                       node_ranges=node_ranges)
 
         # -- device-resident tier: persistent slot tables beside the LRU --
         self.device_resident = (plan.cache.device_resident
@@ -449,7 +460,6 @@ class ServingEngine:
         # -- observability (plan.obs): histogram metrics here, the tracer
         # after the fault injector it is handed to --
         self.metrics: MetricsRegistry | None = None
-        self._group_wall_hist = None
         if plan.obs.metrics:
             self.metrics = MetricsRegistry()
             for name, fn in (
@@ -461,7 +471,6 @@ class ServingEngine:
                     ("coalesced_calls", lambda: self.coalesced_calls),
                     ("pipeline_forks", lambda: self.pipeline_forks)):
                 self.metrics.gauge(name, fn)
-            self._group_wall_hist = self.metrics.histogram("group_wall_ms")
         self._group_seq = 0           # begin_coalesced calls (group ids)
         self._group_slots: set[int] = set()  # outstanding trace tracks
         self._trace_req_seq = 0       # engine-side request sampling seq
@@ -576,6 +585,9 @@ class ServingEngine:
         construction."""
         self.tracer = tracer
         self.cache.set_tracer(tracer)
+        self._stage2_run.set_tracer(tracer)
+        if self._stage1_run is not None:
+            self._stage1_run.set_tracer(tracer)
         if self._device_store is not None:
             self._device_store.set_tracer(tracer)
         if self.fault_injector is not None:
@@ -851,7 +863,13 @@ class ServingEngine:
             feeds = {k: req.user_feeds[k] for k in self._stage1_inputs
                      if k in req.user_feeds}
             reps = self._stage1_run(self.params, feeds)
-            self._sync()
+            trc = self.tracer
+            if trc is None:
+                self._sync()
+            else:
+                t_s = time.perf_counter()
+                self._sync()
+                trc.complete("stage1.sync", t_s, time.perf_counter() - t_s)
             self.stage1_calls += 1
             s = time.perf_counter() - t0
             self.profiler.add("stage1", s)
@@ -1066,14 +1084,26 @@ class ServingEngine:
         for (pack_items, _, _), (out, ev, _, hedged), on_slots in zip(
                 handle.packs, handle.launched, slots_mask):
             total = sum(n for _, _, _, n in pack_items)
+            if trc is not None:
+                t_w = time.perf_counter()
             if ev is not None:
                 with prof.phase("device"):
                     ev.synchronize()
+            if trc is not None:
+                t_p = time.perf_counter()
             act = self._poke("collect", group=handle.gid)
+            if trc is not None:
+                t_u = time.perf_counter()
             with prof.phase("unpack"):
                 scores = np.concatenate(
                     [out[o].cpu().numpy() for o in self.outputs],
                     axis=-1)[:total]
+            if trc is not None:
+                # the device and unpack phases' intervals, the fault hook
+                # between them left out
+                trc.steps(("collect.wait" if ev is not None else None,
+                           None, "collect.unpack"),
+                          (t_w, t_p, t_u, time.perf_counter()))
             if act is CORRUPT:
                 scores = np.full_like(scores, np.nan)
             if detect and not np.isfinite(scores).all():
@@ -1101,8 +1131,6 @@ class ServingEngine:
                 per_req_packs[ri] += 1
                 per_req_hedged[ri] += hedged
         wall_ms = (time.perf_counter() - handle.t0) * 1e3
-        if self._group_wall_hist is not None:
-            self._group_wall_hist.record(wall_ms)
         if trc is not None:
             trc.complete("collect", t0c, time.perf_counter() - t0c,
                          group=handle.gid, packs=len(handle.packs))
@@ -1222,12 +1250,17 @@ class ServingEngine:
         lo = self._shard_rank * rows
         hi = lo + rows
         pin = self.device.type == "cuda"
+        trc = self.tracer
+        if trc is not None:
+            t_a = time.perf_counter()
         uidx = torch.empty((rows,), dtype=torch.int32, pin_memory=pin)
         # candidate feeds in the pinned signature's order, whatever order
         # a request lists them in: one compiled signature per shape
         cand = {k: torch.empty((rows,) + row, dtype=_torch_dtype(dt),
                                pin_memory=pin)
                 for k, (dt, row) in self._feed_sig.items()}
+        if trc is not None:
+            t_f = time.perf_counter()
         uidx_np = uidx.numpy()
         cand_np = {k: b.numpy() for k, b in cand.items()}
         offset = 0
@@ -1246,6 +1279,9 @@ class ServingEngine:
             uidx_np[a:] = slot_ids[slot]
             for k, buf in cand_np.items():
                 buf[a:] = chunk[k][n - 1]
+        if trc is not None:
+            trc.steps(("pack.alloc", "pack.fill"),
+                      (t_a, t_f, time.perf_counter()))
         if self._poke("transfer_copy") is CORRUPT:
             # detectable corruption: NaN-poison the float candidate rows;
             # NaN reaches the scores and is caught at collect

@@ -1970,6 +1970,42 @@ def test_captured_stages_match_eager_at_every_bucket(cuda, model):
     eng.close()
 
 
+def test_traced_engine_maps_its_graphs_and_keeps_its_scores(cuda):
+    """A traced engine on the card: each graph built in set-up gets a
+    kernel map whose every replayed kernel is matched by name to the eager
+    run's and named by its node, the target-attention node among them;
+    the map is pinned once a graph and kept through the tracer's clear;
+    and the scores equal the untraced engine's bit for bit."""
+    graph, params = _model("din", cuda)
+    plan = ServePlan.preset("tpu").evolve(
+        batch__max_batch=64, batch__min_bucket=8, batch__hedging=False)
+    plain = ServingEngine(graph, params, plan, device=cuda)
+    traced = ServingEngine(graph, params, plan.evolve(obs__trace=True),
+                           device=cuda)
+    reqs = _requests(graph, (5, 9, 17, 33), seed=3)
+    for _ in range(2):
+        for a, b in zip(plain.score_coalesced(reqs),
+                        traced.score_coalesced(reqs)):
+            np.testing.assert_array_equal(a.scores, b.scores)
+    maps = [(e[1], e[6]) for e in traced.tracer.events()
+            if e[1] in ("stage1.graph", "stage2.graph")]
+    assert len(maps) == (traced.stage1_compilations
+                         + traced.stage2_compilations)
+    for name, m in maps:
+        assert m["replay"] and m["eager"] == len(m["replay"]), name
+        assert all(k[0] is not None for k in m["replay"]), name
+        assert m["copy_in"] and m["copy_out"], name
+    assert any(k[0] == "target_attention" for name, m in maps
+               if name == "stage2.graph" for k in m["replay"])
+    traced.tracer.clear()
+    traced.score_coalesced(reqs)
+    again = [(e[1], e[6]) for e in traced.tracer.events()
+             if e[1] in ("stage1.graph", "stage2.graph")]
+    assert again == maps
+    plain.close()
+    traced.close()
+
+
 def test_compiled_packs_in_flight_at_one_bucket(cuda):
     """Eight groups at one bucket launched before any is collected: each
     replay's outputs are copied out behind it, so no group reads another

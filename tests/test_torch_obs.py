@@ -25,7 +25,9 @@ from repro_torch.graph.executor import init_graph_params
 from repro_torch.launch import serve as launcher
 from repro_torch.models.ranking import (PaperRankingConfig,
                                         build_paper_ranking_model)
-from repro_torch.obs import (Tracer, chrome_events, merge_trace_files,
+from repro_torch.graph import compiled, executor
+from repro_torch.obs import (BATCHER_SPANS, PORT_SPANS, Tracer,
+                             chrome_events, kernel_map, merge_trace_files,
                              trace_payload, write_trace)
 from repro_torch.serve import (CoalescingBatcher, ObsPlan, PlanError,
                                PlanResolutionWarning, RankingService,
@@ -88,11 +90,40 @@ class TestTracer:
         t.instant("hit", user=3)
         t.complete("stage1", 1.0, 0.5, user=3)
         assert [e[0] for e in t.events()] == ["X", "B", "E", "i", "X"]
-        tid = threading.get_ident()
+        # the operating system's thread id, which the profiler records
+        tid = threading.get_native_id()
         assert all(e[4] == tid for e in t.events())
         assert t.thread_names()[tid] == threading.current_thread().name
         t.clear()
         assert len(t) == 0 and t.recorded == 0
+
+    def test_steps_are_one_entry_listed_as_spans(self):
+        """Consecutive spans in one ring entry, a None name a gap; the
+        ring counts the entry once."""
+        t = Tracer(capacity=4)
+        t.steps(("a", None, "c"), (1.0, 2.0, 2.5, 4.0), graph=7)
+        assert len(t) == 1 and t.recorded == 1
+        tid = threading.get_native_id()
+        assert t.events() == [("X", "a", 1.0, 1.0, tid, None, {"graph": 7}),
+                              ("X", "c", 2.5, 1.5, tid, None, {"graph": 7})]
+
+    def test_pins_outlive_the_ring_and_clear(self):
+        """A pinned event is listed first, survives the ring's wrap and
+        ``clear``, and a second pin of its key replaces it."""
+        t = Tracer(capacity=2)
+        t.pin("map", 0, v=1)
+        t.pin("map", 1, v=2)
+        t.pin("map", 0, v=3)
+        for i in range(5):
+            t.instant("e", i=i)
+        assert t.dropped == 3
+        ev = t.events()
+        assert [(e[0], e[1], e[3], e[6]) for e in ev[:2]] == [
+            ("X", "map", 0.0, {"v": 3}), ("X", "map", 0.0, {"v": 2})]
+        assert [e[6]["i"] for e in ev[2:]] == [3, 4]
+        t.clear()
+        assert [e[6]["v"] for e in t.events()] == [3, 2]
+        assert len(t) == 0
 
     def test_sampling(self):
         t = Tracer(sample_every=4)
@@ -277,8 +308,9 @@ class TestEngineTracing:
 
     def test_events_match_the_reference(self, paper):
         """The same scenario through the reference's traced engine and the
-        port's: the same event names, and per name the same phase and
-        argument keys (timings and thread ids aside)."""
+        port's: every reference event under its name, with the same phase
+        and argument keys (timings and thread ids aside), and beside them
+        exactly the port's declared spans (``PORT_SPANS``)."""
         graph, _, user_in = paper
         jg = j_paper(JPaperCfg().scaled(0.03))[0]
         jp = j_init(jg, jax.random.PRNGKey(0))
@@ -307,7 +339,8 @@ class TestEngineTracing:
             return out
 
         want, got = shape(jeng), shape(teng)
-        assert set(got) == set(want)
+        assert set(want) <= set(got)
+        assert set(got) - set(want) == set(PORT_SPANS)
         assert {"group", "stage1", "pack", "dispatch", "begin_coalesced",
                 "collect", "cache_hit", "cache_miss",
                 "cache_evict"} <= set(got)
@@ -451,6 +484,221 @@ class TestEngineTracing:
         assert validate(payload, require=["submit", "group"]) == []
         assert {e["pid"] for e in payload["traceEvents"]} == {0, 1}
         svc.close()
+
+
+# -- the port's spans beneath the reference's --------------------------------
+
+# each child span's parent: the span it splits, on the same thread
+PARENT = {"stage1": "stage1", "pack": "pack", "stage2": "dispatch",
+          "collect": "collect"}
+
+
+def _spans(tracer):
+    return [(name, ts, ts + dur, tid, args or {})
+            for ph, name, ts, dur, tid, _, args in tracer.events()
+            if ph == "X"]
+
+
+def _served(paper, plan, n=12):
+    """``n`` requests of three users' pools through a batcher."""
+    graph, _, user_in = paper
+    eng = _engine(paper, plan)
+    reqs = [_request(graph, user_in, 100 + i, 5 + 7 * (i % 3), seed=i)
+            for i in range(n)]
+    with CoalescingBatcher.from_plan(eng, eng.plan.batch) as b:
+        res = [f.result() for f in [b.submit(r) for r in reqs]]
+    return eng, b, reqs, res
+
+
+class TestPortSpans:
+    def test_children_nest_in_their_parents_on_one_thread(self, paper):
+        eng, _, _, _ = _served(paper, TRACE_PLAN)
+        spans = _spans(eng.tracer)
+        names = {n for n, *_ in spans}
+        assert set(PORT_SPANS) <= names
+        assert set(BATCHER_SPANS) - {"batcher.wait"} <= names
+        # the batcher's spans all on its worker thread, not the caller's
+        tids = {tid for name, _, _, tid, _ in spans
+                if name.startswith("batcher.")}
+        assert len(tids) == 1 and threading.get_native_id() not in tids
+        for name, s, e, tid, _ in spans:
+            head = name.partition(".")[0]
+            if name in PORT_SPANS:
+                assert any(p == PARENT[head] and t == tid and ps <= s
+                           and e <= pe
+                           for p, ps, pe, t, _ in spans), name
+            assert e >= s
+        eng.close()
+
+    def test_stage_spans_once_per_call(self, paper):
+        eng, _, _, _ = _served(paper, TRACE_PLAN)
+        count = {}
+        for name, *_ in _spans(eng.tracer):
+            count[name] = count.get(name, 0) + 1
+        assert count["stage1"] == eng.stage1_calls > 0
+        for step in ("copy_in", "replay", "copy_out", "sync"):
+            assert count[f"stage1.{step}"] == count["stage1"], step
+        assert count["dispatch"] == eng.stage2_calls > 0
+        for step in ("copy_in", "replay", "copy_out"):
+            assert count[f"stage2.{step}"] == count["dispatch"], step
+        assert count["pack.alloc"] == count["pack.fill"] == count["pack"]
+        assert count["collect.unpack"] == count["pack"]
+        eng.close()
+
+    def test_a_compiled_call_is_one_ring_entry(self):
+        """A traced call records its three steps as one ``steps`` entry:
+        consecutive spans, each with the entry's ordinal."""
+        import torch
+
+        def body(params, feeds):
+            return {"y": feeds["x"] * params["w"]}
+
+        run = compiled.CompiledRun(body, device="cpu", name="s")
+        tracer = Tracer()
+        run.set_tracer(tracer)
+        params = {"w": torch.tensor(2.0)}
+        for n in (3, 3, 5):
+            run(params, {"x": torch.ones(n)})
+        assert len(tracer) == 3
+        ev = tracer.events()
+        assert [e[1] for e in ev] == ["s.copy_in", "s.replay",
+                                      "s.copy_out"] * 3
+        assert [e[6]["graph"] for e in ev] == [0] * 6 + [1] * 3
+        for a, b in zip(ev, ev[1:]):
+            if a[1] != "s.copy_out":
+                assert a[2] + a[3] == pytest.approx(b[2])
+
+    def test_linger_carries_its_group(self, paper):
+        eng, b, reqs, _ = _served(paper, TRACE_PLAN)
+        linger = [a for n, *_, a in _spans(eng.tracer)
+                  if n == "batcher.linger"]
+        claims = [a for n, *_, a in _spans(eng.tracer)
+                  if n == "batcher.claim"]
+        assert linger and len(linger) == len(claims) == b.batches
+        for a in linger:
+            assert set(a) == {"reqs", "rows", "depth", "dropped"}
+            assert 1 <= a["reqs"] and 1 <= a["depth"] <= len(reqs)
+            assert a["dropped"] == 0
+        assert sum(a["reqs"] for a in linger) == len(reqs)
+        assert sum(a["rows"] for a in linger) == sum(
+            next(iter(r.candidate_feeds.values())).shape[0] for r in reqs)
+        resolved = [a["reqs"] for n, *_, a in _spans(eng.tracer)
+                    if n == "batcher.resolve"]
+        assert sum(resolved) == len(reqs)
+        eng.close()
+
+    def test_queued_gauge(self, paper):
+        eng, b, _, _ = _served(paper, ServePlan().evolve(
+            batch__hedging=False))
+        assert b.metrics.snapshot()["queued"] == 0
+        assert "group_wall_ms" not in b.metrics.snapshot()
+        eng.close()
+
+    def test_off_records_nothing_and_profiles_nothing(self, paper,
+                                                      monkeypatch):
+        """With tracing off no span is pushed, the compiled stages read no
+        clock, and nothing opens a profiler or a profiler range."""
+        calls = {"push": 0, "clock": 0, "profiler": 0}
+
+        def push(*a, **k):
+            calls["push"] += 1
+
+        def clock():
+            calls["clock"] += 1
+            return 0.0
+
+        def profiler(*a, **k):
+            calls["profiler"] += 1
+            raise AssertionError("a profiler call with tracing off")
+
+        monkeypatch.setattr(Tracer, "_push", push)
+        monkeypatch.setattr(compiled, "time",
+                            type("T", (), {"perf_counter": clock}))
+        import torch.profiler
+        monkeypatch.setattr(torch.profiler, "profile", profiler)
+        monkeypatch.setattr(torch.profiler, "record_function", profiler)
+        eng, _, reqs, res = _served(paper, ServePlan().evolve(
+            batch__hedging=False))
+        assert len(res) == len(reqs) and eng.tracer is None
+        assert calls == {"push": 0, "clock": 0, "profiler": 0}
+        eng.close()
+
+    def test_traced_and_untraced_batchers_score_alike(self, paper):
+        plain = _served(paper, ServePlan().evolve(batch__hedging=False))
+        traced = _served(paper, TRACE_PLAN)
+        for x, y in zip(plain[3], traced[3]):
+            np.testing.assert_array_equal(x.scores, y.scores)
+        plain[0].close()
+        traced[0].close()
+
+
+class TestKernelMap:
+    def test_node_ranges_name_each_node(self, paper):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        graph, params, user_in = paper
+        ex = executor.Executor(graph, "uoi", device="cpu")
+        feeds = {k: torch.as_tensor(v)
+                 for k, v in _feeds(graph, 3, seed=0).items()}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            ex.run(params, feeds)
+            with executor.node_ranges():
+                ex.run(params, feeds)
+        got = [ev.name() for ev in prof.profiler.kineto_results.events()
+               if ev.is_user_annotation()]
+        assert sorted(got) == sorted(f"node {n.op} {n.name}"
+                                     for n in graph.topo_order())
+        assert getattr(executor._NODE_RANGE, "fn", None) is None
+
+    def test_node_ranges_are_per_thread(self, paper):
+        """Ranges opened on one thread leave another thread's runs
+        alone."""
+        seen = []
+        with executor.node_ranges():
+            seen.append(getattr(executor._NODE_RANGE, "fn", None))
+            th = threading.Thread(target=lambda: seen.append(
+                getattr(executor._NODE_RANGE, "fn", None)))
+            th.start()
+            th.join()
+        assert seen[0] is not None and seen[1] is None
+
+    def test_map_from_made_up_events(self):
+        """Device ops to runtime calls by correlation id, to steps and
+        nodes by thread and time; a kernel only the replay launched gets
+        no node, and does not shift the ones after it."""
+        R = True
+        cpu = [
+            ("compiled.copy_in", 0, 10, 1, 0, R),
+            ("aten::copy_", 1, 9, 1, 90, False),
+            ("cudaMemcpyAsync", 2, 3, 1, 1, False),
+            ("compiled.eager", 20, 60, 1, 0, R),
+            ("node target_attention attn", 21, 40, 1, 0, R),
+            ("aten::add", 22, 30, 1, 91, False),
+            ("aten::add_", 23, 29, 1, 92, False),
+            ("cudaLaunchKernel", 24, 25, 1, 2, False),
+            ("cudaLaunchKernel", 32, 33, 1, 3, False),
+            ("aten::take", 45, 50, 1, 93, False),
+            ("cudaLaunchKernel", 46, 47, 1, 4, False),
+            ("cudaLaunchKernel", 46, 47, 2, 9, False),   # another thread
+            ("compiled.replay", 70, 80, 1, 0, R),
+            ("cudaGraphLaunch", 71, 72, 1, 5, False),
+            ("compiled.copy_out", 81, 90, 1, 0, R),
+            ("cudaMemcpyAsync", 82, 83, 1, 6, False),
+        ]
+        dev = [("Memcpy HtoD (Pinned -> Device)", 4, 1),
+               ("k_add", 26, 2), ("k_mlp", 34, 3), ("k_take", 48, 4),
+               ("stray", 48, 9),
+               ("k_add", 73, 5), ("k_extra", 74, 5), ("k_mlp", 75, 5),
+               ("k_take", 76, 5), ("Memcpy DtoD (Device -> Device)", 84, 6)]
+        m = kernel_map.kernel_map(cpu, dev)
+        assert m["copy_in"] == ("Memcpy HtoD (Pinned -> Device)",)
+        assert m["copy_out"] == ("Memcpy DtoD (Device -> Device)",)
+        assert m["eager"] == 3
+        assert m["replay"] == (
+            ("target_attention", "attn", "aten::add", "k_add"),
+            (None, None, None, "k_extra"),
+            ("target_attention", "attn", "", "k_mlp"),
+            ("", "", "aten::take", "k_take"))
 
 
 @pytest.mark.parametrize("argv", [
